@@ -11,14 +11,23 @@ Phases, each printing its own lines:
    card, in float32, at the shapes the pipeline gives it (and the generic
    Riccati kernels at other shapes): deviation, bound, and median CUDA-event
    times of kernel and plain version.
-3. The certified two-stage pipeline (Gauss-Newton seek, exact-Hessian
-   polish) at B=8192 through ``solve_batch_compact``, with each kernel's
-   launch count, the converged share, the KKT error and RMS(u) against the
-   golden optimum over the converged lanes.
+   Then the same at the state-constrained family's shapes: K3/K4 for a
+   2-D state with 1 drive at a fixed Δt, K1/K2 at (n_s, n_v) = (2, 1) on
+   inputs captured from that family's own solve, one lane made indefinite.
+3. Path 1, the certified two-stage pipeline (Gauss-Newton seek,
+   exact-Hessian polish) at B=8192 through ``solve_batch_compact``, with
+   each kernel's launch count, the converged share, the KKT error and
+   RMS(u) against the golden optimum over the converged lanes.
+4. Path 2, the state-constrained family (‖x_k‖² ≤ cap at every knot: one
+   fast inequality row per knot, slacks and duals) at B=8192, N=51, float32,
+   exact Hessian, compensated residuals, with each kernel's launch count,
+   the converged share, the KKT error, max |u − u*| against the float64
+   golden ``tests/golden/torch/state_constrained_n51.npz`` and the
+   constraint's violation over the converged lanes.
 
 Exits non-zero if there is no CUDA device, if any kernel fails to build,
-launch or agree, if a kernel of the main path was never launched, or if the
-pipeline's result does not meet its certificate. The last line is
+launch or agree, if a kernel of a path was never launched during it, or if
+a path's result does not meet its certificate. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -35,7 +44,9 @@ import numpy as np
 import torch
 
 GOLDEN_RMS = 1e-4  # max RMS(u) against the golden optimum, per converged lane
+GOLDEN_U = 1e-4  # path 2: max |u − u*| against its golden optimum, per converged lane
 KKT_CERT = 1e-6  # max KKT error per converged lane
+VIOL_CERT = 1e-6  # path 2: max (‖x_k‖² − cap) per converged lane
 MIN_CONVERGED = 0.99  # share of lanes that must converge
 DEVICE = "cuda:0"
 
@@ -52,6 +63,10 @@ KERNELS = {
     "residual_l1": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
                     "directtrajopt_tpu/ops/expv_kernel.py:293"),
 }
+# path 2 rows of the kernels table: (row name, launch-count key)
+PATH2 = [("factor_solve_sc", "factor_solve"), ("resolve_sc", "resolve"),
+         ("window_jac_sc", "window_jac"), ("residual_sc", "residual"),
+         ("residual_l1_sc", "residual_l1")]
 # the (n_s, n_v, R) of each Riccati kernel's exact-size instantiation; other
 # shapes run the generic kernel (n_s <= 16, n_v <= 8, R <= 8)
 EXACT = {"factor_solve": (8, 3, 3), "resolve": (8, 3, 2)}
@@ -123,6 +138,25 @@ def lane_rel(x, ref, mask) -> float:
     return float(r.max()) if r.numel() else 0.0
 
 
+def well_conditioned(plain, args, tol: float = 1e-3) -> torch.Tensor:
+    """Lanes on which the plain float32 version reproduces a float64
+    evaluation to ``tol`` relative (per lane, every output; certified lanes
+    only where there is a certificate). On the others float32 itself is off
+    by more than ``tol``, so two float32 evaluations legitimately disagree
+    by more than that (at O(1) on the worst-conditioned lanes)."""
+    p32 = plain(*args)
+    p64 = plain(args[0], *(t.double() for t in args[1:]))
+    mask = torch.ones(args[1].shape[0], dtype=torch.bool, device=args[1].device)
+    for x, y in zip(p32, p64):
+        if x.dtype == torch.bool:
+            mask &= x & y
+            continue
+        d = (x.double() - y).abs().reshape(x.shape[0], -1).amax(1)
+        s = y.abs().reshape(x.shape[0], -1).amax(1).clamp(min=1.0)
+        mask &= d / s <= tol
+    return mask
+
+
 class Capture:
     """Record the arguments of the first ``n`` calls of a kernel wrapper."""
 
@@ -170,7 +204,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script measures the GPU port only")
     from directtrajopt_tpu_torch import benchmarks
     from directtrajopt_tpu_torch.ops import _build, expv_kernel, riccati_kernel
-    from directtrajopt_tpu_torch.solvers.solve import cast_problem, solve
+    from directtrajopt_tpu_torch.solvers.options import IPMOptions
+    from directtrajopt_tpu_torch.solvers.solve import cast_problem, solve, solve_batch_compact
 
     dev = torch.device(DEVICE)
     smi = subprocess.run(
@@ -183,7 +218,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     info = _build.build_info()
-    print(f"[env] kernel build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(info['path'])}")
+    print(f"[env] kernel build: {time.perf_counter() - t0:.1f} s -> "
+          f"{os.path.basename(info['path'])}")
     for line in ptxas_summary(info.get("log", "")):
         print(f"[ptxas] {line}")
 
@@ -199,13 +235,17 @@ def main() -> None:
         solve(prob256, max_iter=3, compensated_residuals=True)
     results = {}
 
-    def check(name, label, kern, plain, tol, rel, extra_ok=None):
+    def check(name, label, kern, plain, tol, rel, extra_ok=None, lanes=None):
+        """``lanes``: compare the outputs on these lanes only (a bool mask)."""
         out_k = kern()
         out_p = plain()
         torch.cuda.synchronize()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        dev_rel, dev_abs = max_dev(outs_p, outs_k, rel)
+        if lanes is None:
+            dev_rel, dev_abs = max_dev(outs_p, outs_k, rel)
+        else:
+            dev_rel, dev_abs = max_dev([t[lanes] for t in outs_p], [t[lanes] for t in outs_k], rel)
         ms_k, ms_p = cuda_ms(kern), cuda_ms(plain)
         ok = dev_rel <= tol and (extra_ok is None or extra_ok(outs_p, outs_k))
         kind = "relative" if rel else "absolute"
@@ -266,30 +306,56 @@ def main() -> None:
     # plain float32 version is (worst case over the calls; floor: the 5e-6
     # bound above). Two float32 sweeps of 51 stages legitimately differ by
     # more than 5e-6 on the IPM's conditioning.
-    worst = {}
-    for label, calls, kern, plain, has_ok in (
-        ("K1", cap_f.calls, riccati_kernel.factor_solve, riccati_kernel.factor_solve_plain, True),
-        ("K2", cap_r.calls, riccati_kernel.resolve, riccati_kernel.resolve_plain, False),
-    ):
-        for a in calls:
-            k, p32 = kern(*a), plain(*a)
-            p64 = plain(a[0], *(t.double() for t in a[1:]))
-            if has_ok:
-                if not (bool((k[5] == p64[5]).all()) and bool((p32[5] == p64[5]).all())):
-                    fail("K1 certificate disagrees on pipeline inputs")
-                mask = p64[5]
-                k, p32, p64 = (tuple(t for i, t in enumerate(o) if i != 5) for o in (k, p32, p64))
-            else:
-                mask = torch.ones(a[1].shape[0], dtype=torch.bool, device=dev)
-            for i, (x, y, z) in enumerate(zip(k, p32, p64)):
-                ek, ep = worst.get((label, i), (0.0, 0.0))
-                worst[(label, i)] = (max(ek, lane_rel(x, z, mask)), max(ep, lane_rel(y, z, mask)))
-    ratio = max(ek / max(ep, 5e-6) for ek, ep in worst.values())
-    print(f"[kernel] K1/K2 on {len(cap_f.calls)}+{len(cap_r.calls)} captured pipeline calls: "
-          f"certificates equal; worst output's (kernel vs f64) / max(plain f32 vs f64, 5e-6) "
-          f"= {ratio:.2f} (bound 3)", flush=True)
-    if ratio > 3.0:
-        fail("K1/K2 are less accurate than their plain versions on pipeline inputs")
+    def pipeline_calls(what, cap_f, cap_r, well_only=False):
+        """``well_only`` (path 2, whose lanes with an infeasible guess start
+        at D ≈ 1e15): hold the kernel's certificate to the plain float32 one,
+        and compare outputs, on the well-conditioned lanes only (elsewhere a
+        pivot can sit at the rounding level, so two float32 sweeps may
+        decide it differently)."""
+        worst = {}
+        n_cert_f64 = n_cert_k = 0
+        for label, calls, kern, plain, has_ok in (
+            ("K1", cap_f.calls, riccati_kernel.factor_solve, riccati_kernel.factor_solve_plain,
+             True),
+            ("K2", cap_r.calls, riccati_kernel.resolve, riccati_kernel.resolve_plain, False),
+        ):
+            for a in calls:
+                k, p32 = kern(*a), plain(*a)
+                p64 = plain(a[0], *(t.double() for t in a[1:]))
+                if has_ok:
+                    n_cert_f64 += int((p32[5] != p64[5]).sum())
+                    n_cert_k += int((k[5] != p32[5]).sum())
+                    if well_only:
+                        mask = well_conditioned(plain, a)
+                        if not bool(k[5][mask].all()):
+                            fail(f"K1 certificate disagrees with its plain version on {what} inputs")
+                    elif not (bool((k[5] == p64[5]).all()) and bool((p32[5] == p64[5]).all())):
+                        fail(f"K1 certificate disagrees on {what} inputs")
+                    else:
+                        mask = p64[5]
+                    k, p32, p64 = (tuple(t for i, t in enumerate(o) if i != 5)
+                                   for o in (k, p32, p64))
+                elif well_only:
+                    mask = well_conditioned(plain, a)
+                else:
+                    mask = torch.ones(a[1].shape[0], dtype=torch.bool, device=dev)
+                for i, (x, y, z) in enumerate(zip(k, p32, p64)):
+                    ek, ep = worst.get((label, i), (0.0, 0.0))
+                    worst[(label, i)] = (max(ek, lane_rel(x, z, mask)),
+                                         max(ep, lane_rel(y, z, mask)))
+        ratio = max(ek / max(ep, 5e-6) for ek, ep in worst.values())
+        cert = (f"on well-conditioned lanes the kernel's certificate equals the plain float32 "
+                f"one and"
+                f" (elsewhere the kernel's and plain float32's differ on {n_cert_k} lane-calls, "
+                f"plain float32's and float64's on {n_cert_f64})"
+                if well_only else "certificates equal;")
+        print(f"[kernel] K1/K2 on {len(cap_f.calls)}+{len(cap_r.calls)} captured {what} calls: "
+              f"{cert} worst output's (kernel vs f64) / max(plain f32 vs f64, 5e-6) "
+              f"= {ratio:.2f} (bound 3)", flush=True)
+        if ratio > 3.0:
+            fail(f"K1/K2 are less accurate than their plain versions on {what} inputs")
+
+    pipeline_calls("pipeline", cap_f, cap_r)
 
     prob_big = cast_problem(benchmarks.make_batched_bilinear_problems(
         B, N=N, feasible_start=True, taylor_order=order, device=dev,
@@ -316,7 +382,89 @@ def main() -> None:
           lambda: expv_kernel.residual_action(order, *targs),
           lambda: expv_kernel.residual_action_plain(order, *targs), 2e-6, False)
 
-    # ---------------- 3. the pipeline -------------------------------------- #
+    # ---- at the state-constrained family's shapes (path 2) ---------------- #
+    sc_cfg = benchmarks.state_constrained_config()
+    B2, N2 = sc_cfg["batch"], sc_cfg["N"]
+    prob_sc = cast_problem(benchmarks.make_batched_state_constrained_problems(
+        B2, N=N2, device=dev), torch.float32)
+    integ_sc = prob_sc.integrators[0]
+    lay_sc = prob_sc.trajectory.layout
+    order_sc = integ_sc.taylor_order
+    a_sc = integ_sc._lane_args(lay_sc, prob_sc.trajectory.knot_matrix())
+    check("window_jac_sc", f"K3 window_jac <2,1> fixed dt B={B2} x {a_sc[4].shape[1]} windows",
+          lambda: expv_kernel.window_jac(order_sc, False, *a_sc[:5]),
+          lambda: expv_kernel.window_jac_plain(order_sc, False, *a_sc[:5]), 2e-6, False)
+    # K4 on path 2's own trial grid: one chunk of B2 problems x (max_ls + 2) slots
+    n_slots2 = IPMOptions().max_ls + 2
+    Z2 = prob_sc.trajectory.to_zvec()
+    dZ2 = torch.as_tensor(1e-3 * rng.standard_normal(Z2.shape), dtype=torch.float32, device=dev)
+    al2 = torch.as_tensor(0.5 ** np.arange(n_slots2), dtype=torch.float32, device=dev)
+    Zt2 = (Z2[:, None] + al2[None, :, None] * dZ2[:, None]).reshape(
+        B2, n_slots2, lay_sc.N, lay_sc.dim)
+    t_sc = integ_sc._lane_args(lay_sc, Zt2)
+    # the L1 form sums 100 rounded terms of this family's O(0.1) residuals
+    # per lane (Σ|r| of a few units), so its 2e-6 bound is relative to
+    # max(Σ|r|, 1), as the CPU tests hold it (rtol 2e-6)
+    check("residual_l1_sc", f"K4 residual <2,1> (L1 form) lanes={B2}x{n_slots2}",
+          lambda: expv_kernel.residual_l1(order_sc, *t_sc),
+          lambda: expv_kernel.residual_l1_plain(order_sc, *t_sc), 2e-6, True)
+    check("residual_sc", f"K4 residual <2,1> (vector form) lanes={B2}x{n_slots2}",
+          lambda: expv_kernel.residual_action(order_sc, *t_sc),
+          lambda: expv_kernel.residual_action_plain(order_sc, *t_sc), 2e-6, False)
+    # K1 at (2,1,3) and K2 at (2,1,2) on inputs captured from path 2's own
+    # solve: its problem, all B2 lanes in one chunk, its options, 3 iterations
+    kw2 = {k: v for k, v in sc_cfg["solve_kw"].items() if k not in ("phases", "chunk")}
+    with Capture(riccati_kernel, "factor_solve", 64) as cap_f2, \
+            Capture(riccati_kernel, "resolve", 64) as cap_r2:
+        solve(prob_sc, max_iter=3, **kw2)
+    f_args = list(cap_f2.calls[0])
+    shape_f = (f_args[1].shape[-1], f_args[3].shape[-1], f_args[6].shape[1])
+    ok0 = riccati_kernel.factor_solve_plain(*f_args)[5]
+    bad_lane = int(torch.nonzero(ok0)[0, 0])  # a certified lane, made indefinite at stage 20
+    f_args[3] = f_args[3].clone()
+    f_args[3][bad_lane, 20] = -1e6
+    ok1 = riccati_kernel.factor_solve_plain(*f_args)[5]
+    if bool(ok1[bad_lane]) or not bool((ok1 | (torch.arange(len(ok1), device=dev) == bad_lane)
+                                        == ok0).all()):
+        fail("the indefinite path-2 fixture must fail the certificate on its lane alone")
+    # The certificate must equal the plain float32 one on the indefinite lane
+    # and on the well-conditioned lanes (plain float32 certified and within
+    # 1e-3 of float64); elsewhere a pivot can sit at the rounding level. The
+    # factors are compared where the plain float32 version reproduces float64
+    # to 1e-6, a fifth of the bound: only there can two float32 sweeps be held
+    # to 5e-6. Left out are the lanes whose guess violates the cap
+    # (s = slack_min, D = ν/s ≈ 1e15: float32 is off at O(1)) and a few dozen
+    # whose stage blocks reach 1e4-1e13.
+    well_c = well_conditioned(riccati_kernel.factor_solve_plain, f_args)
+    well_c[bad_lane] = True
+    n_diff = int((riccati_kernel.factor_solve(*f_args)[5] != ok1).sum())
+
+    def ok_equal_sc(p, k):
+        return bool((p[5] == k[5])[well_c].all())
+
+    well_f = well_conditioned(riccati_kernel.factor_solve_plain, f_args, tol=1e-6)
+    check("factor_solve_sc", f"K1 factor_solve (generic) on path-2 inputs B={B2} "
+                             f"(n_s,n_v,R)={shape_f}, lane {bad_lane} indefinite; certificate "
+                             f"equal on it and the {int(well_c.sum()) - 1} lanes where plain "
+                             f"float32 is within 1e-3 of float64 (differs on {n_diff} others); "
+                             f"factors compared on {int(well_f.sum())} lanes",
+          lambda: riccati_kernel.factor_solve(*f_args),
+          lambda: riccati_kernel.factor_solve_plain(*f_args), 5e-6, True, ok_equal_sc,
+          lanes=well_f)
+    r_args = cap_r2.calls[0]
+    shape_r = (r_args[1].shape[-1], r_args[2].shape[-1], r_args[8].shape[1])
+    well_r = well_conditioned(riccati_kernel.resolve_plain, r_args, tol=1e-6)
+    check("resolve_sc", f"K2 resolve (generic) on path-2 inputs B={B2} (n_s,n_v,R')={shape_r} "
+                        f"(compared on {int(well_r.sum())} lanes)",
+          lambda: riccati_kernel.resolve(*r_args),
+          lambda: riccati_kernel.resolve_plain(*r_args), 5e-6, True, lanes=well_r)
+    pipeline_calls("path-2", cap_f2, cap_r2, well_only=True)
+
+    # the captured calls (≈ 1.5 GiB at B=8192) go before the paths' peak
+    # device memory is measured
+    del cap_f, cap_r, cap_f2, cap_r2, f_args, r_args
+
+    # ---------------- 3. path 1: the certified pipeline -------------------- #
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
@@ -354,11 +502,54 @@ def main() -> None:
     if not (kkt_max <= KKT_CERT and rms_max < GOLDEN_RMS):
         fail("a converged lane is not certified")
 
+    # ---------------- 4. path 2: the state-constrained family --------------- #
+    del res1, res2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res_sc = solve_batch_compact(prob_sc, **sc_cfg["solve_kw"])
+    torch.cuda.synchronize()
+    t_path2 = time.perf_counter() - t0
+    launches2 = dict(_build.LAUNCHES)
+    conv2 = res_sc.converged.cpu().numpy()
+    kkt2 = res_sc.kkt_error.cpu().numpy()
+    it_sc = res_sc.iterations.cpu().numpy()
+    lanes2 = np.nonzero(conv2)[0]
+    err_u, viol = benchmarks.state_constrained_certificate(res_sc)
+    print(f"[path2] state-constrained B={B2} N={N2} float32: solve {t_path2:.2f} s; "
+          f"converged {len(lanes2)}/{B2}; iterations median {np.median(it_sc):g} "
+          f"max {it_sc.max()}")
+    kkt2_max = float(kkt2[lanes2].max()) if len(lanes2) else float("nan")
+    err_max = float(err_u[lanes2].max()) if len(lanes2) else float("nan")
+    viol_max = float(viol[lanes2].max()) if len(lanes2) else float("nan")
+    print(f"[path2] over converged lanes: max kkt {kkt2_max:.3e} (bound {KKT_CERT:g}), "
+          f"max |u - u*| {err_max:.3e} (bound {GOLDEN_U:g}), "
+          f"max (|x_k|^2 - cap) {viol_max:.3e} (bound {VIOL_CERT:g})")
+    print(f"[path2] kernel launches: {json.dumps(launches2)}; "
+          f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    st_sc = res_sc.status.cpu().numpy()
+    for i in np.nonzero(~conv2)[0][:16]:
+        print(f"[path2] unconverged lane {i}: {it_sc[i]} iterations, kkt {kkt2[i]:.3e}, "
+              f"status {st_sc[i]}")
+    if any(v == 0 for v in launches2.values()):
+        fail(f"a kernel of path 2 was never launched: {launches2}")
+    if len(lanes2) < MIN_CONVERGED * B2:
+        fail(f"path 2: only {len(lanes2)}/{B2} lanes converged")
+    if not (kkt2_max <= KKT_CERT and err_max <= GOLDEN_U and viol_max <= VIOL_CERT):
+        fail("path 2: a converged lane is not certified")
+
     table = []
     for name, (route, src, replaces) in KERNELS.items():
         r = results[name]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches[name], max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], plain_ms=r["plain_ms"]))
+    for name, key in PATH2:
+        route, src, replaces = KERNELS[key]
+        r = results[name]
+        table.append(dict(name=name, route=route, source=src, replaces=replaces,
+                          launches=launches2[key], max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"]))
     print(json.dumps({"kernels": table}))
     print(smi_line)

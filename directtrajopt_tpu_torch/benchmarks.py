@@ -6,6 +6,11 @@ a free Δt), plus the accelerator configuration of the benchmark's certified
 pipeline — ``headline_config``, ``run_headline`` and ``rms_u_vs_golden`` —
 which the tests and ``chip_smoke.py`` take from this one place.
 
+``make_batched_state_constrained_problems`` builds the second family: the
+2-D bilinear transfer with a state constraint ‖x_k‖² ≤ cap at every knot
+(the state-constrained end-to-end problem of the JAX package's tests), one
+lane per initial guess.
+
 Problems are built on the host in numpy from a seed (the same draws as the
 JAX package, so both packages pose the same problems) and put on
 ``device`` once.
@@ -19,25 +24,31 @@ import time
 import numpy as np
 import torch
 
+from .constraints import NonlinearKnotPointConstraint
 from .integrators import BilinearIntegrator, DerivativeIntegrator
-from .objectives import QuadraticRegularizer
+from .objectives import QuadraticRegularizer, TerminalObjective
 from .problem import DirectTrajOptProblem
+from .rollout import bilinear_rollout
 from .trajectory import Trajectory
 
 __all__ = [
     "pauli_generators",
     "make_bilinear_problem",
     "make_batched_bilinear_problems",
+    "make_batched_state_constrained_problems",
+    "state_constrained_config",
+    "state_constrained_certificate",
     "headline_config",
     "run_headline",
     "rms_u_vs_golden",
     "GOLDEN_N51",
+    "GOLDEN_STATE_CONSTRAINED",
 ]
 
-GOLDEN_N51 = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "tests", "golden", "bilinear_n51_seed42.npz",
-)
+_GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "tests", "golden")
+GOLDEN_N51 = os.path.join(_GOLDEN_DIR, "bilinear_n51_seed42.npz")
+GOLDEN_STATE_CONSTRAINED = os.path.join(_GOLDEN_DIR, "torch", "state_constrained_n51.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):
@@ -67,6 +78,7 @@ def pauli_generators():
 
 
 def _bilinear_problem(data: dict, *, device, dtype, free_time: bool, taylor_order: int,
+                      goal_objective: float | None = None,
                       dt: float = 0.1, u_bound: float = 0.1, omega: float = 0.1):
     """Assemble the bilinear problem around per-lane data (B, N, ·)."""
     Gx, Gy, Gz = pauli_generators()
@@ -92,13 +104,19 @@ def _bilinear_problem(data: dict, *, device, dtype, free_time: bool, taylor_orde
         DerivativeIntegrator.create("du", "ddu"),
     ]
     obj = QuadraticRegularizer.create("u", traj, 1.0) + QuadraticRegularizer.create("du", traj, 1.0)
+    if goal_objective is not None:
+        goal = torch.tensor([0.0, 1.0, 0.0, 0.0], dtype=dtype, device=device)
+        obj = obj + TerminalObjective(lambda x: ((x - goal) ** 2).sum(), "x", traj,
+                                      Q=goal_objective)
     return DirectTrajOptProblem.create(traj, obj, integrators)
 
 
 def make_bilinear_problem(N: int = 51, seed: int = 42, *, device, dtype=torch.float64,
-                          free_time: bool = True, feasible_start: bool = False,
+                          free_time: bool = True, goal_objective: float | None = None,
+                          feasible_start: bool = False,
                           taylor_order: int = 12) -> DirectTrajOptProblem:
-    """The standard bilinear quantum-gate problem, as one lane."""
+    """The standard bilinear quantum-gate problem, as one lane.
+    ``goal_objective``: weight Q of a terminal cost Q·‖x_N − goal‖²."""
     rng = np.random.default_rng(seed)
     dt, u_bound, omega = 0.1, 0.1, 0.1
     Gx, Gy, Gz = pauli_generators()
@@ -113,7 +131,7 @@ def make_bilinear_problem(N: int = 51, seed: int = 42, *, device, dtype=torch.fl
         data["dt"] = np.full((N, 1), dt)
     data = {k: v[None] for k, v in data.items()}
     return _bilinear_problem(data, device=device, dtype=dtype, free_time=free_time,
-                             taylor_order=taylor_order)
+                             taylor_order=taylor_order, goal_objective=goal_objective)
 
 
 def make_batched_bilinear_problems(batch: int, N: int = 51, seed: int = 42, *, device,
@@ -123,9 +141,6 @@ def make_batched_bilinear_problems(batch: int, N: int = 51, seed: int = 42, *, d
                                    taylor_order: int = 12) -> DirectTrajOptProblem:
     """A batch of bilinear problems differing in initial controls and state
     data — the same draws as the JAX package's builder of that name."""
-    if goal_objective is not None:
-        raise NotImplementedError("goal_objective needs TerminalObjective, which is not "
-                                  "ported yet (ROADMAP Queue 1 item 10)")
     rng = np.random.default_rng(seed)
     dt, u_bound, omega = 0.1, 0.1, 0.1
     Gx, Gy, Gz = pauli_generators()
@@ -139,7 +154,73 @@ def make_batched_bilinear_problems(batch: int, N: int = 51, seed: int = 42, *, d
     if free_time:
         data["dt"] = np.full((batch, N, 1), dt)
     return _bilinear_problem(data, device=device, dtype=dtype, free_time=free_time,
-                             taylor_order=taylor_order)
+                             taylor_order=taylor_order, goal_objective=goal_objective)
+
+
+# the 2-D bilinear transfer of the state-constrained family
+SC_G_DRIFT = np.array([[0.0, 1.0], [-1.0, 0.0]])
+SC_G_DRIVE = np.array([[0.0, 1.0], [1.0, 0.0]])
+
+
+def make_batched_state_constrained_problems(batch: int, N: int = 51, seed0: int = 0, *, device,
+                                            dtype=torch.float64, dt: float = 0.15,
+                                            u_scale: float = 0.3,
+                                            taylor_order: int = 12) -> DirectTrajOptProblem:
+    """The state-constrained bilinear transfer, one lane per initial guess.
+
+    ``x_{k+1} = exp(Δt (G_d + u_k G_u)) x_k`` (2-D state, 1 drive, fixed Δt)
+    from x_0 = (1, 0) to the final state of a rollout under
+    ``u = u_scale·sin(2πk/(N−1))``, minimizing ½Σ‖Δt u_k‖², subject to
+    ``‖x_k‖² ≤ cap`` at every knot. Lane ℓ starts from the rollout plus
+    noise from ``np.random.default_rng(seed0 + ℓ)`` (0.05·N(0,1) on x, then
+    on u); the cap is lane 0's max ‖x_k‖² plus 0.2, shared by all lanes.
+    Built on the host in float64, then put on ``device`` once."""
+    u = u_scale * np.sin(np.linspace(0, 2 * np.pi, N))[:, None]
+    x0 = np.array([1.0, 0.0])
+    host = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=1, device="cpu")
+    xs = bilinear_rollout(host, torch.as_tensor(x0)[None], torch.as_tensor(u)[None], dt)[0].numpy()
+    xg, ug = [], []
+    for lane in range(batch):
+        rng = np.random.default_rng(seed0 + lane)
+        xg.append(xs + 0.05 * rng.normal(size=(N, 2)))
+        ug.append(u + 0.05 * rng.normal(size=(N, 1)))
+    cap = float(np.max(np.sum(xg[0] ** 2, axis=1))) + 0.2
+    traj = Trajectory.create({"x": np.stack(xg), "u": np.stack(ug)}, timestep=dt, controls="u",
+                             initial={"x": x0}, final={"x": xs[-1]}, device=device, dtype=dtype)
+    integ = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=batch,
+                                      device=device, dtype=dtype, taylor_order=taylor_order)
+    con = NonlinearKnotPointConstraint.create(
+        lambda x: (x * x).sum(-1, keepdim=True) - cap, "x", traj, equality=False)
+    return DirectTrajOptProblem.create(traj, QuadraticRegularizer.create("u", traj, 1.0), integ,
+                                       constraints=[con])
+
+
+def state_constrained_certificate(res, path: str = GOLDEN_STATE_CONSTRAINED):
+    """Per-lane max |u − u*| against the float64 optimum of the family
+    (every lane poses the same problem from a different start) and max
+    (‖x_k‖² − cap) over the knots. Returns two arrays over the lanes."""
+    data = np.load(path)
+    layout = res.problem.trajectory.layout
+    N, d = int(data["N"]), layout.dim
+    u_star = np.asarray(data["Z_star"], dtype=np.float64)[: N * d].reshape(N, d)[
+        :, layout.comp_slice("u")]
+    u = res.problem.trajectory.data["u"].detach().to("cpu", torch.float64).numpy()
+    x = res.problem.trajectory.data["x"].detach().to("cpu", torch.float64).numpy()
+    err = np.abs(u - u_star[None]).max(axis=(1, 2))
+    viol = (x**2).sum(-1).max(-1) - float(data["cap"])
+    return err, viol
+
+
+def state_constrained_config() -> dict:
+    """The state-constrained family's solve on the card: one f32 phase of
+    40 iterations, exact Hessian with ``hessian_regularization="auto"``,
+    compensated residuals, tol = acceptable_tol = 1e-6, one chunk of
+    ``batch`` lanes. Returns ``{"N", "batch", "solve_kw"}`` with full
+    kwargs for ``solve_batch_compact``."""
+    B = 8192
+    return dict(N=51, batch=B, solve_kw=dict(
+        phases=((40, None),), chunk=B, tol=1e-6, acceptable_tol=1e-6,
+        compensated_residuals=True))
 
 
 def headline_config(batch: int | None = None) -> dict:

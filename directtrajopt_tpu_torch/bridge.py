@@ -6,6 +6,12 @@ problem: every array leaf is read through numpy (copied) and the static
 metadata (names, dims, timestep name, orders, knot indices) is read off the
 objects' attributes. This module never imports ``jax``.
 
+A user function (a nonlinear constraint's ``g``, a knot objective's ℓ, a
+custom HVP apply) is JAX code and cannot cross: ``functions`` maps
+``("constraint", i)`` (index into ``problem.constraints``),
+``("objective", j)`` (index into the flattened objective terms) or
+``("hvp", j)`` to its torch counterpart.
+
 A JAX problem built unbatched becomes a port problem with one lane; a
 batched one (leading axis on every leaf, e.g. from
 ``make_batched_bilinear_problems``) keeps its lanes.
@@ -16,9 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .constraints import BoundsConstraint, EqualityConstraint
+from . import constraints as C
+from . import objectives as O
 from .integrators import BilinearIntegrator, DerivativeIntegrator
-from .objectives import CompositeObjective, QuadraticRegularizer
 from .precision import check_device
 from .problem import DirectTrajOptProblem
 from .solvers.ipm import WarmStart
@@ -27,40 +33,69 @@ from .trajectory import Trajectory
 __all__ = ["from_numpy_problem", "from_numpy_warm"]
 
 
-def _lanes(x, B: int, rank: int, device, dtype) -> torch.Tensor:
-    """Host array of per-problem rank ``rank`` → (B, ...) tensor."""
+def _lanes(x, B: int, batched: bool, device, dtype) -> torch.Tensor:
+    """A per-problem host leaf → (B, ...): a batched problem's leaves keep
+    their lane axis, an unbatched problem's are repeated over the lanes."""
     a = np.array(x, dtype=np.float64)
-    if a.ndim == rank:
+    if not batched:
         a = np.broadcast_to(a, (B,) + a.shape).copy()
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def _objective(obj, B, device, dtype):
+def _fn(functions, key, what):
+    if key not in functions:
+        raise ValueError(f"{what} is a JAX function: pass its torch counterpart as "
+                         f"functions[{key!r}]")
+    return functions[key]
+
+
+def _objective(obj, B, batched, device, dtype, functions, j=0):
     kind = type(obj).__name__
     if kind == "CompositeObjective":
-        return CompositeObjective(
-            objectives=tuple(_objective(o, B, device, dtype) for o in obj.objectives),
+        return O.CompositeObjective(
+            objectives=tuple(_objective(o, B, batched, device, dtype, functions, i)
+                             for i, o in enumerate(obj.objectives)),
             weights=tuple(float(w) for w in obj.weights),
         )
     if kind == "QuadraticRegularizer":
-        return QuadraticRegularizer(
-            R=_lanes(obj.R, B, 1, device, dtype),
-            baseline=_lanes(obj.baseline, B, 2, device, dtype),
-            mask=_lanes(obj.mask, B, 1, device, dtype),
+        return O.QuadraticRegularizer(
+            R=_lanes(obj.R, B, batched, device, dtype),
+            baseline=_lanes(obj.baseline, B, batched, device, dtype),
+            mask=_lanes(obj.mask, B, batched, device, dtype),
             name=obj.name,
         )
-    raise NotImplementedError(f"objective {kind} is not ported yet (ROADMAP Queue 1 item 10)")
+    if kind == "LinearRegularizer":
+        return O.LinearRegularizer(R=_lanes(obj.R, B, batched, device, dtype),
+                                   mask=_lanes(obj.mask, B, batched, device, dtype), name=obj.name)
+    if kind == "MinimumTimeObjective":
+        return O.MinimumTimeObjective(D=_lanes(obj.D, B, batched, device, dtype))
+    if kind == "KnotPointObjective":
+        carrier = obj.hvp_carrier
+        if type(carrier).__name__ == "ConstantLowRankHVP":
+            carrier = O.ConstantLowRankHVP(A=_lanes(carrier.A, B, batched, device, dtype),
+                                           core=_lanes(carrier.core, B, batched, device, dtype))
+        elif carrier is not None:
+            carrier = O.CustomKnotHVP(apply_fn=_fn(functions, ("hvp", j), "a custom HVP apply"),
+                                      on_device=bool(carrier.on_device))
+        return O.KnotPointObjective(
+            Qs=_lanes(obj.Qs, B, batched, device, dtype),
+            params=None if obj.params is None else _lanes(obj.params, B, batched, device, dtype),
+            hvp_carrier=carrier, ell=_fn(functions, ("objective", j), "a knot objective's ell"),
+            var_names=tuple(obj.var_names), takes_params=bool(obj.takes_params),
+        )
+    raise NotImplementedError(f"objective {kind} is not ported yet (ROADMAP Queue 1 "
+                              "'Left for later': global variables)")
 
 
-def _integrator(integ, B, device, dtype):
+def _integrator(integ, B, batched, device, dtype):
     kind = type(integ).__name__
     if kind == "BilinearIntegrator":
         if integ.G_fn is not None or integ.method != "taylor":
             raise NotImplementedError("only the Taylor method with array generators is "
                                       "ported (ROADMAP Queue 1 item 12)")
         return BilinearIntegrator(
-            G_drift=_lanes(integ.G_drift, B, 2, device, dtype),
-            G_drives=_lanes(integ.G_drives, B, 3, device, dtype),
+            G_drift=_lanes(integ.G_drift, B, batched, device, dtype),
+            G_drives=_lanes(integ.G_drives, B, batched, device, dtype),
             x_name=integ.x_name, u_name=integ.u_name,
             method="taylor", taylor_order=int(integ.taylor_order),
         )
@@ -69,38 +104,72 @@ def _integrator(integ, B, device, dtype):
     raise NotImplementedError(f"integrator {kind} is not ported yet (ROADMAP Queue 1 item 12)")
 
 
-def _constraint(con, B, device, dtype):
+def _constraint(con, B, batched, device, dtype, functions, i):
     kind = type(con).__name__
     if kind == "EqualityConstraint":
         vals = np.array(con.values, dtype=np.float64).reshape(B, -1)
-        return EqualityConstraint(
+        return C.EqualityConstraint(
             values=torch.as_tensor(np.ascontiguousarray(vals), dtype=dtype, device=device),
             name=con.name, times=tuple(int(t) for t in con.times), label=con.label,
         )
     if kind == "BoundsConstraint":
-        return BoundsConstraint(
-            lb=_lanes(con.lb, B, 1, device, dtype), ub=_lanes(con.ub, B, 1, device, dtype),
+        return C.BoundsConstraint(
+            lb=_lanes(con.lb, B, batched, device, dtype), ub=_lanes(con.ub, B, batched, device, dtype),
             name=con.name, times=tuple(int(t) for t in con.times),
             subcomponents=None if con.subcomponents is None else tuple(con.subcomponents),
             label=con.label,
         )
-    raise NotImplementedError(f"constraint {kind} is not ported yet (ROADMAP Queue 1 item 9)")
+    if kind == "AllEqualConstraint":
+        return C.AllEqualConstraint(name=con.name, component_index=int(con.component_index),
+                                    label=con.label)
+    if kind == "TotalConstraint":
+        return C.TotalConstraint(
+            value=_lanes(con.value, B, batched, device, dtype),
+            name=con.name, component_index=int(con.component_index), label=con.label,
+            is_eq=bool(con.is_eq), has_lb=bool(con.has_lb), has_ub=bool(con.has_ub),
+        )
+    if kind == "SymmetryConstraint":
+        return C.SymmetryConstraint(
+            name=con.name, component_indices=tuple(int(c) for c in con.component_indices),
+            even=bool(con.even), include_timestep=bool(con.include_timestep), label=con.label)
+    if kind == "TimeConsistencyConstraint":
+        return C.TimeConsistencyConstraint(time_name=con.time_name,
+                                           timestep_name=con.timestep_name, label=con.label)
+    if kind == "L1SlackConstraint":
+        return C.L1SlackConstraint(
+            var_name=con.var_name, slack_name=con.slack_name,
+            times=None if con.times is None else tuple(int(t) for t in con.times),
+            label=con.label)
+    if kind == "NonlinearKnotPointConstraint":
+        return C.NonlinearKnotPointConstraint(
+            params=None if con.params is None else _lanes(con.params, B, batched, device, dtype),
+            g=_fn(functions, ("constraint", i), "a nonlinear constraint's g"),
+            var_names=tuple(con.var_names), times=tuple(int(t) for t in con.times),
+            g_dim=int(con.g_dim), equality=bool(con.equality), convention=con.convention,
+            takes_params=bool(con.takes_params),
+        )
+    raise NotImplementedError(f"constraint {kind} is not ported yet (ROADMAP Queue 1 "
+                              "'Left for later': global variables)")
 
 
-def from_numpy_problem(jax_problem, device, dtype=torch.float64) -> DirectTrajOptProblem:
+def from_numpy_problem(jax_problem, device, dtype=torch.float64, *,
+                       functions: dict | None = None) -> DirectTrajOptProblem:
     """The port's problem for a ``directtrajopt_tpu`` problem (see module doc)."""
+    functions = functions or {}
     device = check_device(device)
     jt = jax_problem.trajectory
     if jt.global_names:
-        raise NotImplementedError("global variables are not ported yet (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("global variables are not ported yet (ROADMAP Queue 1 "
+                                  "'Left for later': global variables)")
     first = np.asarray(jt.data[jt.names[0]])
-    B = first.shape[0] if first.ndim == 3 else 1
+    batched = first.ndim == 3
+    B = first.shape[0] if batched else 1
     traj = Trajectory(
-        data={n: _lanes(jt.data[n], B, 2, device, dtype) for n in jt.names},
-        initial={k: _lanes(v, B, 1, device, dtype) for k, v in jt.initial.items()},
-        final={k: _lanes(v, B, 1, device, dtype) for k, v in jt.final.items()},
-        goal={k: _lanes(v, B, 1, device, dtype) for k, v in jt.goal.items()},
-        bounds={k: (_lanes(lb, B, 1, device, dtype), _lanes(ub, B, 1, device, dtype))
+        data={n: _lanes(jt.data[n], B, batched, device, dtype) for n in jt.names},
+        initial={k: _lanes(v, B, batched, device, dtype) for k, v in jt.initial.items()},
+        final={k: _lanes(v, B, batched, device, dtype) for k, v in jt.final.items()},
+        goal={k: _lanes(v, B, batched, device, dtype) for k, v in jt.goal.items()},
+        bounds={k: (_lanes(lb, B, batched, device, dtype), _lanes(ub, B, batched, device, dtype))
                 for k, (lb, ub) in jt.bounds.items()},
         names=tuple(jt.names),
         timestep=jt.timestep,
@@ -108,9 +177,11 @@ def from_numpy_problem(jax_problem, device, dtype=torch.float64) -> DirectTrajOp
     )
     return DirectTrajOptProblem(
         trajectory=traj,
-        objective=_objective(jax_problem.objective, B, device, dtype),
-        integrators=tuple(_integrator(i, B, device, dtype) for i in jax_problem.integrators),
-        constraints=tuple(_constraint(c, B, device, dtype) for c in jax_problem.constraints),
+        objective=_objective(jax_problem.objective, B, batched, device, dtype, functions),
+        integrators=tuple(_integrator(i, B, batched, device, dtype)
+                          for i in jax_problem.integrators),
+        constraints=tuple(_constraint(c, B, batched, device, dtype, functions, i)
+                          for i, c in enumerate(jax_problem.constraints)),
     )
 
 

@@ -2,9 +2,18 @@
 
 Counterpart of ``directtrajopt_tpu/constraints/base.py``. Every linear
 constraint lowers into one canonical structure that the interior-point
-method consumes directly: coordinate pins, box bounds, and affine rows.
-Index arrays are static numpy; value arrays are ``(B, n)`` tensors, so the
-lanes of a batch may pin or bound to different values.
+method consumes directly: coordinate pins, box bounds, and affine equality
+and inequality rows (``A Z = b`` and ``A Z ≤ b`` in COO form). Index arrays
+are static numpy; pin, bound and right-hand-side values are ``(B, n)``
+tensors, so the lanes of a batch may differ in them.
+
+Row coefficients are the same for every lane. As in the JAX package, a
+constraint that passes them as a numpy array marks them static, which the
+Riccati backend's chain promotion requires; a constraint that passes a
+tensor (``(nnz,)``, no lane axis) opts out of promotion.
+
+Nonlinear constraints are residual functions with an ``equality`` flag
+(``g = 0`` or ``g ≤ 0``), differentiated by ``torch.func``.
 """
 
 from __future__ import annotations
@@ -24,13 +33,15 @@ class LinearCanon:
     """Accumulator for lowering linear constraints."""
 
     z_dim: int
+    B: int = 1
     fix_idx: list = field(default_factory=list)  # np arrays of flat-Z indices
     fix_val: list = field(default_factory=list)  # (B, n) tensors
     lb_idx: list = field(default_factory=list)
     lb_val: list = field(default_factory=list)
     ub_idx: list = field(default_factory=list)
     ub_val: list = field(default_factory=list)
-    # affine rows, COO per contribution: (rows, cols, vals, rhs, n_rows)
+    # affine rows, COO per contribution: (rows, cols, vals, rhs, n_rows) with
+    # rows/cols static numpy, vals numpy (static) or an (nnz,) tensor, rhs (B, n)
     eq_rows: list = field(default_factory=list)
     ineq_rows: list = field(default_factory=list)
 
@@ -45,6 +56,26 @@ class LinearCanon:
         self.ub_idx.append(idx)
         self.ub_val.append(ub.reshape(ub.shape[0], -1))
 
+    def _rhs(self, rhs, n_rows: int) -> torch.Tensor:
+        if isinstance(rhs, torch.Tensor):
+            return rhs.reshape(rhs.shape[0], n_rows) if rhs.ndim > 1 else rhs.expand(self.B, n_rows)
+        return torch.as_tensor(np.broadcast_to(np.asarray(rhs, dtype=np.float64).reshape(-1),
+                                               (self.B, n_rows)).copy())
+
+    @staticmethod
+    def _vals(vals):
+        if isinstance(vals, np.ndarray):
+            return vals.astype(np.float64).reshape(-1)
+        return vals.reshape(-1)
+
+    def add_eq_rows(self, rows, cols, vals, rhs, n_rows: int) -> None:
+        self.eq_rows.append((np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64),
+                             self._vals(vals), self._rhs(rhs, n_rows), int(n_rows)))
+
+    def add_ineq_rows(self, rows, cols, vals, rhs, n_rows: int) -> None:
+        self.ineq_rows.append((np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64),
+                               self._vals(vals), self._rhs(rhs, n_rows), int(n_rows)))
+
 
 class LinearConstraintBase:
     """Linear constraints implement ``lower(layout, canon)``."""
@@ -54,9 +85,12 @@ class LinearConstraintBase:
 
 
 class NonlinearConstraintBase:
-    """Nonlinear constraints (residual functions with an equality flag).
+    """Nonlinear constraints: residual functions with an equality flag.
 
-    None is ported yet: ``make_nlp`` raises on any instance (ROADMAP Queue 1
-    item 9)."""
+    Subtypes provide ``constraint_dim(layout)`` and ``knot_residuals``
+    (the per-knot residuals of all lanes at once)."""
 
     equality: bool = True
+
+    def constraint_dim(self, layout: Layout) -> int:
+        raise NotImplementedError

@@ -1,10 +1,12 @@
-"""Linear constraints: pins and box bounds.
+"""The linear constraint zoo.
 
-Counterpart of the two classes of ``directtrajopt_tpu/constraints/linear.py``
-that ``get_trajectory_constraints`` emits: :class:`EqualityConstraint`
-(initial and final pins) and :class:`BoundsConstraint` (box bounds over a
-range of knots). All time indices are 0-based. The rest of the JAX
-package's linear constraint zoo is not ported yet (ROADMAP Queue 1 item 9).
+Counterpart of ``directtrajopt_tpu/constraints/linear.py``: pins, box bounds
+and the affine-row constraints, each lowering to the canonical pins /
+bounds / COO rows of :class:`~.base.LinearCanon`. All time indices are
+0-based. Per-lane data (pin values, bounds, totals) are ``(B, ·)`` tensors;
+row coefficients are shared by the lanes. The ``Global*`` constraints and
+``fix_global_variable`` are not ported yet (ROADMAP Queue 1 "Left for
+later": global variables).
 """
 
 from __future__ import annotations
@@ -18,7 +20,18 @@ from ..module import module
 from ..trajectory import Layout
 from .base import LinearCanon, LinearConstraintBase
 
-__all__ = ["EqualityConstraint", "BoundsConstraint"]
+__all__ = [
+    "EqualityConstraint",
+    "BoundsConstraint",
+    "AllEqualConstraint",
+    "TimeStepsAllEqualConstraint",
+    "TotalConstraint",
+    "DurationConstraint",
+    "SymmetryConstraint",
+    "SymmetricControlConstraint",
+    "TimeConsistencyConstraint",
+    "L1SlackConstraint",
+]
 
 
 def _z_indices(layout: Layout, name: str, times: Sequence[int], sub: slice | None = None):
@@ -30,9 +43,17 @@ def _z_indices(layout: Layout, name: str, times: Sequence[int], sub: slice | Non
     return np.concatenate([t * layout.dim + comp_idx for t in times]), len(comp_idx)
 
 
+def _resolve_timestep_name(layout: Layout, name: str | None) -> str:
+    if name is not None:
+        return name
+    if not layout.has_free_time:
+        raise ValueError("trajectory has no free timestep variable")
+    return layout.timestep
+
+
 @module
 class EqualityConstraint(LinearConstraintBase):
-    """Pin a component to ``values`` (B, dim) at the given knots."""
+    """Pin a component to ``values`` (B, dim) or (B, T·dim) at the given knots."""
 
     values: torch.Tensor
     name: str
@@ -77,3 +98,187 @@ class BoundsConstraint(LinearConstraintBase):
         idx, _ = _z_indices(layout, self.name, self.times, sub)
         T = len(self.times)
         canon.bound(idx, self.lb.repeat(1, T), self.ub.repeat(1, T))
+
+
+@module
+class AllEqualConstraint(LinearConstraintBase):
+    """All knots of one component equal, as the chain rows
+    ``v_{k+1} − v_k = 0`` (promotable into the Riccati core).
+    ``name=None`` means the trajectory's timestep variable."""
+
+    name: str | None = None
+    component_index: int = 0
+    label: str = "all equal constraint"
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        name = _resolve_timestep_name(layout, self.name)
+        comp = layout.comp_slice(name).start + self.component_index
+        N, dim = layout.N, layout.dim
+        n_rows = N - 1
+        rows = np.repeat(np.arange(n_rows), 2)
+        cols = np.stack([(np.arange(N - 1) + 1) * dim + comp, np.arange(N - 1) * dim + comp],
+                        axis=1).reshape(-1)
+        vals = np.tile(np.asarray([1.0, -1.0]), n_rows)
+        canon.add_eq_rows(rows, cols, vals, np.zeros(n_rows), n_rows)
+
+
+def TimeStepsAllEqualConstraint(*, label="timesteps all equal constraint"):
+    """All timesteps equal (fixed-Δt trajectories with a Δt variable)."""
+    return AllEqualConstraint(name=None, component_index=0, label=label)
+
+
+@module
+class TotalConstraint(LinearConstraintBase):
+    """``Σ_k v_k[comp] = value`` — one affine row; for the timestep variable
+    only the first N−1 knots are summed. With ``lb=`` / ``ub=`` instead of a
+    value, the total is held in a range by multi-knot inequality rows (border
+    inequalities on the Riccati path). ``value`` (B, k) holds (v,), (ub,),
+    (lb,) or (ub, lb) per the flags."""
+
+    value: torch.Tensor
+    name: str | None = None
+    component_index: int = 0
+    label: str = "total constraint"
+    is_eq: bool = True
+    has_lb: bool = False
+    has_ub: bool = False
+
+    @staticmethod
+    def create(name, value=None, *, traj, lb=None, ub=None, component_index=0, label=None):
+        """``traj`` gives the lane count, device and dtype of ``value``."""
+        if (value is None) == (lb is None and ub is None):
+            raise ValueError("pass either value= (equality) or lb=/ub= (range)")
+        if value is not None:
+            parts, is_eq, has_lb, has_ub = [float(value)], True, False, False
+        else:
+            parts = ([float(ub)] if ub is not None else []) + ([float(lb)] if lb is not None else [])
+            is_eq, has_lb, has_ub = False, lb is not None, ub is not None
+        ref = traj.data[traj.names[0]]
+        vals = torch.tensor(parts, dtype=ref.dtype, device=ref.device).expand(traj.B, -1)
+        return TotalConstraint(
+            value=vals.contiguous(), name=name, component_index=component_index,
+            label=label or f"total constraint on {name}", is_eq=is_eq, has_lb=has_lb,
+            has_ub=has_ub,
+        )
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        name = _resolve_timestep_name(layout, self.name)
+        comp = layout.comp_slice(name).start + self.component_index
+        n_t = layout.N - 1 if name == layout.timestep else layout.N
+        cols = np.arange(n_t) * layout.dim + comp
+        rows = np.zeros(n_t)
+        ones = torch.ones(n_t, dtype=torch.float64)
+        val = self.value
+        if self.is_eq:
+            canon.add_eq_rows(rows, cols, ones, val[:, :1], 1)
+            return
+        # Σv ≤ ub and −Σv ≤ −lb for the finite sides
+        pos = 0
+        if self.has_ub:
+            canon.add_ineq_rows(rows, cols, ones, val[:, pos : pos + 1], 1)
+            pos += 1
+        if self.has_lb:
+            canon.add_ineq_rows(rows, cols, -ones, -val[:, pos : pos + 1], 1)
+
+
+def DurationConstraint(value=None, *, traj, lb=None, ub=None, label=None):
+    """Total duration Σ_{k<N-1} Δt_k = value, or lb ≤ Σ Δt ≤ ub."""
+    return TotalConstraint.create(
+        None, value, traj=traj, lb=lb, ub=ub, component_index=0,
+        label=label or (f"duration constraint of {value}" if value is not None
+                        else f"duration range [{lb}, {ub}]"),
+    )
+
+
+@module
+class SymmetryConstraint(LinearConstraintBase):
+    """Time symmetry: even ``v_t = v_{N-1-t}`` or odd ``v_t = −v_{N-1-t}`` on
+    chosen components, optional even Δt symmetry."""
+
+    name: str
+    component_indices: tuple
+    even: bool = True
+    include_timestep: bool = False
+    label: str = "symmetry constraint"
+
+    @staticmethod
+    def create(name, component_indices, *, even=True, include_timestep=False, label=None):
+        return SymmetryConstraint(
+            name=name, component_indices=tuple(int(i) for i in component_indices), even=even,
+            include_timestep=include_timestep, label=label or f"symmetry constraint on {name}",
+        )
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        N, dim = layout.N, layout.dim
+        base = layout.comp_slice(self.name).start
+        sign = -1.0 if self.even else 1.0
+        pairs = [(t * dim + base + c, (N - 1 - t) * dim + base + c, sign)
+                 for t in range(N // 2) for c in self.component_indices]
+        if self.include_timestep and layout.has_free_time:
+            dt_comp = layout.comp_slice(layout.timestep).start
+            pairs += [(t * dim + dt_comp, (N - 1 - t) * dim + dt_comp, -1.0) for t in range(N // 2)]
+        n_rows = len(pairs)
+        rows = np.repeat(np.arange(n_rows), 2)
+        cols = np.array([[p[0], p[1]] for p in pairs]).reshape(-1)
+        vals = torch.tensor([[1.0, p[2]] for p in pairs], dtype=torch.float64).reshape(-1)
+        canon.add_eq_rows(rows, cols, vals, np.zeros(n_rows), n_rows)
+
+
+def SymmetricControlConstraint(name, idx, *, even=True, include_timestep=True, label=None):
+    """Symmetry on control components."""
+    return SymmetryConstraint.create(name, idx, even=even, include_timestep=include_timestep,
+                                     label=label)
+
+
+@module
+class TimeConsistencyConstraint(LinearConstraintBase):
+    """``t_{k+1} = t_k + Δt_k`` rows (promotable into the Riccati core)."""
+
+    time_name: str = "t"
+    timestep_name: str | None = None
+    label: str = "time consistency constraint"
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        N, dim = layout.N, layout.dim
+        t_comp = layout.comp_slice(self.time_name).start
+        dt_comp = layout.comp_slice(self.timestep_name or _resolve_timestep_name(layout, None)).start
+        n_rows = N - 1
+        ks = np.arange(n_rows)
+        rows = np.repeat(ks, 3)
+        cols = np.stack([(ks + 1) * dim + t_comp, ks * dim + t_comp, ks * dim + dt_comp],
+                        axis=1).reshape(-1)
+        vals = np.tile(np.asarray([1.0, -1.0, -1.0]), n_rows)
+        canon.add_eq_rows(rows, cols, vals, np.zeros(n_rows), n_rows)
+
+
+@module
+class L1SlackConstraint(LinearConstraintBase):
+    """``|v| ≤ s`` via two inequality rows per component per knot."""
+
+    var_name: str
+    slack_name: str
+    times: tuple | None = None
+    label: str = "L1 slack constraint"
+
+    @staticmethod
+    def create(var_name, slack_name, traj, *, times=None, label=None):
+        if traj.dims[var_name] != traj.dims[slack_name]:
+            raise ValueError(f"dimension mismatch: {var_name} ({traj.dims[var_name]}) vs "
+                             f"{slack_name} ({traj.dims[slack_name]})")
+        return L1SlackConstraint(
+            var_name=var_name, slack_name=slack_name,
+            times=None if times is None else tuple(int(t) for t in times),
+            label=label or f"L1 slack constraint: |{var_name}| <= {slack_name}",
+        )
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        times = self.times if self.times is not None else tuple(range(layout.N))
+        v_idx, _ = _z_indices(layout, self.var_name, times)
+        s_idx, _ = _z_indices(layout, self.slack_name, times)
+        n = len(v_idx)
+        # rows [v − s ≤ 0 ; −v − s ≤ 0] interleaved
+        rows = np.repeat(np.arange(2 * n), 2)
+        pair = np.stack([v_idx, s_idx], axis=1)
+        cols = np.stack([pair, pair], axis=1).reshape(-1)
+        vals = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=torch.float64).repeat(n)
+        canon.add_ineq_rows(rows, cols, vals, np.zeros(2 * n), 2 * n)

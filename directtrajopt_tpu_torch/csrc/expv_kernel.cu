@@ -12,8 +12,9 @@
 // tangents first so they see the previous y, as jax.jacfwd orders them.
 //
 // Design: one thread per (lane, window); the small matrices live in
-// registers (sizes are template constants, instantiated for x_dim=4 and
-// 2 drives only). Bound on the card: each thread
+// registers (sizes are template constants, instantiated for the two shapes
+// the port's paths give: x_dim=4 with 2 drives, the bilinear benchmark, and
+// x_dim=2 with 1 drive, the state-constrained family). Bound on the card: each thread
 // reads ~(x_dim² (1 + n_drives) + x_dim + n_drives + 1) floats, most of them
 // the lane's generators shared by its K windows (served from L1/L2), and
 // writes x_dim·(x_dim + n_drives + 1) floats, against ~order·x_dim²·(x_dim +
@@ -230,37 +231,48 @@ int launch_res(int L, int K, int order, const float* Gd, const float* Gv, const 
 
 }  // namespace
 
-// The one (x_dim, n_drives) pair instantiated: the bilinear benchmark's 4-D
-// state with 2 drives. The Python wrapper raises for any other.
-constexpr int kXd = 4, kNd = 2;
+// The (x_dim, n_drives) pairs instantiated: (4, 2), the bilinear benchmark's
+// 4-D state with 2 drives, and (2, 1), the state-constrained family's 2-D
+// state with one drive (at a fixed Δt: free_time = 0 gives the 2×3 block).
+// The Python wrapper (ops/expv_kernel.py, SUPPORTED_SHAPES) raises for any other.
+static int res_dispatch(int L, int K, int xd, int nd, int order, const void* Gd,
+                        const void* Gv, const void* u, const void* dt, const void* x,
+                        const void* xn, void* res, void* part, cudaStream_t s) {
+  const float *gd = (const float*)Gd, *gv = (const float*)Gv, *uu = (const float*)u,
+              *h = (const float*)dt, *xx = (const float*)x, *xxn = (const float*)xn;
+  if (xd == 4 && nd == 2)
+    return launch_res<4, 2>(L, K, order, gd, gv, uu, h, xx, xxn, (float*)res, (float*)part, s);
+  if (xd == 2 && nd == 1)
+    return launch_res<2, 1>(L, K, order, gd, gv, uu, h, xx, xxn, (float*)res, (float*)part, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int dto_window_jac(int L, int K, int xd, int nd, int order, int free_time,
                               const void* Gd, const void* Gv, const void* u,
                               const void* dt, const void* x, void* out, void* stream) {
-  if (xd != kXd || nd != kNd) return (int)cudaErrorInvalidValue;
-  return launch_jac<kXd, kNd>(L, K, order, free_time, (const float*)Gd, (const float*)Gv,
-                              (const float*)u, (const float*)dt, (const float*)x,
-                              (float*)out, (cudaStream_t)stream);
+  const float *gd = (const float*)Gd, *gv = (const float*)Gv, *uu = (const float*)u,
+              *h = (const float*)dt, *xx = (const float*)x;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (xd == 4 && nd == 2)
+    return launch_jac<4, 2>(L, K, order, free_time, gd, gv, uu, h, xx, (float*)out, s);
+  if (xd == 2 && nd == 1)
+    return launch_jac<2, 1>(L, K, order, free_time, gd, gv, uu, h, xx, (float*)out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dto_residual(int L, int K, int xd, int nd, int order, const void* Gd,
                             const void* Gv, const void* u, const void* dt, const void* x,
                             const void* xn, void* res, void* stream) {
-  if (xd != kXd || nd != kNd) return (int)cudaErrorInvalidValue;
-  return launch_res<kXd, kNd>(L, K, order, (const float*)Gd, (const float*)Gv,
-                              (const float*)u, (const float*)dt, (const float*)x,
-                              (const float*)xn, (float*)res, nullptr, (cudaStream_t)stream);
+  return res_dispatch(L, K, xd, nd, order, Gd, Gv, u, dt, x, xn, res, nullptr,
+                      (cudaStream_t)stream);
 }
 
 extern "C" int dto_residual_l1(int L, int K, int xd, int nd, int order, const void* Gd,
                                const void* Gv, const void* u, const void* dt,
                                const void* x, const void* xn, void* part, void* out,
                                void* stream) {
-  if (xd != kXd || nd != kNd) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = launch_res<kXd, kNd>(L, K, order, (const float*)Gd, (const float*)Gv,
-                                (const float*)u, (const float*)dt, (const float*)x,
-                                (const float*)xn, nullptr, (float*)part, s);
+  int rc = res_dispatch(L, K, xd, nd, order, Gd, Gv, u, dt, x, xn, nullptr, part, s);
   if (rc) return rc;
   lane_sum_kernel<<<blocks_for(L), kThreads, 0, s>>>(L, K, (const float*)part, (float*)out);
   return (int)cudaGetLastError();

@@ -76,7 +76,7 @@ def stack_jacobians_zk(integrator, layout: Layout, zmat: torch.Tensor) -> torch.
         return jvp(lambda z: integrator.residual(layout, z, zk1), (zk,),
                    (e.expand_as(zk),))[1]
 
-    return vmap(col, out_dims=-1)(eye)
+    return vmap(col)(eye).movedim(0, -1)
 
 
 def stack_hessians_zk(
@@ -96,4 +96,4 @@ def stack_hessians_zk(
     def col(e):
         return jvp(g, (zk,), (e.expand_as(zk),))[1]
 
-    return vmap(col, out_dims=-1)(eye)
+    return vmap(col)(eye).movedim(0, -1)

@@ -1,9 +1,12 @@
-"""Quadratic regularizer.
+"""Quadratic and linear (L1-slack) regularizers.
 
-Counterpart of ``QuadraticRegularizer`` in
-``directtrajopt_tpu/objectives/regularizers.py``:
-``J = Σ_k mask_k · ½ (Δt_k (v_k − b_k))ᵀ diag(R) (Δt_k (v_k − b_k))`` — the
-Δt weighting creates v×Δt and Δt×Δt curvature when the timestep is free.
+Counterpart of ``directtrajopt_tpu/objectives/regularizers.py``:
+
+* ``QuadraticRegularizer``:
+  ``J = Σ_k mask_k · ½ (Δt_k (v_k − b_k))ᵀ diag(R) (Δt_k (v_k − b_k))`` — the
+  Δt weighting creates v×Δt and Δt×Δt curvature when the timestep is free;
+* ``LinearRegularizer``: ``J = Σ_k mask_k · Δt_k · Rᵀ v_k``, the L1 penalty
+  applied to slack variables.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from ..module import module
 from ..trajectory import Layout, Trajectory
 from .base import ObjectiveBase, lane_data
 
-__all__ = ["QuadraticRegularizer", "times_mask"]
+__all__ = ["QuadraticRegularizer", "LinearRegularizer", "times_mask"]
 
 
 def times_mask(N: int, times: Sequence[int] | None) -> np.ndarray:
@@ -65,3 +68,32 @@ class QuadraticRegularizer(ObjectiveBase):
 
     def __repr__(self):
         return f"QuadraticRegularizer on {self.name}"
+
+
+@module
+class LinearRegularizer(ObjectiveBase):
+    """``Σ_k Δt_k · Rᵀ v_k`` on component ``name`` (exact L1 via slacks)."""
+
+    R: torch.Tensor  # (B, dim)
+    mask: torch.Tensor  # (B, N) 0/1 times mask
+    name: str
+
+    @staticmethod
+    def create(name: str, traj: Trajectory, R, *,
+               times: Sequence[int] | None = None) -> "LinearRegularizer":
+        dim, N, B = traj.dims[name], traj.N, traj.B
+        ref = traj.data[name]
+        kw = dict(dtype=ref.dtype, device=ref.device)
+        R_vec = np.broadcast_to(np.asarray(R, dtype=float), (B, dim))
+        mask = np.broadcast_to(times_mask(N, times), (B, N))
+        return LinearRegularizer(R=torch.as_tensor(np.array(R_vec), **kw),
+                                 mask=torch.as_tensor(np.array(mask), **kw), name=name)
+
+    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+        v = layout.knot_extract(zmat, self.name)
+        dt = layout.knot_timestep(zmat)
+        R = lane_data(self.R, zmat)[..., None, :]
+        return lane_data(self.mask, zmat) * dt * (R * v).sum(-1)
+
+    def __repr__(self):
+        return f"LinearRegularizer on {self.name}"

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 All sources under ``directtrajopt_tpu_torch/csrc/`` are compiled by ``nvcc``
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at first use, into ``directtrajopt_tpu_torch/_build/``, and
-is keyed by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads the existing library.
+(one compiler per source, all running at once) and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``directtrajopt_tpu_torch/_build/``, and is keyed by a hash
+of the sources and flags, so an edited source rebuilds and an unchanged one
+loads the existing library.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and *no* fast math — the kernels rely
 on correctly rounded division and square root (nvcc's defaults
@@ -31,8 +32,9 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 LAUNCHES = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
             "residual_l1": 0}
@@ -76,7 +78,7 @@ def library() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -86,13 +88,23 @@ def library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     log = ""
     if not so.exists():
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        # one compiler per source, all started at once, then one link
+        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}"
+        objs = [f"{tmp}.{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, str(s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        proc = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", f"{tmp}.so", *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(f"{tmp}.so", so)
+        for o in objs:
+            os.remove(o)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -105,7 +117,7 @@ def library() -> ctypes.CDLL:
 
 def build_info() -> dict:
     """Path of the loaded library, seconds the build (or load) took, and the
-    compiler's output (``-Xptxas -v``: registers, spills) when it built."""
+    compilers' output (``-Xptxas -v``: registers, spills) when they built."""
     return dict(_INFO)
 
 

@@ -35,8 +35,9 @@ __all__ = [
 ]
 
 # (x_dim, n_drives) pairs instantiated in csrc/expv_kernel.cu: the bilinear
-# benchmark's 4-D state with 2 drives
-SUPPORTED_SHAPES = {(4, 2)}
+# benchmark's 4-D state with 2 drives, and the state-constrained family's
+# 2-D state with 1 drive
+SUPPORTED_SHAPES = {(4, 2), (2, 1)}
 
 
 def window_jac_plain(order, free_time, Gd, Gv, u, dt, x):

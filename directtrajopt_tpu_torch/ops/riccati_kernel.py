@@ -150,7 +150,8 @@ def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
     for k, v in sizes.items():
         if not 1 <= v <= MAX_SIZES[k]:
-            raise NotImplementedError(f"{k}={v} exceeds the kernel's bound {MAX_SIZES[k]}")
+            raise NotImplementedError(f"{k}={v} exceeds the kernel's bound {MAX_SIZES[k]} "
+                                      "(ROADMAP Queue 1 'Left for later' a1)")
     return True
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``directtrajopt_tpu/problem.py``: the constructor extracts
 the trajectory constraints (initial / final pins, bounds over the knots the
-pins leave free), and a free timestep with no bounds gets a default
-``Δt ≥ 0`` lower bound with a warning.
+pins leave free, time consistency ``t_{k+1} = t_k + Δt_k`` when a ``t``
+component meets a free timestep), and a free timestep with no bounds gets a
+default ``Δt ≥ 0`` lower bound with a warning.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Sequence
 
 import torch
 
-from .constraints import BoundsConstraint, EqualityConstraint
+from .constraints import BoundsConstraint, EqualityConstraint, TimeConsistencyConstraint
 from .module import module
 from .trajectory import Trajectory
 
@@ -41,11 +42,14 @@ def get_trajectory_constraints(traj: Trajectory) -> list:
             ts = range(0, N)
         cons.append(BoundsConstraint(lb=lb, ub=ub, name=name, times=tuple(ts),
                                      subcomponents=None, label=f"bounds on {name}"))
+    # time consistency + t_0 = 0 when both 't' and a free Δt are present
     if isinstance(traj.timestep, str) and "t" in traj.names:
-        raise NotImplementedError(
-            "a 't' component with a free timestep needs TimeConsistencyConstraint, "
-            "which is not ported yet (ROADMAP Queue 1 item 9)"
-        )
+        cons.append(TimeConsistencyConstraint(timestep_name=traj.timestep))
+        if "t" not in traj.initial:
+            ref = traj.data["t"]
+            cons.append(EqualityConstraint.create(
+                "t", [0], torch.zeros((traj.B, 1), dtype=ref.dtype, device=ref.device),
+                label="initial time t_0 = 0"))
     return cons
 
 

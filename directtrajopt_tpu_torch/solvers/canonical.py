@@ -3,16 +3,14 @@
 Counterpart of ``directtrajopt_tpu/solvers/canonical.py``:
 
     min  f(Z)
-    s.t. c_eq(Z) = 0      [dynamics ; affine rows A_eq Z − b_eq]
-         c_in(Z) ≤ 0      [affine rows A_in Z − b_in]
+    s.t. c_eq(Z) = 0      [dynamics ; affine rows A_eq Z − b_eq ; nonlinear eq]
+         c_in(Z) ≤ 0      [affine rows A_in Z − b_in ; nonlinear ineq]
          lb ≤ Z ≤ ub      (±inf where unbounded)
          Z[fix_idx] = fix_val   (pins, handled by projection)
 
 Every callable takes ``Z`` of shape ``(B, ..., z_dim)`` — one row per lane,
 with optional extra axes (the line search's trial grid) that broadcast
 against the per-lane problem data — and returns ``(B, ..., ·)``.
-Nonlinear constraints are not ported yet (ROADMAP Queue 1 item 9):
-``make_nlp`` raises on them.
 """
 
 from __future__ import annotations
@@ -42,11 +40,36 @@ class COORows:
     n_cols: int
 
     def matvec(self, Z: torch.Tensor) -> torch.Tensor:
+        """``A Z`` for Z (B, ..., n_cols)."""
         out = Z.new_zeros(Z.shape[:-1] + (self.n_rows,))
         if len(self.rows) == 0:
             return out
         v = lane_data(self.vals, Z[..., None, :]) * Z[..., self.cols]
         return out.index_add(-1, torch.as_tensor(self.rows, device=Z.device), v)
+
+    def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
+        """``Aᵀ y`` for y (B, n_rows)."""
+        out = y.new_zeros(y.shape[:-1] + (self.n_cols,))
+        if len(self.rows) == 0:
+            return out
+        v = self.vals * y[:, self.rows]
+        return out.index_add(-1, torch.as_tensor(self.cols, device=y.device), v)
+
+    def select_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """Dense (B, len(idx), n_cols) block of the selected rows (the Riccati
+        border, whose row count does not grow with N)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        B = self.vals.shape[0]
+        out = self.vals.new_zeros((B, len(idx), self.n_cols))
+        keep = np.isin(self.rows, idx)
+        if not keep.any():
+            return out
+        remap = np.zeros(self.n_rows, dtype=np.int64)
+        remap[idx] = np.arange(len(idx))
+        flat = torch.as_tensor(remap[self.rows[keep]] * self.n_cols + self.cols[keep],
+                               device=out.device)
+        sel = self.vals[:, torch.as_tensor(np.nonzero(keep)[0], device=out.device)]
+        return out.reshape(B, -1).index_add(1, flat, sel).reshape(out.shape)
 
 
 @dataclass
@@ -70,6 +93,10 @@ class CanonicalNLP:
     b_in: torch.Tensor
     integrators: tuple
     objective_obj: object
+    eq_cons: tuple = ()  # nonlinear equality constraints
+    in_cons: tuple = ()  # nonlinear inequality constraints
+    # raw COO contributions of the linear constraints (static sparsity), for
+    # the Riccati backend's structure analysis
     eq_entries: tuple = ()
     in_entries: tuple = ()
     n_nl_eq: int = 0
@@ -98,10 +125,19 @@ class CanonicalNLP:
         ]
         return torch.cat(parts, dim=-1)
 
+    def _nl(self, cons, Z: torch.Tensor) -> torch.Tensor:
+        zmat = self._zmat(Z)
+        return torch.cat([c.evaluate_flat(self.layout, zmat) for c in cons], dim=-1)
+
+    def _lin(self, A: COORows, b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+        return A.matvec(Z) - lane_data(b, Z[..., None, :])
+
     def c_eq(self, Z: torch.Tensor) -> torch.Tensor:
         parts = [self.dynamics(Z)]
         if self.n_lin_eq:
-            parts.append(self.A_eq.matvec(Z) - lane_data(self.b_eq, Z[..., None, :]))
+            parts.append(self._lin(self.A_eq, self.b_eq, Z))
+        if self.n_nl_eq:
+            parts.append(self._nl(self.eq_cons, Z))
         return torch.cat(parts, dim=-1)
 
     def c_eq_l1(self, Z: torch.Tensor) -> torch.Tensor:
@@ -112,20 +148,44 @@ class CanonicalNLP:
         for integ in self.integrators:
             tot = tot + stack_residuals_l1(integ, self.layout, zmat)
         if self.n_lin_eq:
-            r = self.A_eq.matvec(Z) - lane_data(self.b_eq, Z[..., None, :])
-            tot = tot + r.abs().sum(-1)
+            tot = tot + self._lin(self.A_eq, self.b_eq, Z).abs().sum(-1)
+        if self.n_nl_eq:
+            tot = tot + self._nl(self.eq_cons, Z).abs().sum(-1)
         return tot
 
     def c_in(self, Z: torch.Tensor) -> torch.Tensor:
+        parts = []
         if self.n_lin_in:
-            return self.A_in.matvec(Z) - lane_data(self.b_in, Z[..., None, :])
-        return Z.new_zeros(Z.shape[:-1] + (0,))
+            parts.append(self._lin(self.A_in, self.b_in, Z))
+        if self.n_nl_in:
+            parts.append(self._nl(self.in_cons, Z))
+        return torch.cat(parts, dim=-1) if parts else Z.new_zeros(Z.shape[:-1] + (0,))
 
     def apply_pins(self, Z: torch.Tensor) -> torch.Tensor:
         """Overwrite pinned coordinates with their fixed values."""
         if len(self.fix_idx) == 0:
             return Z
         return Z * self.free_mask + lane_data(self.pin_dense, Z[..., None, :])
+
+
+def _build_rows(entries, B: int, z_dim: int, kw) -> tuple[COORows, torch.Tensor, int]:
+    """One concatenated COO block (rows offset per contribution) and its rhs."""
+    n_rows = sum(e[4] for e in entries)
+    if not entries:
+        empty = np.zeros(0, np.int64)
+        return COORows(empty, empty, torch.zeros((B, 0), **kw), 0, z_dim), \
+            torch.zeros((B, 0), **kw), 0
+    rows, cols, vals, rhs = [], [], [], []
+    off = 0
+    for r, c, v, b, n in entries:
+        rows.append(np.asarray(r) + off)
+        cols.append(np.asarray(c))
+        vals.append(torch.as_tensor(v).to(**kw).expand(B, -1))
+        rhs.append(b.to(**kw))
+        off += n
+    A = COORows(rows=np.concatenate(rows), cols=np.concatenate(cols),
+                vals=torch.cat(vals, dim=1).contiguous(), n_rows=n_rows, n_cols=z_dim)
+    return A, torch.cat(rhs, dim=1), n_rows
 
 
 def make_nlp(problem: DirectTrajOptProblem) -> CanonicalNLP:
@@ -137,13 +197,13 @@ def make_nlp(problem: DirectTrajOptProblem) -> CanonicalNLP:
     ref = traj.data[traj.names[0]]
     kw = dict(dtype=ref.dtype, device=ref.device)
 
-    canon = LinearCanon(z_dim=z_dim)
+    canon = LinearCanon(z_dim=z_dim, B=B)
+    nl_cons = []
     for con in problem.constraints:
         if isinstance(con, NonlinearConstraintBase):
-            raise NotImplementedError(
-                "nonlinear constraints are not ported yet (ROADMAP Queue 1 item 9)"
-            )
-        con.lower(layout, canon)
+            nl_cons.append(con)
+        else:
+            con.lower(layout, canon)
 
     if canon.fix_idx:
         all_idx = np.concatenate(canon.fix_idx)
@@ -176,18 +236,19 @@ def make_nlp(problem: DirectTrajOptProblem) -> CanonicalNLP:
     lb[:, fi] = -float("inf")
     ub[:, fi] = float("inf")
 
-    if canon.eq_rows or canon.ineq_rows:
-        raise NotImplementedError(
-            "affine constraint rows are not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    empty = np.zeros(0, np.int64)
-    no_rows = COORows(empty, empty, torch.zeros((B, 0), **kw), 0, z_dim)
-    no_rhs = torch.zeros((B, 0), **kw)
+    A_eq, b_eq, n_lin_eq = _build_rows(canon.eq_rows, B, z_dim, kw)
+    A_in, b_in, n_lin_in = _build_rows(canon.ineq_rows, B, z_dim, kw)
     n_dyn = sum(i.residual_dim(layout) for i in problem.integrators) * (layout.N - 1)
+    eq_cons = tuple(c for c in nl_cons if c.equality)
+    in_cons = tuple(c for c in nl_cons if not c.equality)
 
     return CanonicalNLP(
-        layout=layout, z_dim=z_dim, n_dyn=n_dyn, n_lin_eq=0, n_lin_in=0,
+        layout=layout, z_dim=z_dim, n_dyn=n_dyn, n_lin_eq=n_lin_eq, n_lin_in=n_lin_in,
         fix_idx=fix_idx, fix_val=fix_val, free_mask=free_mask, pin_dense=pin_dense,
-        lb=lb, ub=ub, A_eq=no_rows, b_eq=no_rhs, A_in=no_rows, b_in=no_rhs,
+        lb=lb, ub=ub, A_eq=A_eq, b_eq=b_eq, A_in=A_in, b_in=b_in,
         integrators=tuple(problem.integrators), objective_obj=problem.objective,
+        eq_cons=eq_cons, in_cons=in_cons,
+        eq_entries=tuple(canon.eq_rows), in_entries=tuple(canon.ineq_rows),
+        n_nl_eq=sum(c.constraint_dim(layout) for c in eq_cons),
+        n_nl_in=sum(c.constraint_dim(layout) for c in in_cons),
     )

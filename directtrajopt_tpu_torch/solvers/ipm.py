@@ -1,7 +1,8 @@
 """Batched primal-dual interior-point method.
 
 Counterpart of ``directtrajopt_tpu/solvers/ipm.py`` (Wächter–Biegler filter
-IPM): log barrier for box bounds, condensed KKT through the Riccati
+IPM): log barrier for box bounds and for the slacks s of inequality rows
+(duals ν, condensed as D = ν/s), condensed KKT through the Riccati
 backend with δ_w inertia control, fraction-to-boundary, a filter line
 search whose backtracking grid, second-order correction (SOC) and
 restoration slots are evaluated as one batched trial pass, the monotone
@@ -162,8 +163,6 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     opt = options.astype(dtype)
     mu_floor = max(opt.mu_min, opt.tol / 10.0)
     z_dim, n_eq, n_in = nlp.z_dim, nlp.n_eq, nlp.n_in
-    if n_in:
-        raise NotImplementedError("inequality rows are not ported yet (ROADMAP Queue 1 item 9)")
     lb, ub = nlp.lb, nlp.ub
     free = nlp.free_mask
     has_L, has_U = torch.isfinite(lb), torch.isfinite(ub)
@@ -204,6 +203,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     c_e0 = nlp.c_eq(Z_init)
     theta_init = c_e0.abs().sum(-1) + (c_i0 + s_init).abs().sum(-1)
     gn = options.hessian_approximation == "gauss_newton"
+    sw = (options.hessian_regularization
+          if options.hessian_regularization in ("stagewise", "project", "flip") else False)
     obj0 = nlp.objective(Z_init)
     i32 = torch.int32
 
@@ -252,7 +253,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     def body(st: IPMState, active: torch.Tensor) -> IPMState:
         Z, s, lam, nu, zL, zU = st.Z, st.s, st.lam, st.nu, st.zL, st.zU
         dL, dU = bound_dists(Z)
-        ctx = ops.prepare(Z, lam, nu, cache=(st.c_e, st.c_i), gauss_newton=gn)
+        ctx = ops.prepare(Z, lam, nu, cache=(st.c_e, st.c_i), gauss_newton=gn, stagewise=sw)
         gf, c_e, c_i = ctx.grad_f, ctx.c_e, ctx.c_i
 
         # ---- optimality errors at the current iterate -------------------- #
@@ -338,39 +339,48 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         SigL = torch.where(mask_L, zL / dL, 0.0)
         SigU = torch.where(mask_U, zU / dU, 0.0)
         Sig = (SigL + SigU) * free
-        D = torch.zeros((B, 0), dtype=dtype, device=dev)
+        D = nu / s
         # per-iteration proximal δ_w floor with the lane's watchdog boost
         opt_k = opt.replace(
             delta_w_min=torch.clamp(opt.delta_w_mu_scale * mu * st.delta_w_boost,
                                     min=opt.delta_w_min)
         )
         mu_c = mu[:, None]
-        g_hat = free * (gf - torch.where(mask_L, mu_c / dL, 0.0)
-                        + torch.where(mask_U, mu_c / dU, 0.0))
+        g_hat = gf - torch.where(mask_L, mu_c / dL, 0.0) + torch.where(mask_U, mu_c / dU, 0.0)
+        if n_in:
+            g_hat = g_hat + ctx.JiT(mu_c / s + D * (c_i + s))
+        g_hat = free * g_hat
         dZ, lam_plus, ok, delta_fin, resolve = ctx.kkt_step(
             Sig, D, g_hat, -c_e, st.delta_w_last, opt_k, active
         )
 
         # ---- recover eliminated directions ------------------------------- #
-        ds = torch.zeros((B, 0), dtype=dtype, device=dev)
-        dnu = torch.zeros((B, 0), dtype=dtype, device=dev)
+        ds = -(c_i + s) - ctx.Ji(dZ)
+        dnu = mu_c / s - nu - D * ds
         dzL = torch.where(mask_L, mu_c / dL - zL - SigL * dZ, 0.0)
         dzU = torch.where(mask_U, mu_c / dU - zU + SigU * dZ, 0.0)
 
         # ---- fraction-to-boundary step sizes ----------------------------- #
         tau = torch.clamp(1.0 - mu, min=opt.tau_min)[:, None]
 
-        def max_primal_step(dZ_):
-            return torch.minimum(
+        def max_primal_step(dZ_, ds_):
+            a = torch.minimum(
                 _masked_min(-tau * dL / torch.clamp(dZ_, max=-1e-30), mask_L & (dZ_ < 0), 1.0),
                 _masked_min(tau * dU / torch.clamp(dZ_, min=1e-30), mask_U & (dZ_ > 0), 1.0),
             )
+            if n_in:
+                a = torch.minimum(
+                    a, _masked_min(-tau * s / torch.clamp(ds_, max=-1e-30), ds_ < 0, 1.0))
+            return a
 
-        a_pri = max_primal_step(dZ)
+        a_pri = max_primal_step(dZ, ds)
         a_dual = torch.minimum(
             _masked_min(-tau * zL / torch.clamp(dzL, max=-1e-30), mask_L & (dzL < 0), 1.0),
             _masked_min(-tau * zU / torch.clamp(dzU, max=-1e-30), mask_U & (dzU < 0), 1.0),
         )
+        if n_in:
+            a_dual = torch.minimum(
+                a_dual, _masked_min(-tau * nu / torch.clamp(dnu, max=-1e-30), dnu < 0, 1.0))
 
         # ---- filter line search with second-order correction ------------- #
         phi0, theta0 = barrier_phi_from(st.obj, Z, s, mu, c_e, c_i)
@@ -379,6 +389,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             - mu * torch.where(mask_L, dZ / dL, 0.0).sum(-1)
             + mu * torch.where(mask_U, dZ / dU, 0.0).sum(-1)
         )
+        if n_in:
+            Dphi = Dphi - mu * (ds / s).sum(-1)
         phi_ref = phi0
 
         def acceptable(alpha, phi_t, theta_t):
@@ -418,15 +430,18 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         phi_1, theta_1 = barrier_phi_from(f_full, Z_full, s_full, mu, c_e_full, c_i_full)
         acc_1, ftype_1 = acceptable(a_pri, phi_1, theta_1)
 
-        c_soc = a_pri[:, None] * c_e + c_e_full
-        g_soc = torch.zeros((B, z_dim), dtype=dtype, device=dev)
+        a_c = a_pri[:, None]
+        c_soc = a_c * c_e + c_e_full
+        ci_soc = a_c * (c_i + s) + c_i_full + s_full
+        g_soc = free * ctx.JiT(D * ci_soc) if n_in else torch.zeros_like(Z)
         n_rest = options.n_rest_trials if (n_eq or n_in) else 0
         soc_on = options.max_soc > 0
         rest_rhs = []
         if soc_on:
             rest_rhs.append((-g_hat - g_soc, -c_soc))
         if n_rest:
-            rest_rhs.append((torch.zeros((B, z_dim), dtype=dtype, device=dev), -c_e))
+            g_rest = free * ctx.JiT(D * (c_i + s)) if n_in else torch.zeros_like(Z)
+            rest_rhs.append((-g_rest, -c_e))
         if len(rest_rhs) == 2:
             # SOC and restoration share ONE multi-RHS resolve sweep
             dZ2, lam2 = resolve.many(
@@ -442,11 +457,13 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             dZ_soc, lam_soc = dZ, lam_plus
         else:
             dZ_soc, lam_soc = dZ, lam_plus
-        a_soc = max_primal_step(dZ_soc) if soc_on else full(0.0)
+        ds_soc = -ci_soc - ctx.Ji(dZ_soc)
+        a_soc = max_primal_step(dZ_soc, ds_soc) if soc_on else full(0.0)
         if n_rest:
-            a_r = max_primal_step(dZ_r)
+            ds_r = -(c_i + s) - ctx.Ji(dZ_r)
+            a_r = max_primal_step(dZ_r, ds_r)
         else:
-            dZ_r = dZ
+            dZ_r, ds_r = dZ, ds
             a_r = full(0.0)
 
         # parallel trial grid: [backtracking | restoration | SOC | α_min]
@@ -463,7 +480,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         dir_idx = torch.as_tensor([0] * n_bt + [1] * n_rest + [2, 0], device=dev)
         dZ_trials = torch.stack([dZ, dZ_r, dZ_soc], dim=1)[:, dir_idx]
         Zt = nlp.apply_pins(Z[:, None] + alphas_all[..., None] * dZ_trials)
-        st_ = s[:, None] + alphas_all[..., None] * ds[:, None]
+        ds_trials = torch.stack([ds, ds_r, ds_soc], dim=1)[:, dir_idx]
+        st_ = s[:, None] + alphas_all[..., None] * ds_trials
         c_i_t = nlp.c_in(Zt)
         fs_all = nlp.objective(Zt)
         # θ via the fused Σ|c_eq| path (the L1 form of the residual kernel)
@@ -498,6 +516,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         alpha = torch.where(acc_1, a_pri, torch.where(use_soc, a_soc, torch.where(
             bt_ok, alpha_bt, torch.where(rest_ok, alpha_rest, alpha_min))))
         step_dZ = torch.where(use_soc[:, None], dZ_soc, torch.where(use_rest[:, None], dZ_r, dZ))
+        step_ds = torch.where(use_soc[:, None], ds_soc, torch.where(use_rest[:, None], ds_r, ds))
         step_lam_plus = torch.where(
             use_rest[:, None], lam, torch.where(use_soc[:, None], lam_soc, lam_plus)
         )
@@ -509,7 +528,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
 
         # ---- update ------------------------------------------------------- #
         Z_new = nlp.apply_pins(Z + alpha[:, None] * step_dZ)
-        s_new = s + alpha[:, None] * ds
+        s_new = s + alpha[:, None] * step_ds
         lam_new = lam + alpha[:, None] * (step_lam_plus - lam)
         nu_new = nu + a_dual[:, None] * dnu
         zL_new = zL + a_dual[:, None] * dzL
@@ -559,6 +578,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         ks = opt.kappa_sigma
         zL_new = torch.where(mask_L, torch.clamp(zL_new, mu_c / (ks * dLn), ks * mu_c / dLn), 0.0)
         zU_new = torch.where(mask_U, torch.clamp(zU_new, mu_c / (ks * dUn), ks * mu_c / dUn), 0.0)
+        if n_in:
+            nu_new = torch.clamp(nu_new, mu_c / (ks * s_new), ks * mu_c / s_new)
 
         z_max = torch.maximum(_amax0(Z_new.abs()), _amax0(s_new.abs()))
         diverged = st.diverged | (z_max > opt.diverging_iterates_tol)
@@ -579,6 +600,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
 
         # ---- local-infeasibility certificate ------------------------------ #
         g_feas = free * ctx.JeT(c_e)
+        if n_in:
+            g_feas = g_feas + free * ctx.JiT(c_i + s)
         g_proj = torch.where(
             (g_feas > 0) & mask_L, torch.minimum(g_feas, dL),
             torch.where((g_feas < 0) & mask_U, torch.maximum(g_feas, -dU), g_feas),

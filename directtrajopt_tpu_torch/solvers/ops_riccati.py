@@ -1,21 +1,31 @@
-"""Block-structured Riccati KKT backend, main-path subset.
+"""Block-structured Riccati KKT backend.
 
 Counterpart of ``directtrajopt_tpu/solvers/ops_riccati.py``. Knot variables
 split into states (integrator targets) and inputs; the condensed KKT system
 is a time-varying LQR solved by the fused Riccati factor+solve kernel
 (``ops/riccati_kernel.py``), whose per-stage Cholesky is the inertia
-certificate of the δ_w retry ladder. Dynamics rows whose target coordinate
-is pinned (the final-control pins) form a small border, solved by a Schur
-complement over the factored core with an augmented-Lagrangian curvature
-shift ρ·cᵀc on the owning knot.
+certificate of the δ_w retry ladder. On top of that core:
 
-Ported: ``analyze`` for explicit integrators with pins and bounds, the
-prepare step (Jacobians, Lagrangian Hessian blocks, Gauss-Newton skipping
-the constraint curvature), ``kkt_step`` with the border ``_combine`` and
-``resolve`` / ``resolve.many``. Not ported yet (``analyze`` raises
-``NotImplementedError``): chain promotion, affine and nonlinear border
-rows, inequality rows, global variables (ROADMAP Queue 1 item 9), the
-stagewise / project / flip regularizations (item 8) and L-BFGS (item 13).
+* **chain promotion**: a static linear equality row
+  ``β·z_{k+1}[c] + α·z_k = b`` covering every step (time consistency,
+  (Δt-)all-equal) promotes coordinate c to a state; its rows join the core
+  as affine "dynamics" rows normalized by β;
+* **fast inequality rows**: knot-local inequality rows (linear or
+  nonlinear) fold their D-scaled Gram ``Jᵀ D J`` into the per-knot Q blocks;
+* **the border**: dynamics rows with a pinned target, linear equality rows
+  that were not promoted (symmetry, totals), nonlinear equality rows, and
+  multi-knot linear inequality rows (duration ranges) are a small border
+  solved by a Schur complement over the factored core. Knot-local border
+  rows get an augmented-Lagrangian curvature shift ρ·cᵀc on the owning
+  knot; border inequalities carry the exact −1/D slack diagonal in place
+  of −δ_c, rhs 0, and a discarded multiplier;
+* **per-stage regularization** (``hessian_regularization``): "stagewise"
+  (an estimated λ_min shift per stage) and "project" / "flip" (per-stage
+  spectral modification).
+
+Not ported yet: global variables, the arrowhead border (ROADMAP Queue 1
+"Left for later": global variables), the "floor" mode (item 8) and L-BFGS
+(item 13).
 
 All tensors carry a leading lane axis B.
 """
@@ -26,7 +36,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.func import grad, jvp, vmap
+from torch.func import grad, hessian, jacfwd, jvp, vmap
 
 from ..integrators.base import stack_hessians_zk, stack_jacobians_zk
 from ..ops import riccati_kernel
@@ -78,6 +88,34 @@ def _chosolve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
+def _stage_min_shift(Q: torch.Tensor, n_iter: int = 12, margin_rel: float = 1e-5):
+    """Per-stage Levenberg shift ``max(0, −λ̂_min(Q_k) + ε_k)`` (…, N) from a
+    shifted power iteration on ``cI − Q`` (c: the Gershgorin bound), as the
+    JAX package's ``_stage_min_shift``. An estimate, not a certificate: the
+    Cholesky inertia check and the δ_w ladder stay the backstop."""
+    d = Q.shape[-1]
+    c = torch.clamp(Q.abs().sum(-1).amax(-1), min=1e-30)
+    v0 = np.sign(np.sin(1.0 + np.arange(d))) / np.sqrt(float(d))
+    v = torch.as_tensor(v0, dtype=Q.dtype, device=Q.device).expand(Q.shape[:-2] + (d,))
+    for _ in range(n_iter):
+        w = c[..., None] * v - torch.einsum("...ij,...j->...i", Q, v)
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True), min=1e-30)
+    ray = torch.einsum("...i,...ij,...j->...", v, Q, v)
+    return torch.clamp(-ray + margin_rel * c, min=0.0)
+
+
+def _stage_project(Q: torch.Tensor, mode: str, eps_rel: float = 1e-6) -> torch.Tensor:
+    """Per-stage spectral modification of the stage blocks (B, N, d, d):
+    "project" λ → max(λ, ε), "flip" λ → max(|λ|, ε), with
+    ε = eps_rel · max |λ| over the lane's stages (``_stage_project``)."""
+    Qs = 0.5 * (Q + Q.transpose(-1, -2))
+    lam, V = torch.linalg.eigh(Qs)
+    eps = eps_rel * torch.clamp(lam.abs().amax((-2, -1)), min=1e-30)
+    eps = eps.reshape(eps.shape + (1, 1))
+    lam_m = torch.maximum(lam.abs() if mode == "flip" else lam, eps)
+    return torch.einsum("...ij,...j,...kj->...ik", V, lam_m, V)
+
+
 @dataclass
 class OCPStructure:
     """Static structure of an explicit OCP."""
@@ -94,12 +132,32 @@ class OCPStructure:
     bp_flat: np.ndarray  # (n_bp,) flat c_eq indices of those rows
     dyn_flat_of_stack: np.ndarray  # (N-1, n_s) flat c_eq index of each core slot
     s0_mask: np.ndarray  # (n_s,) 1 where s_0 is free to optimize
+    # chain promotion: trailing s-order slots whose "dynamics" rows are
+    # linear equality rows β·z_{k+1}[c] + α·z_k = b, normalized by β
+    promo_jr: np.ndarray  # (N-1, n_promo, d) normalized Jacobians α/β
+    core_beta: np.ndarray  # (N-1, n_s) β per core row (1 for real dynamics)
+    lin_border_rows: np.ndarray  # A_eq row indices not promoted (border)
+    # inequality row → (knot, slot) maps (fast rows; border rows masked out)
+    in_knot: np.ndarray  # (n_in,)
+    in_slot: np.ndarray  # (n_in,)
+    m_in: int
+    lin_in_nnz: tuple  # (knot, slot, col_local) of the fast linear COO entries
+    # (n_ib,) flat c_in index of each border inequality; only linear rows
+    # ride the border here, so these are also their A_in row indices
+    ib_flat: np.ndarray
+    in_fast_mask: np.ndarray  # (n_in,) 1.0 on fast rows
+    lin_nnz_keep: np.ndarray  # (nnz,) per-COO-entry fast-row mask
+    nl_eq_offsets: list  # flat c_eq offset of each nonlinear equality
+    nl_in_offsets: list  # flat c_in offset of each nonlinear inequality
 
 
 def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
     """Check Riccati eligibility and build the static structure."""
     layout = nlp.layout
     N, d = layout.N, layout.dim
+    if layout.global_dim:
+        raise NotImplementedError("global variables are not ported yet (ROADMAP Queue 1 "
+                                  "'Left for later': global variables)")
     if not nlp.integrators:
         return None
     s_list, s_pos = [], []
@@ -111,14 +169,68 @@ def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
         s_list.extend(range(cs.start, cs.stop))
     if len(set(s_list)) != len(s_list):
         return None  # overlapping targets
-    if nlp.eq_entries or nlp.in_entries or nlp.n_nl_eq or nlp.n_nl_in:
-        raise NotImplementedError(
-            "chain promotion, affine / nonlinear border rows and inequality rows "
-            "are not ported to the Riccati backend yet (ROADMAP Queue 1 item 9)"
-        )
-    s_idx = np.asarray(s_list, dtype=np.int64)
-    v_idx = np.asarray([i for i in range(d) if i not in set(s_list)], dtype=np.int64)
+
+    # ---- chain promotion: static rows β·z_{k+1}[c] + α·z_k = b covering
+    # every step k = 0..N-2 for one coordinate c promote c to a state
+    taken = set(s_list)
+    chains: dict[int, dict] = {}  # coord c -> {step k: (A_eq row, β, α/β)}
+    flat_off = 0
+    for rows, cols, vals, _, n in nlp.eq_entries:
+        if isinstance(vals, np.ndarray) and len(cols) and not np.any(cols >= N * d):
+            for r in range(n):
+                sel = rows == r
+                cs, vs = cols[sel], vals[sel]
+                if not len(cs):
+                    continue
+                kt = int(np.max(cs) // d)
+                tgt = cs // d == kt
+                if kt < 1 or np.sum(tgt) != 1 or not np.all(cs[~tgt] // d == kt - 1):
+                    continue
+                c = int(cs[tgt][0] % d)
+                beta = float(vs[tgt][0])
+                if c in taken or beta == 0.0:
+                    continue
+                jr = np.zeros(d)
+                jr[cs[~tgt] % d] = vs[~tgt] / beta
+                chains.setdefault(c, {})[kt - 1] = (flat_off + r, beta, jr)
+        flat_off += n
+    n_lin_rows = flat_off
+    promo_cols = sorted(c for c, steps in chains.items() if len(steps) == N - 1)
+    n_promo = len(promo_cols)
+    promo_flat = np.zeros((N - 1, n_promo), dtype=np.int64)
+    promo_beta = np.ones((N - 1, n_promo))
+    promo_jr = np.zeros((N - 1, n_promo, d))
+    promoted_rows: set[int] = set()
+    for j, c in enumerate(promo_cols):
+        taken.add(c)
+        for k in range(N - 1):
+            fr, beta, jr = chains[c][k]
+            promo_flat[k, j] = fr
+            promo_beta[k, j] = beta
+            promo_jr[k, j] = jr
+            promoted_rows.add(fr)
+    lin_border_rows = np.asarray([r for r in range(n_lin_rows) if r not in promoted_rows],
+                                 dtype=np.int64)
+
+    s_idx = np.asarray(s_list + promo_cols, dtype=np.int64)
+    v_idx = np.asarray([i for i in range(d) if i not in taken], dtype=np.int64)
     n_s = len(s_idx)
+
+    for con in nlp.eq_cons + nlp.in_cons:
+        if not hasattr(con, "knot_residual"):
+            return None
+
+    # linear inequality rows: knot-local → fast path; multi-knot → border
+    ib_lin_rows = []
+    row_off0 = 0
+    for rows, cols, _, _, n in nlp.in_entries:
+        knots = cols // d
+        for r in range(n):
+            sel = rows == r
+            if np.any(sel) and not np.all(knots[sel] == knots[sel][0]):
+                ib_lin_rows.append(row_off0 + r)
+        row_off0 += n
+    ib_lin_set = set(ib_lin_rows)
 
     free = np.ones(N * d)
     free[nlp.fix_idx] = 0.0
@@ -131,18 +243,88 @@ def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
     core_mask = (~bp).astype(np.float64)
     bp_steps, bp_rows = np.nonzero(bp)
 
+    # flat c_eq index of each (step, s-order row): per-integrator k-major,
+    # then the promoted chains (their rows live in the A_eq range of c_eq)
     dyn_flat = np.zeros((N - 1, n_s), dtype=np.int64)
     off = 0
     for pos, r in s_pos:
         for k in range(N - 1):
             dyn_flat[k, pos : pos + r] = off + k * r + np.arange(r)
         off += r * (N - 1)
+    core_beta = np.ones((N - 1, n_s))
+    if n_promo:
+        dyn_flat[:, n_s - n_promo :] = nlp.n_dyn + promo_flat
+        core_beta[:, n_s - n_promo :] = promo_beta
+
+    # inequality row maps (border rows keep dummy 0/0 slots, masked out of
+    # every fast-path gather/scatter by in_fast_mask)
+    n_in = nlp.n_in
+    in_knot = np.zeros(n_in, dtype=np.int64)
+    in_slot = np.zeros(n_in, dtype=np.int64)
+    in_fast_mask = np.ones(n_in)
+    per_knot_count = np.zeros(N, dtype=np.int64)
+    row_off = 0
+    lin_nnz_knot, lin_nnz_slot, lin_nnz_col, lin_nnz_keep = [], [], [], []
+    lin_row_slot = {}
+    for rows, cols, _, _, n in nlp.in_entries:
+        for r in range(n):
+            if row_off + r in ib_lin_set:
+                in_fast_mask[row_off + r] = 0.0
+                continue
+            sel = rows == r
+            kr = int((cols[sel] // d)[0]) if np.any(sel) else 0
+            in_knot[row_off + r] = kr
+            in_slot[row_off + r] = per_knot_count[kr]
+            lin_row_slot[row_off + r] = (kr, per_knot_count[kr])
+            per_knot_count[kr] += 1
+        for rr, cc in zip(rows, cols):
+            if row_off + rr in ib_lin_set:
+                lin_nnz_keep.append(False)
+                continue
+            lin_nnz_keep.append(True)
+            kr, sl = lin_row_slot[row_off + rr]
+            lin_nnz_knot.append(kr)
+            lin_nnz_slot.append(sl)
+            lin_nnz_col.append(cc % d)
+        row_off += n
+    nl_in_offsets = []
+    for con in nlp.in_cons:
+        nl_in_offsets.append(row_off)
+        for t in con.times:
+            for _ in range(con.g_dim):
+                in_knot[row_off] = t
+                in_slot[row_off] = per_knot_count[t]
+                per_knot_count[t] += 1
+                row_off += 1
+    m_in = int(per_knot_count.max()) if n_in else 0
+
+    nl_eq_offsets = []
+    off = nlp.n_dyn + nlp.n_lin_eq
+    for con in nlp.eq_cons:
+        nl_eq_offsets.append(off)
+        off += con.constraint_dim(layout)
+
     return OCPStructure(
         N=N, d=d, s_idx=s_idx, v_idx=v_idx, s_pos=s_pos, free_blk=free_blk,
         core_mask=core_mask, bp_steps=bp_steps, bp_rows=bp_rows,
         bp_flat=dyn_flat[bp_steps, bp_rows], dyn_flat_of_stack=dyn_flat,
-        s0_mask=free_blk[0, s_idx].copy(),
+        s0_mask=free_blk[0, s_idx].copy(), promo_jr=promo_jr, core_beta=core_beta,
+        lin_border_rows=lin_border_rows, in_knot=in_knot, in_slot=in_slot, m_in=m_in,
+        lin_in_nnz=(np.asarray(lin_nnz_knot, dtype=np.int64),
+                    np.asarray(lin_nnz_slot, dtype=np.int64),
+                    np.asarray(lin_nnz_col, dtype=np.int64)),
+        ib_flat=np.asarray(ib_lin_rows, dtype=np.int64), in_fast_mask=in_fast_mask,
+        lin_nnz_keep=np.asarray(lin_nnz_keep, dtype=bool),
+        nl_eq_offsets=nl_eq_offsets, nl_in_offsets=nl_in_offsets,
     )
+
+
+def _lane_scatter_add(base: torch.Tensor, idx: list, vals: torch.Tensor) -> torch.Tensor:
+    """``base[b, *idx] += vals[b]`` for every lane b (duplicates accumulate);
+    the index tensors share one shape and address the axes after the lane."""
+    lane = torch.arange(base.shape[0], device=base.device)
+    lane = lane.reshape((-1,) + (1,) * idx[0].ndim)
+    return base.index_put((lane, *(i[None] for i in idx)), vals, accumulate=True)
 
 
 def _knot_hessians(obj, layout, zmat: torch.Tensor) -> torch.Tensor:
@@ -151,12 +333,14 @@ def _knot_hessians(obj, layout, zmat: torch.Tensor) -> torch.Tensor:
     knot of every lane at once."""
     g = grad(lambda z: obj.cost_at_knot(layout, z).sum())
     eye = torch.eye(layout.dim, dtype=zmat.dtype, device=zmat.device)
-    return vmap(lambda e: jvp(g, (zmat,), (e.expand_as(zmat),))[1], out_dims=-1)(eye)
+    # out_dims=0: a Hessian that does not depend on the tangent (a linear
+    # cost) comes back unbatched, which vmap cannot place on the last axis
+    return vmap(lambda e: jvp(g, (zmat,), (e.expand_as(zmat),))[1])(eye).movedim(0, -1)
 
 
 class _RiccatiCtx:
     def __init__(self, nlp: CanonicalNLP, S: OCPStructure, Z, lam, nu, cache=None,
-                 gauss_newton: bool = False):
+                 gauss_newton: bool = False, stagewise=False):
         self.nlp = nlp
         self.S = S
         layout = nlp.layout
@@ -167,46 +351,157 @@ class _RiccatiCtx:
         zmat = Z.reshape(B, N, d)
         self.grad_f = gradient(nlp, Z)
         if cache is not None:
+            # residuals at Z carried over from the line search that accepted it
             self.c_e, self.c_i = cache
         else:
             self.c_e, self.c_i = nlp.c_eq(Z), nlp.c_in(Z)
-        self.Jr = torch.cat(
-            [stack_jacobians_zk(integ, layout, zmat) for integ in nlp.integrators], dim=2
-        )  # (B, N-1, n_s, d)
+
+        # dynamics Jacobians w.r.t. z_k in s-order (B, N-1, n_s, d); promoted
+        # chains contribute their static normalized rows α/β
+        jr = [stack_jacobians_zk(integ, layout, zmat) for integ in nlp.integrators]
+        if S.promo_jr.shape[1]:
+            jr.append(torch.as_tensor(S.promo_jr, dtype=dtype, device=dev).expand(
+                (B,) + S.promo_jr.shape))
+        self.Jr = torch.cat(jr, dim=2)
+        # core rows are normalized (original row = β · core row)
+        self.core_beta = torch.as_tensor(S.core_beta, dtype=dtype, device=dev)
+        self.core_beta_inv = torch.as_tensor(1.0 / S.core_beta, dtype=dtype, device=dev)
+        lin_mask = np.zeros(nlp.n_lin_eq)
+        lin_mask[S.lin_border_rows] = 1.0
+        self._lin_mask = torch.as_tensor(lin_mask, dtype=dtype, device=dev)
+
+        def zsel(con):
+            return zmat[:, list(con.times)]
+
+        def nl_jac(con):
+            """Per-knot Jacobian blocks (B, T, g_dim, d)."""
+            return con.map_knots(
+                lambda z, p: jacfwd(lambda zz: con.knot_residual(layout, zz, p))(z), zsel(con))
+
+        self.nl_eq_jacs = [nl_jac(c) for c in nlp.eq_cons]
+        self.nl_in_jacs = [nl_jac(c) for c in nlp.in_cons]
+
+        # Lagrangian Hessian blocks (B, N, d, d): objective, then (exact
+        # Hessian only) the λ-weighted dynamics and the λ/ν-weighted
+        # nonlinear-constraint curvature
         QW = _knot_hessians(nlp.objective_obj, layout, zmat)
         if not gauss_newton:
-            # Gauss-Newton drops the λ-weighted constraint curvature
             off = 0
             for integ, (_, r) in zip(nlp.integrators, S.s_pos):
                 mu = lam[:, off : off + r * (N - 1)].reshape(B, N - 1, r)
                 blocks = stack_hessians_zk(integ, layout, zmat, mu)
                 QW = torch.cat([QW[:, : N - 1] + blocks, QW[:, N - 1 :]], dim=1)
                 off += r * (N - 1)
+            for cons, offsets, mults in ((nlp.eq_cons, S.nl_eq_offsets, lam),
+                                         (nlp.in_cons, S.nl_in_offsets, nu)):
+                for con, o in zip(cons, offsets):
+                    T, gd = len(con.times), con.g_dim
+                    mu = mults[:, o : o + T * gd].reshape(B, T, gd)
+
+                    def hess(z, p, m, con=con):
+                        return hessian(lambda zz: (m * con.knot_residual(layout, zz, p)).sum())(z)
+
+                    blocks = con.map_knots(hess, zsel(con), mu)
+                    QW = QW.index_add(1, torch.as_tensor(con.times, device=dev), blocks)
         self.QW = QW
-        self.f_blk = torch.as_tensor(S.free_blk, dtype=dtype, device=dev)
+        # "stagewise" | "project" | "flip" or False (Gauss-Newton is PSD)
+        self.stagewise = False if gauss_newton else stagewise
+
+        f_blk = torch.as_tensor(S.free_blk, dtype=dtype, device=dev)
+        self.f_blk = f_blk
         self._dyn = torch.as_tensor(S.dyn_flat_of_stack.reshape(-1), device=dev)
         self._s_ix = torch.as_tensor(S.s_idx, device=dev)
         self._v_ix = torch.as_tensor(S.v_idx, device=dev)
+        self._in_knot = torch.as_tensor(S.in_knot, device=dev)
+        self._in_slot = torch.as_tensor(S.in_slot, device=dev)
+        self._fast = torch.as_tensor(S.in_fast_mask, dtype=dtype, device=dev)
+        self._ib = torch.as_tensor(S.ib_flat, device=dev)
+
+        # per-knot fast inequality Jacobian blocks (B, N, m_in, d)
+        Jin = torch.zeros((B, N, S.m_in, d), dtype=dtype, device=dev)
+        if nlp.n_in and S.m_in:
+            kz, sz, cz = S.lin_in_nnz
+            if len(kz):
+                vals = nlp.A_in.vals[:, torch.as_tensor(np.nonzero(S.lin_nnz_keep)[0], device=dev)]
+                Jin = _lane_scatter_add(Jin, [torch.as_tensor(a, device=dev) for a in (kz, sz, cz)],
+                                        vals)
+            row = nlp.n_lin_in
+            for con, jac in zip(nlp.in_cons, self.nl_in_jacs):
+                T, gd = len(con.times), con.g_dim
+                kn = torch.as_tensor(S.in_knot[row : row + T * gd].reshape(T, gd), device=dev)
+                sl = torch.as_tensor(S.in_slot[row : row + T * gd].reshape(T, gd), device=dev)
+                Jin = _lane_scatter_add(Jin, [kn, sl], jac)
+                row += T * gd
+        self.Jin_raw = Jin
+        self.Jin = Jin * f_blk[:, None, :]
+
+        # border-inequality Jacobians (B, n_ib, N, d), raw (unmasked)
+        n_ib = len(S.ib_flat)
+        self.n_ib = n_ib
+        if n_ib:
+            self.Jib_z = nlp.A_in.select_rows(S.ib_flat)[..., : N * d].reshape(B, n_ib, N, d)
+        else:
+            self.Jib_z = torch.zeros((B, 0, N, d), dtype=dtype, device=dev)
 
     # ---------------- matvecs ---------------------------------------------- #
 
     def JeT(self, v: torch.Tensor) -> torch.Tensor:
-        S = self.S
+        """``J_eqᵀ v`` per lane: (B, n_eq) → (B, z_dim)."""
+        nlp, S = self.nlp, self.S
         N, d, n_s = S.N, S.d, len(S.s_idx)
         B = v.shape[0]
-        vd = v[:, self._dyn].reshape(B, N - 1, n_s)
+        # promoted-chain slots hold the normalized row: Jᵀv = J_normᵀ(β∘v)
+        vd = v[:, self._dyn].reshape(B, N - 1, n_s) * self.core_beta
         out = torch.zeros((B, N, d), dtype=v.dtype, device=v.device)
         out[:, : N - 1] += torch.einsum("bkrd,bkr->bkd", self.Jr, vd)
         out[:, 1:, self._s_ix] += vd
-        return out.reshape(B, -1)
+        for con, jac, o in zip(nlp.eq_cons, self.nl_eq_jacs, S.nl_eq_offsets):
+            T, gd = len(con.times), con.g_dim
+            contr = torch.einsum("btgd,btg->btd", jac, v[:, o : o + T * gd].reshape(B, T, gd))
+            out = out.index_add(1, torch.as_tensor(con.times, device=v.device), contr)
+        full = out.reshape(B, -1)
+        if nlp.n_lin_eq:
+            # promoted rows were consumed above: mask them out of A_eqᵀ
+            full = full + nlp.A_eq.rmatvec(v[:, nlp.n_dyn : nlp.n_dyn + nlp.n_lin_eq]
+                                           * self._lin_mask)
+        return full
 
     def JiT(self, v: torch.Tensor) -> torch.Tensor:
-        return torch.zeros((v.shape[0], self.nlp.z_dim), dtype=v.dtype, device=v.device)
+        """``J_inᵀ v`` per lane: (B, n_in) → (B, z_dim)."""
+        S = self.S
+        B = v.shape[0]
+        out = torch.zeros((B, S.N, S.d), dtype=v.dtype, device=v.device)
+        if self.nlp.n_in == 0:
+            return out.reshape(B, -1)
+        if S.m_in:
+            vb = _lane_scatter_add(torch.zeros((B, S.N, S.m_in), dtype=v.dtype, device=v.device),
+                                   [self._in_knot, self._in_slot], v * self._fast)
+            out = torch.einsum("bnmd,bnm->bnd", self.Jin_raw, vb)
+        if self.n_ib:
+            out = out + torch.einsum("bjnd,bj->bnd", self.Jib_z, v[:, self._ib])
+        return out.reshape(B, -1)
+
+    def Ji(self, v: torch.Tensor) -> torch.Tensor:
+        """``J_in v`` per lane on the free coordinates: (B, z_dim) → (B, n_in)."""
+        nlp, S = self.nlp, self.S
+        B = v.shape[0]
+        if nlp.n_in == 0:
+            return v.new_zeros((B, 0))
+        vm = (v * nlp.free_mask).reshape(B, S.N, S.d)
+        if S.m_in:
+            prod = torch.einsum("bnmd,bnd->bnm", self.Jin, vm)
+            out = prod[:, self._in_knot, self._in_slot]
+        else:
+            out = v.new_zeros((B, nlp.n_in))
+        if self.n_ib:
+            out = out * self._fast
+            out = out.index_copy(1, self._ib, torch.einsum("bjnd,bnd->bj", self.Jib_z, vm))
+        return out
 
     # ---------------- KKT solve -------------------------------------------- #
 
     def kkt_step(self, Sig, D, g_hat, rhs_c, delta_last, opt, active=None):
-        S = self.S
+        nlp, S = self.nlp, self.S
         N, d = S.N, S.d
         n_s = len(S.s_idx)
         B = Sig.shape[0]
@@ -218,6 +513,11 @@ class _RiccatiCtx:
         Q = self.QW * f_blk[:, :, None] * f_blk[:, None, :]
         Q = Q + torch.diag_embed(1.0 - f_blk)
         Q = Q + torch.diag_embed(Sig.reshape(B, N, d))
+        if nlp.n_in and S.m_in:
+            # fast inequality rows: the D-scaled Gram JᵀDJ per knot
+            Db = _lane_scatter_add(torch.zeros((B, N, S.m_in), dtype=dtype, device=dev),
+                                   [self._in_knot, self._in_slot], D * self._fast)
+            Q = Q + torch.einsum("bnmd,bnm,bnme->bnde", self.Jin, Db, self.Jin)
 
         # ---- dynamics blocks ---------------------------------------------- #
         Jr_m = self.Jr * f_blk[: N - 1, None, :]
@@ -227,17 +527,81 @@ class _RiccatiCtx:
         zpad_v = torch.zeros((B, 1, n_s, len(S.v_idx)), dtype=dtype, device=dev)
         Abar_p = torch.cat([A_full[..., s_ix], zpad_s], dim=1)
         Bbar_p = torch.cat([A_full[..., v_ix], zpad_v], dim=1)
+        binv = self.core_beta_inv
 
-        # ---- border rows: pinned-target dynamics rows --------------------- #
-        m_c = len(S.bp_steps)
+        # ---- border rows: [pinned-target dynamics ; linear equalities not
+        # promoted ; nonlinear equalities ; border inequalities] ------------ #
+        n_bp = len(S.bp_steps)
+        n_lb = len(S.lin_border_rows)
+        n_ib = self.n_ib
         bp_steps = torch.as_tensor(S.bp_steps, device=dev)
-        bp_flat = torch.as_tensor(S.bp_flat, device=dev)
+        bp_binv = torch.as_tensor(S.core_beta[S.bp_steps, S.bp_rows] ** -1.0, dtype=dtype,
+                                  device=dev)
+        C_rows, loc_knots, loc_flat, loc_scale, loc_vecs, loc_mask = [], [], [], [], [], []
+        if n_bp:
+            C_bp = torch.zeros((B, n_bp, N, d), dtype=dtype, device=dev)
+            C_bp[:, torch.arange(n_bp, device=dev), bp_steps, :] = \
+                Jr_m[:, bp_steps, torch.as_tensor(S.bp_rows, device=dev), :]
+            C_rows.append(C_bp)
+            loc_knots.append(S.bp_steps)
+            loc_flat.append(S.bp_flat)
+            loc_scale.append(S.core_beta[S.bp_steps, S.bp_rows] ** -1.0)
+            loc_vecs.append(C_bp)
+            loc_mask.append(np.ones(n_bp))
+        if n_lb:
+            A_lb = nlp.A_eq.select_rows(S.lin_border_rows) * nlp.free_mask
+            C_rows.append(A_lb[..., : N * d].reshape(B, n_lb, N, d))
+            loc_mask.append(np.zeros(n_lb))
+        for con, jac, o in zip(nlp.eq_cons, self.nl_eq_jacs, S.nl_eq_offsets):
+            times = np.asarray(con.times)
+            T, gd = len(times), con.g_dim
+            Cc = torch.zeros((B, T, gd, N, d), dtype=dtype, device=dev)
+            tt = torch.as_tensor(times, device=dev)
+            Cc[:, torch.arange(T, device=dev), :, tt, :] = (jac * f_blk[tt][None, :, None, :]
+                                                          ).transpose(0, 1)
+            Cc = Cc.reshape(B, T * gd, N, d)
+            C_rows.append(Cc)
+            loc_knots.append(np.repeat(times, gd))
+            loc_flat.append(np.arange(o, o + T * gd))
+            loc_scale.append(np.ones(T * gd))
+            loc_vecs.append(Cc)
+            loc_mask.append(np.ones(T * gd))
+        if n_ib:
+            C_rows.append(self.Jib_z * f_blk)
+            loc_mask.append(np.zeros(n_ib))
+            e_ib = 1.0 / torch.clamp(D[:, self._ib], min=1e-30)
+        m_c = sum(c.shape[1] for c in C_rows)
+        C = torch.cat(C_rows, dim=1) if m_c else torch.zeros((B, 0, N, d), dtype=dtype, device=dev)
+        # per-row (2,2) diagonal: δ_c on equality rows, the exact 1/D on
+        # inequality rows (refine_e keeps it in the refinement residual)
+        delta_c = torch.full((B, m_c - n_ib), opt.delta_c, dtype=dtype, device=dev)
+        diag_e = torch.cat([delta_c, e_ib], dim=1) if n_ib else delta_c
+        refine_e = torch.cat([torch.zeros_like(delta_c), e_ib], dim=1) if n_ib else None
+        loc_border_mask = torch.as_tensor(np.concatenate(loc_mask) if loc_mask else np.zeros(0),
+                                          dtype=dtype, device=dev)
+
+        # ---- augmented-Lagrangian curvature shift ρ·cᵀc on the owning knot
+        # of knot-local border rows (pins of state coordinates, nonlinear
+        # equalities): the constrained solution is unchanged, and the stage
+        # Cholesky certificate then matches the full KKT inertia ---------- #
         rho = opt.border_penalty
-        lv = Jr_m[:, bp_steps, torch.as_tensor(S.bp_rows, device=dev), :]  # (B, m_c, d)
-        C = torch.zeros((B, m_c, N, d), dtype=dtype, device=dev)
-        C[:, torch.arange(m_c, device=dev), bp_steps, :] = lv
-        # augmented-Lagrangian curvature shift ρ·cᵀc on the owning knot
-        Q = Q.index_add(1, bp_steps, rho * lv[:, :, None, :] * lv[:, :, :, None])
+        if loc_knots:
+            lk_np = np.concatenate(loc_knots)
+            lk = torch.as_tensor(lk_np, device=dev)
+            lf = torch.as_tensor(np.concatenate(loc_flat), device=dev)
+            ls = torch.as_tensor(np.concatenate(loc_scale), dtype=dtype, device=dev)
+            lv = torch.cat(loc_vecs, dim=1)[:, torch.arange(len(lk_np), device=dev), lk, :]
+            Q = Q.index_add(1, lk, rho * lv[:, :, None, :] * lv[:, :, :, None])
+        else:
+            lv = None
+
+        sw_shift = None
+        if self.stagewise in ("project", "flip"):
+            # spectral modification of the full stage blocks, once, before
+            # the (s, v) sub-blocks are sliced
+            Q = _stage_project(Q, self.stagewise)
+        elif self.stagewise:
+            sw_shift = _stage_min_shift(Q)
 
         Qss = Q[:, :, s_ix][:, :, :, s_ix]
         Qsv = Q[:, :, s_ix][:, :, :, v_ix]
@@ -248,17 +612,33 @@ class _RiccatiCtx:
         def rho_adjust(rhs_z_blk, rhs_c_flat):
             """Rhs shift matching the ρ·cᵀc in Q; (L, N, d), (L, n_eq) with
             L a multiple of B (lane-major repeats)."""
+            if lv is None:
+                return rhs_z_blk
             rep = rhs_z_blk.shape[0] // B
             lv_r = lv.repeat_interleave(rep, 0) if rep > 1 else lv
-            r_loc = rhs_c_flat[:, bp_flat]
+            r_loc = rhs_c_flat[:, lf] * ls
+            # the shifts of one knot are summed before they meet the rhs
             return rhs_z_blk + torch.zeros_like(rhs_z_blk).index_add(
-                1, bp_steps, rho * lv_r * r_loc[:, :, None]
-            )
+                1, lk, rho * lv_r * r_loc[:, :, None])
 
         def b_dyn_pad(rhs_c_flat):
             L = rhs_c_flat.shape[0]
-            b_dyn = rhs_c_flat[:, self._dyn].reshape(L, N - 1, n_s) * cm
+            b_dyn = rhs_c_flat[:, self._dyn].reshape(L, N - 1, n_s) * binv * cm
             return torch.cat([b_dyn, torch.zeros((L, 1, n_s), dtype=dtype, device=dev)], dim=1)
+
+        def border_rhs(rhs_c_flat):
+            L = rhs_c_flat.shape[0]
+            parts = []
+            if n_bp:
+                parts.append(rhs_c_flat[:, torch.as_tensor(S.bp_flat, device=dev)] * bp_binv)
+            if n_lb:
+                parts.append(rhs_c_flat[:, nlp.n_dyn + torch.as_tensor(S.lin_border_rows,
+                                                                       device=dev)])
+            for con, o in zip(nlp.eq_cons, S.nl_eq_offsets):
+                parts.append(rhs_c_flat[:, o : o + con.constraint_dim(nlp.layout)])
+            if n_ib:  # border inequalities carry rhs 0
+                parts.append(rhs_c_flat.new_zeros((L, n_ib)))
+            return torch.cat(parts, dim=1) if parts else rhs_c_flat.new_zeros((L, 0))
 
         rhs_main = rho_adjust((-g_hat).reshape(B, N, d), rhs_c)
         q_all = torch.cat([-C, -rhs_main[:, None]], dim=1)  # (B, m_c+1, N, d)
@@ -271,7 +651,8 @@ class _RiccatiCtx:
         s0m = S.s0_mask
 
         def factor(delta):
-            dsh = delta[:, None, None, None]
+            dsh = delta[:, None] if sw_shift is None else delta[:, None] + sw_shift
+            dsh = dsh.expand(B, N)[:, :, None, None]
             P, Lv, Kg, Mvs, L0, okf, dzs, dzv, lamS = riccati_kernel.factor_solve(
                 s0m, Qss + dsh * fS, Qsv, Qvv + dsh * fV, Abar_p, Bbar_p,
                 qs_all, qv_all, b_all,
@@ -292,8 +673,7 @@ class _RiccatiCtx:
         dz_all = scatter_dz(dzs, dzv)  # (B, m_c+1, N, d)
         Xz, Xlam = dz_all[:, :m_c], lamS[:, :m_c]
         if m_c:
-            Smat = torch.einsum("bjnd,bknd->bjk", C, Xz) + torch.diag(
-                torch.full((m_c,), opt.delta_c, dtype=dtype, device=dev))
+            Smat = torch.einsum("bjnd,bknd->bjk", C, Xz) + torch.diag_embed(diag_e)
             Ls = _chol(Smat)
             fin = torch.isfinite(Ls)
             ok_s = fin.all(-1).all(-1)
@@ -312,25 +692,42 @@ class _RiccatiCtx:
             def r(t):
                 return t.repeat_interleave(rep, 0) if rep > 1 else t
 
-            C_r, Xz_r, Xlam_r, Ls_r, = r(C), r(Xz), r(Xlam), r(Ls)
-            rcc = rhs_c_flat[:, bp_flat]
+            C_r, Xz_r, Xlam_r, Ls_r = r(C), r(Xz), r(Xlam), r(Ls)
+            rf_r = r(refine_e) if n_ib else None
+            rcc = border_rhs(rhs_c_flat)
             lam_c = dz0.new_zeros((dz0.shape[0], m_c))
             dz = dz0
             for _ in range(3):
                 R1 = torch.einsum("jmnd,jnd->jm", C_r, dz) - rcc
+                if n_ib:
+                    R1 = R1 - rf_r * lam_c
                 lam_c = lam_c + _chosolve(Ls_r, R1)
                 dz = dz0 - torch.einsum("jmnd,jm->jnd", Xz_r, lam_c)
             lam_stack = lam0 - torch.einsum("jmkr,jm->jkr", Xlam_r, lam_c)
+            # undo the augmented-Lagrangian shift in the penalized rows'
+            # multipliers: λc = λ̃c + ρ(C dz − r) there
             r_b = torch.einsum("jmnd,jnd->jm", C_r, dz) - rcc
-            # undo the augmented-Lagrangian shift in the border multipliers
-            lam_c = lam_c + rho * r_b
+            lam_c = lam_c + rho * loc_border_mask * r_b
             return dz, lam_stack, lam_c
 
         def pack_lam(lam_stack, lam_c):
+            """Flat λ (L, n_eq); core rows are normalized, so λ = λ_norm/β.
+            The border inequalities' multipliers are discarded."""
             L = lam_stack.shape[0]
-            lam_flat = torch.zeros((L, self.nlp.n_eq), dtype=dtype, device=dev)
-            lam_flat[:, self._dyn] = lam_stack.reshape(L, -1)
-            lam_flat[:, bp_flat] = lam_c
+            lam_flat = torch.zeros((L, nlp.n_eq), dtype=dtype, device=dev)
+            lam_flat[:, self._dyn] = (lam_stack * binv).reshape(L, -1)
+            pos = 0
+            if n_bp:
+                lam_flat[:, torch.as_tensor(S.bp_flat, device=dev)] = lam_c[:, :n_bp] * bp_binv
+                pos = n_bp
+            if n_lb:
+                lam_flat[:, nlp.n_dyn + torch.as_tensor(S.lin_border_rows, device=dev)] = \
+                    lam_c[:, pos : pos + n_lb]
+                pos += n_lb
+            for con, o in zip(nlp.eq_cons, S.nl_eq_offsets):
+                cd = con.constraint_dim(nlp.layout)
+                lam_flat[:, o : o + cd] = lam_c[:, pos : pos + cd]
+                pos += cd
             return lam_flat
 
         def resolve_many(rhs_z_stack, rhs_c_stack):
@@ -372,5 +769,6 @@ class RiccatiOps:
         self.nlp = nlp
         self.struct = struct
 
-    def prepare(self, Z, lam, nu, cache=None, gauss_newton=False) -> _RiccatiCtx:
-        return _RiccatiCtx(self.nlp, self.struct, Z, lam, nu, cache, gauss_newton)
+    def prepare(self, Z, lam, nu, cache=None, gauss_newton=False,
+                stagewise=False) -> _RiccatiCtx:
+        return _RiccatiCtx(self.nlp, self.struct, Z, lam, nu, cache, gauss_newton, stagewise)

@@ -103,7 +103,7 @@ class IPMOptions:
             no("mu_strategy", self.mu_strategy, "Queue 1 item 6 follow-up")
         if self.hessian_approximation not in ("exact", "gauss_newton"):
             no("hessian_approximation", self.hessian_approximation, "Queue 1 item 13")
-        if self.hessian_regularization not in ("inertia", "auto"):
+        if self.hessian_regularization not in ("inertia", "auto", "stagewise", "project", "flip"):
             no("hessian_regularization", self.hessian_regularization, "Queue 1 item 8")
         if self.refine_residuals:
             no("refine_residuals", True, "Queue 1 item 6 follow-up")

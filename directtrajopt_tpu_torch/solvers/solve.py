@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 import torch
 
 from .. import precision
+from ..constraints import L1SlackConstraint
 from ..module import tree_map, tree_take
 from ..problem import DirectTrajOptProblem
 from .canonical import make_nlp
@@ -27,7 +28,8 @@ from .ops_riccati import RiccatiOps, analyze
 
 precision.apply()
 
-__all__ = ["SolveResult", "solve", "solve_batch", "solve_batch_compact", "cast_problem"]
+__all__ = ["SolveResult", "solve", "solve_batch", "solve_batch_compact", "cast_problem",
+           "remove_slack_variables"]
 
 
 class SolveResult(NamedTuple):
@@ -38,6 +40,18 @@ class SolveResult(NamedTuple):
     kkt_error: torch.Tensor
     objective: torch.Tensor
     ipm: IPMResult
+
+
+def remove_slack_variables(problem: DirectTrajOptProblem) -> DirectTrajOptProblem:
+    """Drop the L1 slack components (and their constraints) from a solved
+    problem; returns a new problem."""
+    slack_names = [c.slack_name for c in problem.constraints if isinstance(c, L1SlackConstraint)]
+    if not slack_names:
+        return problem
+    return problem.replace(
+        trajectory=problem.trajectory.remove_components(slack_names),
+        constraints=tuple(c for c in problem.constraints if not isinstance(c, L1SlackConstraint)),
+    )
 
 
 def _merge_options(options: IPMOptions | None, kwargs: dict) -> IPMOptions:

@@ -173,7 +173,8 @@ class Trajectory:
         for k, v in (bounds or {}).items():
             if k not in names:
                 raise NotImplementedError(
-                    f"bounds on {k!r}: global variables are not ported yet (ROADMAP Queue 1 item 9)"
+                    f"bounds on {k!r}: global variables are not ported yet "
+                    "(ROADMAP Queue 1 'Left for later': global variables)"
                 )
             lb, ub = normalize_bound(v, dims[k])
             bnds[k] = (_lanes(lb, B, (dims[k],), device, dtype),
@@ -235,3 +236,22 @@ class Trajectory:
     def timesteps(self) -> torch.Tensor:
         """Per-knot Δt values, ``(B, N)``."""
         return self.layout.knot_timestep(self.knot_matrix())
+
+    def get_duration(self) -> torch.Tensor:
+        """Σ_{k<N-1} Δt_k per lane, ``(B,)``."""
+        return self.timesteps()[:, :-1].sum(-1)
+
+    def remove_components(self, names: Sequence[str]) -> "Trajectory":
+        """A trajectory without the named components and their metadata."""
+        drop = set(names)
+        if isinstance(self.timestep, str) and self.timestep in drop:
+            raise ValueError("cannot remove the timestep component")
+
+        def keep(m):
+            return {k: v for k, v in m.items() if k not in drop}
+
+        return self.replace(
+            data=keep(self.data), names=tuple(n for n in self.names if n not in drop),
+            bounds=keep(self.bounds), initial=keep(self.initial), final=keep(self.final),
+            goal=keep(self.goal), controls=tuple(c for c in self.controls if c not in drop),
+        )

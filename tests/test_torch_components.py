@@ -227,9 +227,6 @@ def test_options_mirror_jax():
     dict(mu_strategy="adaptive"),
     dict(hessian_approximation="limited-memory"),
     dict(hessian_approximation="lbfgs"),
-    dict(hessian_regularization="project"),
-    dict(hessian_regularization="stagewise"),
-    dict(hessian_regularization="flip"),
     dict(hessian_regularization="floor"),
     dict(refine_residuals=True),
     dict(ls_memory=2),
@@ -237,6 +234,11 @@ def test_options_mirror_jax():
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TIPMOptions(**kw).check_supported()
+
+
+@pytest.mark.parametrize("mode", ["stagewise", "project", "flip", "inertia", "auto"])
+def test_ported_hessian_regularizations_accepted(mode):
+    TIPMOptions(hessian_regularization=mode).check_supported()
 
 
 def test_masked_min_of_empty_mask():

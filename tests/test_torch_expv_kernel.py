@@ -90,9 +90,29 @@ def test_residual_f32_matches_pallas_interpret(B):
     np.testing.assert_allclose(l1, np.abs(ref).sum(axis=(-2, -1)), rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("B", [130])
+def test_state_constrained_shape_f32_matches_pallas_interpret(B):
+    """x_dim 2 with 1 drive at a fixed Δt (the state-constrained family's
+    shape: a 2×3 Jacobian block per window), window Jacobian and both
+    residual forms, Taylor order 12."""
+    args = _inputs(5, B, 50, 2, 1, np.float32, with_xn=True)
+    args[0] *= 0.5
+    args[1] *= 0.5
+    jargs = list(map(jnp.asarray, args))
+    ref = _window_jac_pallas(12, False, *jargs[:5], interpret=True)
+    out = tek.window_jac(12, False, *_t(args[:5]))
+    assert out.shape == (B, 50, 2, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6, rtol=0)
+    ref_r = np.asarray(_res_pallas(12, *jargs, interpret=True))
+    np.testing.assert_allclose(tek.residual_action(12, *_t(args)).numpy(), ref_r, atol=2e-6, rtol=0)
+    np.testing.assert_allclose(tek.residual_l1(12, *_t(args)).numpy(),
+                               np.abs(ref_r).sum(axis=(-2, -1)), rtol=2e-6, atol=2e-6)
+
+
 def test_kernel_wrapper_rejects_uninstantiated_shapes_only_on_cuda():
     """On the CPU every shape takes the plain version; the instantiated
-    kernel shapes include the benchmark's (x_dim=4, 2 drives)."""
+    kernel shapes are the benchmark's (x_dim=4, 2 drives) and the
+    state-constrained family's (x_dim=2, 1 drive)."""
     args = _inputs(4, 2, 3, 5, 2, np.float32)
     assert tek.window_jac(4, True, *_t(args)).shape == (2, 3, 5, 8)
-    assert (4, 2) in tek.SUPPORTED_SHAPES
+    assert tek.SUPPORTED_SHAPES == {(4, 2), (2, 1)}

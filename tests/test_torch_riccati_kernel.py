@@ -128,6 +128,29 @@ def test_resolve_matches_jax(R):
         assert _rel(x, y.numpy()) < 5e-6, name
 
 
+def test_state_constrained_shapes_f32_match_pallas_interpret():
+    """(n_s, n_v) = (2, 1): K1 with R=3 (two border columns + the main
+    system) on 6 lanes, lane 4 indefinite, then K2 with R'=2 (SOC and
+    restoration) against its factors; 5e-6 relative, ``ok`` equal."""
+    ns, nv = 2, 1
+    s0m = np.zeros(ns)  # the initial state is pinned
+    args = [a.astype(np.float32) for a in _stage_data(6, B=6, N=11, ns=ns, nv=nv, R=3)]
+    args[2][4, 5] = -1e6
+    ref = rk._factor_solve_pallas(s0m, *map(jnp.asarray, args), interpret=True)
+    out = trk.factor_solve(s0m, *(torch.as_tensor(a) for a in args))
+    ok = np.asarray(ref[5])
+    assert (ok == out[5].numpy()).all() and ok.tolist() == [True] * 4 + [False, True]
+    for name, x, y in zip(NAMES, ref, out):
+        if name != "ok":  # the indefinite lane's substituted factors are not compared
+            assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
+    fac = [np.asarray(t) for t in ref[:5]]
+    rhs = [a.astype(np.float32) for a in _stage_data(7, B=6, N=11, ns=ns, nv=nv, R=2)[5:]]
+    ref_r = rk._resolve_pallas(s0m, *map(jnp.asarray, fac + args[3:5] + rhs), interpret=True)
+    out_r = trk.resolve(s0m, *(torch.as_tensor(a) for a in fac + args[3:5] + rhs))
+    for name, x, y in zip(["dzs", "dzv", "lam"], ref_r, out_r):
+        assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers run the plain version and count no launch."""
     s0m = _s0m(5)
