@@ -9,8 +9,9 @@ Phases, each printing its own lines:
    ``directtrajopt_tpu_torch/csrc`` are compiled at first use).
 2. Every kernel of the main path against its plain PyTorch version on the
    card, in float32, at the shapes the pipeline gives it (and the generic
-   Riccati kernels at other shapes): deviation, bound, and median CUDA-event
-   times of kernel and plain version.
+   Riccati kernels at other shapes): deviation, bound, median CUDA-event
+   times of kernel and plain version, and the kernel's time bound (bytes
+   over the card's memory rate, or float32 operations over its peak).
    Then the same at the state-constrained family's shapes: K3/K4 for a
    2-D state with 1 drive at a fixed Δt, K1/K2 at (n_s, n_v) = (2, 1) on
    inputs captured from that family's own solve, one lane made indefinite.
@@ -67,9 +68,10 @@ KERNELS = {
 PATH2 = [("factor_solve_sc", "factor_solve"), ("resolve_sc", "resolve"),
          ("window_jac_sc", "window_jac"), ("residual_sc", "residual"),
          ("residual_l1_sc", "residual_l1")]
-# the (n_s, n_v, R) of each Riccati kernel's exact-size instantiation; other
-# shapes run the generic kernel (n_s <= 16, n_v <= 8, R <= 8)
-EXACT = {"factor_solve": (8, 3, 3), "resolve": (8, 3, 2)}
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and float32
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -93,6 +95,22 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def cuda_ms_back_to_back(fn, calls: int = 20) -> float:
+    """Milliseconds per call of ``calls`` calls of ``fn`` between two CUDA
+    events: the device's time per call where it, not the host's launch
+    work, is the slower of the two (``cuda_ms`` adds the host's time)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
 def max_dev(ref, out, rel: bool):
     """Max |ref − out| over a tuple of outputs (relative to max(|ref|, 1) per
     output when ``rel``), and the max absolute deviation."""
@@ -105,6 +123,41 @@ def max_dev(ref, out, rel: bool):
         worst = max(worst, d / scale)
         worst_abs = max(worst_abs, d)
     return worst, worst_abs
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+
+
+def time_bound(n_bytes: int, n_ops: int):
+    """Least milliseconds the card could take to move ``n_bytes`` (each input
+    read once, each output written once) and do ``n_ops`` float32 operations,
+    and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def riccati_ops(L, N, ns, nv, R, factor: bool) -> int:
+    """Float32 operations (a multiply-add counts 2) of K1 (``factor``) or K2:
+    per knot and right-hand side the backward w, kff (with its solve) and p,
+    and the forward λ, v and next s; K1 adds the factor of every knot."""
+    per_rhs = (2 * ns * ns + 2 * ns * nv + 2 * nv * nv + 2 * ns * ns + 2 * nv * ns
+               + 2 * ns * ns + 2 * ns * nv + 2 * ns * ns + 2 * nv * ns)
+    per_knot = R * per_rhs
+    if factor:  # PA, PB, Hvv, Mvs, Cholesky, Kg, AᵀPA + MvsᵀKg
+        per_knot += (2 * ns ** 3 + 2 * ns * ns * nv + 2 * nv * nv * ns + 2 * nv * ns * ns
+                     + nv ** 3 // 3 + 2 * nv * nv * ns + 2 * ns ** 3 + 2 * ns * ns * nv)
+    return L * N * per_knot
+
+
+def horner_ops(L, K, xd, nd, order, jac: bool, free_time: bool = False) -> int:
+    """Float32 operations of K3 (``jac``) or K4 on L lanes × K windows: G and
+    A = Δt·G, then per Taylor step y ← x + A·y/k and, for K3, the tangents
+    and the matrix E."""
+    step = 2 * xd * xd
+    if jac:
+        step += 4 * nd * xd * xd + 2 * xd ** 3 + (4 * xd * xd if free_time else 0)
+    return L * K * (2 * nd * xd * xd + xd * xd + order * step + xd)
 
 
 def stage_data(seed, B, N, dev, ns=8, nv=3, R=3):
@@ -179,10 +232,11 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """One line per kernel from ``nvcc -Xptxas -v`` output: registers and spills."""
-    kernels = ("factor_solve_fixed", "factor_solve_generic", "resolve_fixed", "resolve_generic",
-               "window_jac_kernel", "residual_kernel", "lane_sum_kernel")
+def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
+    """(kernel, registers, stack frame and spills, shared memory) per kernel
+    from ``nvcc -Xptxas -v`` output."""
+    kernels = ("factor_solve_grouped", "factor_solve_generic", "resolve_fixed",
+               "resolve_generic", "window_jac_kernel", "residual_kernel", "lane_sum_kernel")
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -193,7 +247,9 @@ def ptxas_summary(log: str) -> list[str]:
             frame = ln.split(":", 1)[-1].strip()
         elif name and "Used" in ln:
             regs = re.search(r"Used (\d+) registers", ln)
-            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; {frame}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append((name, regs.group(1) if regs else "?", frame,
+                        smem.group(1) if smem else "0"))
             name = None
     return out
 
@@ -220,8 +276,16 @@ def main() -> None:
     info = _build.build_info()
     print(f"[env] kernel build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.basename(info['path'])}")
-    for line in ptxas_summary(info.get("log", "")):
-        print(f"[ptxas] {line}")
+    ptxas = ptxas_summary(info.get("log", ""))
+    for name, regs, frame, smem in ptxas:
+        print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
+    # the grouped K1 keeps every array in registers or shared memory
+    grouped = [(name, frame) for name, _, frame, _ in ptxas
+               if name.startswith("factor_solve_grouped")]
+    if info.get("log") and (len(grouped) != len(riccati_kernel.GROUPED_SHAPES) or any(
+            re.search(r"[1-9]\d* bytes", frame) for _, frame in grouped)):
+        fail(f"factor_solve_grouped: want {len(riccati_kernel.GROUPED_SHAPES)} instantiations "
+             f"with no stack frame and no spills, ptxas says {grouped}")
 
     # ---------------- 2. kernels against their plain versions -------------- #
     cfg = benchmarks.headline_config()
@@ -235,8 +299,10 @@ def main() -> None:
         solve(prob256, max_iter=3, compensated_residuals=True)
     results = {}
 
-    def check(name, label, kern, plain, tol, rel, extra_ok=None, lanes=None):
-        """``lanes``: compare the outputs on these lanes only (a bool mask)."""
+    def check(name, label, kern, plain, tol, rel, ins, n_ops, extra_ok=None, lanes=None):
+        """``ins``: the kernel's input tensors and ``n_ops`` its float32
+        operations, for its time bound; ``lanes``: compare the outputs on
+        these lanes only (a bool mask)."""
         out_k = kern()
         out_p = plain()
         torch.cuda.synchronize()
@@ -246,23 +312,27 @@ def main() -> None:
             dev_rel, dev_abs = max_dev(outs_p, outs_k, rel)
         else:
             dev_rel, dev_abs = max_dev([t[lanes] for t in outs_p], [t[lanes] for t in outs_k], rel)
-        ms_k, ms_p = cuda_ms(kern), cuda_ms(plain)
+        ms_k, ms_p, ms_seq = cuda_ms(kern), cuda_ms(plain), cuda_ms_back_to_back(kern)
+        b_ms, b_by = time_bound(nbytes(ins) + nbytes(outs_k), n_ops)
         ok = dev_rel <= tol and (extra_ok is None or extra_ok(outs_p, outs_k))
         kind = "relative" if rel else "absolute"
         print(f"[kernel] {label}: max {kind} deviation {dev_rel:.3e} (bound {tol:g}), "
-              f"max abs {dev_abs:.3e}; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms "
+              f"max abs {dev_abs:.3e}; kernel {ms_k:.4f} ms ({ms_seq:.4f} ms per call "
+              f"back to back), plain {ms_p:.4f} ms; "
+              f"time bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} of it reached "
               f"-> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{label} disagrees with its plain version")
-        results.setdefault(name, dict(max_abs_err=dev_abs, ms=ms_k, plain_ms=ms_p, tol=tol))
+        results.setdefault(name, dict(max_abs_err=dev_abs, ms=ms_k, plain_ms=ms_p, tol=tol,
+                                      bound_ms=b_ms, bound_by=b_by))
 
     def ok_equal(p, k):
         return bool((p[5] == k[5]).all())
 
     # K1 / K2 on well-conditioned stage data: the 5e-6 relative bound of the
     # JAX package's own Pallas-kernel test, with the certificate equal. The
-    # slice's shapes run the exact-size instantiations; the others, with one
-    # indefinite lane each for K1, run the generic kernel.
+    # paths' shapes run K1's grouped and K2's exact-size instantiations; the
+    # others, with one indefinite lane each for K1, run the generic kernels.
     s0_slice = cap_f.calls[0][0]
 
     def riccati_inputs(seed, lanes, ns, nv, R, bad_lane=None):
@@ -277,7 +347,9 @@ def main() -> None:
         return s0, st
 
     def instantiation(name, shape):
-        return "exact" if EXACT[name] == shape else "generic"
+        if name == "factor_solve":
+            return "grouped" if shape in riccati_kernel.GROUPED_SHAPES else "generic"
+        return "exact" if shape in riccati_kernel.RESOLVE_EXACT_SHAPES else "generic"
 
     for key, lanes, shape, bad in (
         ("factor_solve", 256, (8, 3, 3), None),
@@ -289,7 +361,8 @@ def main() -> None:
         check(key, f"K1 factor_solve ({instantiation('factor_solve', shape)}) B={lanes} "
                    f"(n_s,n_v,R)={shape}" + (f", lane {bad} indefinite" if bad is not None else ""),
               lambda: riccati_kernel.factor_solve(s0, *st),
-              lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, ok_equal)
+              lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
+              riccati_ops(lanes, N, *shape, factor=True), ok_equal)
     for key, shape in (
         ("resolve", (8, 3, 2)),
         ("resolve_generic", (8, 3, 1)),
@@ -299,7 +372,8 @@ def main() -> None:
         fac = riccati_kernel.factor_solve_plain(s0, *st)
         check(key, f"K2 resolve ({instantiation('resolve', shape)}) B=256 (n_s,n_v,R')={shape}",
               lambda: riccati_kernel.resolve(s0, *fac[:5], *st[3:]),
-              lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True)
+              lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
+              list(fac[:5]) + st[3:], riccati_ops(256, N, *shape, factor=False))
     # ... and on the inputs the pipeline gives them (every captured call):
     # the certificate must agree exactly, and on certified lanes each output
     # of the kernel may be no further from a float64 evaluation than 3x the
@@ -360,12 +434,17 @@ def main() -> None:
     prob_big = cast_problem(benchmarks.make_batched_bilinear_problems(
         B, N=N, feasible_start=True, taylor_order=order, device=dev,
         dtype=torch.float64), torch.float32)
-    integ = prob_big.integrators[0]
+    # K3 at path 1's shape (a compact chunk of 256 lanes) and at B lanes
+    for key, prob in (("window_jac", prob256), ("window_jac_big", prob_big)):
+        ja = prob.integrators[0]._lane_args(prob.trajectory.layout,
+                                            prob.trajectory.knot_matrix())[:5]
+        Lj, Kj, xdj = ja[4].shape
+        check(key, f"K3 window_jac B={Lj} x {Kj} windows",
+              lambda: expv_kernel.window_jac(order, True, *ja),
+              lambda: expv_kernel.window_jac_plain(order, True, *ja), 2e-6, False, ja,
+              horner_ops(Lj, Kj, xdj, ja[1].shape[1], order, True, True))
     layout = prob_big.trajectory.layout
-    Gd, Gv, u, dt, x, xn = integ._lane_args(layout, prob_big.trajectory.knot_matrix())
-    check("window_jac", f"K3 window_jac B={B} x {x.shape[1]} windows",
-          lambda: expv_kernel.window_jac(order, True, Gd, Gv, u, dt, x),
-          lambda: expv_kernel.window_jac_plain(order, True, Gd, Gv, u, dt, x), 2e-6, False)
+
     # K4 on the seek's trial grid: lanes = 256 problems x (max_ls + 2) slots
     n_slots = cfg["phase1_kw"]["max_ls"] + 2
     Z = prob256.trajectory.to_zvec()
@@ -375,12 +454,14 @@ def main() -> None:
     Zt = (Z[:, None] + alphas[None, :, None] * dZ[:, None]).reshape(
         Z.shape[0], n_slots, layout.N, layout.dim)
     targs = prob256.integrators[0]._lane_args(layout, Zt)  # 256 problems x grid slots
+    ops4 = horner_ops(targs[5].shape[0], targs[5].shape[1], targs[5].shape[2],
+                      targs[1].shape[1], order, False)
     check("residual_l1", f"K4 residual (L1 form) lanes=256x{n_slots}",
           lambda: expv_kernel.residual_l1(order, *targs),
-          lambda: expv_kernel.residual_l1_plain(order, *targs), 2e-6, False)
+          lambda: expv_kernel.residual_l1_plain(order, *targs), 2e-6, False, targs, ops4)
     check("residual", f"K4 residual (vector form) lanes=256x{n_slots}",
           lambda: expv_kernel.residual_action(order, *targs),
-          lambda: expv_kernel.residual_action_plain(order, *targs), 2e-6, False)
+          lambda: expv_kernel.residual_action_plain(order, *targs), 2e-6, False, targs, ops4)
 
     # ---- at the state-constrained family's shapes (path 2) ---------------- #
     sc_cfg = benchmarks.state_constrained_config()
@@ -393,7 +474,9 @@ def main() -> None:
     a_sc = integ_sc._lane_args(lay_sc, prob_sc.trajectory.knot_matrix())
     check("window_jac_sc", f"K3 window_jac <2,1> fixed dt B={B2} x {a_sc[4].shape[1]} windows",
           lambda: expv_kernel.window_jac(order_sc, False, *a_sc[:5]),
-          lambda: expv_kernel.window_jac_plain(order_sc, False, *a_sc[:5]), 2e-6, False)
+          lambda: expv_kernel.window_jac_plain(order_sc, False, *a_sc[:5]), 2e-6, False,
+          a_sc[:5], horner_ops(B2, a_sc[4].shape[1], a_sc[4].shape[2], a_sc[1].shape[1],
+                               order_sc, True))
     # K4 on path 2's own trial grid: one chunk of B2 problems x (max_ls + 2) slots
     n_slots2 = IPMOptions().max_ls + 2
     Z2 = prob_sc.trajectory.to_zvec()
@@ -402,15 +485,18 @@ def main() -> None:
     Zt2 = (Z2[:, None] + al2[None, :, None] * dZ2[:, None]).reshape(
         B2, n_slots2, lay_sc.N, lay_sc.dim)
     t_sc = integ_sc._lane_args(lay_sc, Zt2)
+    ops4_sc = horner_ops(t_sc[5].shape[0], t_sc[5].shape[1], t_sc[5].shape[2],
+                         t_sc[1].shape[1], order_sc, False)
     # the L1 form sums 100 rounded terms of this family's O(0.1) residuals
     # per lane (Σ|r| of a few units), so its 2e-6 bound is relative to
     # max(Σ|r|, 1), as the CPU tests hold it (rtol 2e-6)
     check("residual_l1_sc", f"K4 residual <2,1> (L1 form) lanes={B2}x{n_slots2}",
           lambda: expv_kernel.residual_l1(order_sc, *t_sc),
-          lambda: expv_kernel.residual_l1_plain(order_sc, *t_sc), 2e-6, True)
+          lambda: expv_kernel.residual_l1_plain(order_sc, *t_sc), 2e-6, True, t_sc, ops4_sc)
     check("residual_sc", f"K4 residual <2,1> (vector form) lanes={B2}x{n_slots2}",
           lambda: expv_kernel.residual_action(order_sc, *t_sc),
-          lambda: expv_kernel.residual_action_plain(order_sc, *t_sc), 2e-6, False)
+          lambda: expv_kernel.residual_action_plain(order_sc, *t_sc), 2e-6, False, t_sc,
+          ops4_sc)
     # K1 at (2,1,3) and K2 at (2,1,2) on inputs captured from path 2's own
     # solve: its problem, all B2 lanes in one chunk, its options, 3 iterations
     kw2 = {k: v for k, v in sc_cfg["solve_kw"].items() if k not in ("phases", "chunk")}
@@ -443,21 +529,24 @@ def main() -> None:
         return bool((p[5] == k[5])[well_c].all())
 
     well_f = well_conditioned(riccati_kernel.factor_solve_plain, f_args, tol=1e-6)
-    check("factor_solve_sc", f"K1 factor_solve (generic) on path-2 inputs B={B2} "
+    check("factor_solve_sc", f"K1 factor_solve ({instantiation('factor_solve', shape_f)}) "
+                             f"on path-2 inputs B={B2} "
                              f"(n_s,n_v,R)={shape_f}, lane {bad_lane} indefinite; certificate "
                              f"equal on it and the {int(well_c.sum()) - 1} lanes where plain "
                              f"float32 is within 1e-3 of float64 (differs on {n_diff} others); "
                              f"factors compared on {int(well_f.sum())} lanes",
           lambda: riccati_kernel.factor_solve(*f_args),
-          lambda: riccati_kernel.factor_solve_plain(*f_args), 5e-6, True, ok_equal_sc,
-          lanes=well_f)
+          lambda: riccati_kernel.factor_solve_plain(*f_args), 5e-6, True, f_args[1:],
+          riccati_ops(B2, N2, *shape_f, factor=True), ok_equal_sc, lanes=well_f)
     r_args = cap_r2.calls[0]
     shape_r = (r_args[1].shape[-1], r_args[2].shape[-1], r_args[8].shape[1])
     well_r = well_conditioned(riccati_kernel.resolve_plain, r_args, tol=1e-6)
-    check("resolve_sc", f"K2 resolve (generic) on path-2 inputs B={B2} (n_s,n_v,R')={shape_r} "
+    check("resolve_sc", f"K2 resolve ({instantiation('resolve', shape_r)}) on path-2 inputs "
+                        f"B={B2} (n_s,n_v,R')={shape_r} "
                         f"(compared on {int(well_r.sum())} lanes)",
           lambda: riccati_kernel.resolve(*r_args),
-          lambda: riccati_kernel.resolve_plain(*r_args), 5e-6, True, lanes=well_r)
+          lambda: riccati_kernel.resolve_plain(*r_args), 5e-6, True, r_args[1:],
+          riccati_ops(B2, N2, *shape_r, factor=False), lanes=well_r)
     pipeline_calls("path-2", cap_f2, cap_r2, well_only=True)
 
     # the captured calls (≈ 1.5 GiB at B=8192) go before the paths' peak
@@ -544,13 +633,15 @@ def main() -> None:
         r = results[name]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches[name], max_abs_err=r["max_abs_err"],
-                          ms=r["ms"], plain_ms=r["plain_ms"]))
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None))
     for name, key in PATH2:
         route, src, replaces = KERNELS[key]
         r = results[name]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches2[key], max_abs_err=r["max_abs_err"],
-                          ms=r["ms"], plain_ms=r["plain_ms"]))
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": table}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 // factors, for Hopper (sm_90a), float32.
 //
 // Replaces the two Pallas kernels of directtrajopt_tpu/ops/riccati_kernel.py:
-//   * _fused_kernel   (wrapper _factor_solve_pallas) -> factor_solve_kernel
-//   * _resolve_kernel (wrapper _resolve_pallas)      -> resolve_kernel
+//   * _fused_kernel (:342; wrapper _factor_solve_pallas)
+//       -> factor_solve_grouped, factor_solve_generic
+//   * _resolve_kernel (:488; wrapper _resolve_pallas) -> resolve_fixed, resolve_generic
 //
 // Per lane: a backward sweep over the N stages (PB = P·B, PA = P·A,
 // Hvv = Qvv + BᵀPB, its Cholesky, Mvs = Qsvᵀ + BᵀPA, Kg = −Hvv⁻¹Mvs,
@@ -14,21 +15,44 @@
 // an entry of the factor is non-finite), and the identity is substituted for
 // that factor, exactly as the XLA scan (_factor_solve_xla) does.
 //
-// Design: one thread per lane, the stage loop inside the thread, all stage
-// stacks stored lanes-minor ((N, rows, cols, L), the Pallas kernel's layout)
-// so that neighbouring threads read neighbouring addresses. The stage blocks
-// live in per-thread arrays sized by template constants: an exact
-// instantiation for the shapes of the bilinear benchmark (n_s=8, n_v=3,
-// R=3 for the factor sweep and R=2 for the fused SOC + restoration resolve),
-// and a generic one (n_s ≤ 16, n_v ≤ 8, R ≤ 8) with runtime loop bounds.
-// Bound on the card: the sweep is sequential in N and does
-// ~N·(2n_s³ + 3n_s²n_v + …) dependent FLOPs per lane, so at a compact
-// chunk of 256 lanes it runs two 128-thread blocks on 132 SMs and is bound
-// by per-thread latency, not by bandwidth or FLOP rate. Spreading a lane
-// over a warp (and more lanes per SM) is later work.
+// Two designs of the factor sweep (K1), chosen by shape in the wrapper
+// (ops/riccati_kernel.py: GROUPED_SHAPES):
+//
+// * factor_solve_grouped<NS, NV, R> — a group of G = NS threads per lane,
+//   32/G lanes to a warp, 64-thread blocks. Thread i owns row i of P and
+//   entry i of each p_r and s_r; the products P·A, P·B, AᵀPA + MvsᵀKg and
+//   the right-hand-side updates are row- or column-parallel over the group,
+//   which trades PA, PB, w, Kg, P and s through shared memory under
+//   __syncwarp. Hvv (NV×NV), its Cholesky, the kff solves and the masked
+//   Cholesky of P0 are computed by every thread of the group from the same
+//   shared data, so `ok` and the factors agree across the group. Each knot's
+//   blocks (Qss, Qsv, Qvv, A, B, qs, qv, b; in the forward sweep P, Kg, A,
+//   B, b and the stashed p, kff) are double-buffered in shared memory with
+//   cp.async: knot k±1's copies are in flight while knot k computes. Input
+//   and output are lane-major, as the port holds them ((L, N, r, c) stage
+//   stacks, (L, R, N, d) right-hand sides), so a group reads each block at
+//   contiguous addresses and the wrapper copies nothing. Every loop bound
+//   is a compile-time constant: no register array is indexed at run time.
+//   Instantiated at (8,3,3) (path 1) and (2,1,3) (path 2).
+//   Bound on the card (H100 SXM, 3.35 TB/s; the FLOP bound is 5-10× lower):
+//   each input byte read once and each output byte written once is 85.8 KB
+//   per lane at (8,3,3), N=51 — 22.0 MB, 6.6 µs at 256 lanes and 703 MB,
+//   210 µs at 8192 — and 26 µs (86.9 MB) at (2,1,3), N=51, 8192 lanes. The
+//   sweep is sequential in N, so the design spends the lane's parallelism
+//   on the group (a knot's critical path is ~NS times shorter than one
+//   thread's) and hides each knot's load latency behind the previous
+//   knot's arithmetic; at 256 lanes it still fills only 32 blocks.
+// * factor_solve_generic — one thread per lane for any n_s ≤ 16, n_v ≤ 8,
+//   R ≤ 8, stage stacks lanes-minor ((N, rows, cols, L), the Pallas
+//   kernel's layout) so that neighbouring threads read neighbouring
+//   addresses; the stage blocks sit in per-thread arrays of the maximum
+//   size (local memory). The resolve (K2) kernels keep this design, with
+//   an exact instantiation at (8,3,2) for the fused SOC + restoration
+//   resolve of the bilinear benchmark.
 //
 // Division and sqrt are IEEE (no fast math): correctly rounded.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -562,17 +586,390 @@ __device__ __forceinline__ void resolve_lane(
                             lam);
 }
 
-// Exact-size instantiation: every loop bound is a compile-time constant.
+// ---- factor_solve_grouped: a thread group per lane, lane-major I/O ---------
+
+constexpr int kGroupBlock = 64;  // threads per block
+// Resident blocks per SM the register budget is cut for: 8 → 128 registers,
+// so at (8,3,3) 8 blocks × 8 lanes × 132 SMs = 8,448 lanes run in one wave
+// (8 × 23.8 KB of shared memory fits the SM's 227 KB).
+constexpr int kGroupMinBlocks = 8;
+// Knot buffers in the ring (2: double-buffered). Rings of 3 and 4 gained at
+// most 8 % at either shape on the H100, about the spread of two timings of
+// one build (tools/torch_k1_rings.py): the sweep waits on its arithmetic,
+// not on its loads.
+constexpr int kStages = 2;
+
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// Floats per cp.async copy (16, 8 or 4 bytes) for a block of S floats that
+// starts a multiple of S floats from a 16-byte-aligned base.
+__host__ __device__ constexpr int chunk_floats(int S) {
+  return (S % 4 == 0) ? 4 : (S % 2 == 0) ? 2 : 1;
+}
+
+// Shared memory of one lane, in floats: a ring of kStages knot buffers,
+// then the group's scratch. Every block starts on 16 bytes. The lane stride
+// is ≡ max(G, 4) (mod 32 banks), so the groups of a warp broadcast from
+// distinct banks.
 template <int NS, int NV, int R>
-__global__ void __launch_bounds__(128) factor_solve_fixed(
-    int L, int N, unsigned s0mask, const float* Qss, const float* Qsv, const float* Qvv,
-    const float* A, const float* B, const float* qs, const float* qv, const float* rb,
-    float* P, float* Lv, float* Kg, float* Mvs, float* L0, float* ok, float* dzs,
-    float* dzv, float* lam) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  factor_solve_lane<NS, NV, R>(l, L, N, NS, NV, R, s0mask, Qss, Qsv, Qvv, A, B, qs, qv, rb,
-                               P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam);
+struct GroupLayout {
+  static constexpr int G = NS, lanes = kGroupBlock / NS;
+  // backward buffer: knot k's input blocks
+  static constexpr int Qss = 0, Qsv = align4(Qss + NS * NS), Qvv = align4(Qsv + NS * NV),
+                       A = align4(Qvv + NV * NV), B = align4(A + NS * NS),
+                       qs = align4(B + NS * NV), qv = align4(qs + R * NS),
+                       b = align4(qv + R * NV), bwd = align4(b + R * NS);
+  // forward buffer: knot k's P and Kg, its A, B, b, and the stashed p, kff
+  static constexpr int fP = 0, fKg = align4(fP + NS * NS), fA = align4(fKg + NV * NS),
+                       fB = align4(fA + NS * NS), fb = align4(fB + NS * NV),
+                       fp = align4(fb + R * NS), fkff = align4(fp + R * NS),
+                       fwd = align4(fkff + R * NV);
+  static constexpr int buf = bwd > fwd ? bwd : fwd;
+  // scratch
+  static constexpr int PA = kStages * buf, PB = align4(PA + NS * NS), W = align4(PB + NS * NV),
+                       Kg = align4(W + R * NS), Pn = align4(Kg + NV * NS),
+                       S = align4(Pn + NS * NS), end = align4(S + R * NS);
+  static constexpr int pad = G < 4 ? 4 : G;
+  static constexpr int stride = end + (pad - end % 32 + 32) % 32;
+  static_assert(32 % G == 0, "a group must not straddle two warps");
+};
+
+// The group's share of the cp.async copies of NSEG segments of S floats,
+// `gstride` floats apart in global memory, into contiguous shared memory.
+template <int S, int NSEG, int G>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, long gstride, int gi) {
+  constexpr int C = chunk_floats(S), per = S / C;
+#pragma unroll
+  for (int c0 = 0; c0 < NSEG * per; c0 += G) {
+    const int c = c0 + gi;
+    if (c < NSEG * per) {
+      const int r = c / per, q = c - r * per;
+      __pipeline_memcpy_async(dst + r * S + q * C, src + r * gstride + q * C,
+                              C * sizeof(float));
+    }
+  }
+}
+
+struct FactorIn {
+  const float *Qss, *Qsv, *Qvv, *A, *B, *qs, *qv, *b;
+};
+struct FactorOut {
+  float *P, *Lv, *Kg, *Mvs, *L0, *ok, *dzs, *dzv, *lam;
+};
+
+// Backward sweep: knot k's input blocks of lane l into `buf`.
+template <int NS, int NV, int R>
+__device__ __forceinline__ void load_backward(float* buf, const FactorIn& in, int l, int N,
+                                              int k, int gi) {
+  using Lay = GroupLayout<NS, NV, R>;
+  const long st = (long)l * N + k;      // (l, k) of an (L, N, r, c) stack
+  const long rh = (long)l * R * N + k;  // (l, 0, k) of an (L, R, N, d) stack
+  const long rs = N;                    // between r and r + 1, in rows of d
+  copy_async<NS * NS, 1, NS>(buf + Lay::Qss, in.Qss + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, NS>(buf + Lay::Qsv, in.Qsv + st * NS * NV, 0, gi);
+  copy_async<NV * NV, 1, NS>(buf + Lay::Qvv, in.Qvv + st * NV * NV, 0, gi);
+  copy_async<NS * NS, 1, NS>(buf + Lay::A, in.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, NS>(buf + Lay::B, in.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, NS>(buf + Lay::qs, in.qs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, NS>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
+  copy_async<NS, R, NS>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
+}
+
+// Forward sweep: knot k's P, Kg (written by the backward sweep), A, B, b
+// and the stashed p_k, kff_k of lane l into `buf`.
+template <int NS, int NV, int R>
+__device__ __forceinline__ void load_forward(float* buf, const FactorIn& in,
+                                             const FactorOut& out, int l, int N, int k,
+                                             int gi) {
+  using Lay = GroupLayout<NS, NV, R>;
+  const long st = (long)l * N + k;
+  const long rh = (long)l * R * N + k;
+  const long rs = N;
+  copy_async<NS * NS, 1, NS>(buf + Lay::fP, out.P + st * NS * NS, 0, gi);
+  copy_async<NV * NS, 1, NS>(buf + Lay::fKg, out.Kg + st * NV * NS, 0, gi);
+  copy_async<NS * NS, 1, NS>(buf + Lay::fA, in.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, NS>(buf + Lay::fB, in.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, NS>(buf + Lay::fb, in.b + rh * NS, rs * NS, gi);
+  copy_async<NS, R, NS>(buf + Lay::fp, out.dzs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, NS>(buf + Lay::fkff, out.dzv + rh * NV, rs * NV, gi);
+}
+
+// The same arithmetic, in the same order of summation, as factor_solve_lane.
+// Threads of a last, ragged lane (l ≥ L) load from lane L − 1, take part in
+// every __syncwarp, and store nothing.
+template <int NS, int NV, int R>
+__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
+    factor_solve_grouped(int L, int N, unsigned s0mask, FactorIn in, FactorOut out) {
+  using Lay = GroupLayout<NS, NV, R>;
+  constexpr int G = NS;
+  __shared__ __align__(16) float smem[Lay::lanes * Lay::stride];
+  const int grp = threadIdx.x / G, gi = threadIdx.x % G;
+  const int l = blockIdx.x * Lay::lanes + grp;
+  const bool store = l < L;
+  const int ls = store ? l : L - 1;
+  float* const sh = smem + grp * Lay::stride;
+  float* const sPA = sh + Lay::PA;
+  float* const sPB = sh + Lay::PB;
+  float* const sW = sh + Lay::W;
+  float* const sKg = sh + Lay::Kg;
+  float* const sPn = sh + Lay::Pn;
+  float* const sS = sh + Lay::S;
+
+  float Prow[NS];  // row gi of P_{k+1}
+  float p[R];      // entry gi of p_{k+1}, per right-hand side
+#pragma unroll
+  for (int j = 0; j < NS; ++j) Prow[j] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) p[r] = 0.0f;
+  bool ok = true;
+
+  // ---- backward sweep ----
+  // knot k's copies are committed as group N − 1 − k: the ring holds knots
+  // k .. k − D + 1, and each iteration refills the buffer its predecessor
+  // read (behind that iteration's last __syncwarp)
+  constexpr int D = kStages;
+#pragma unroll
+  for (int q = 0; q < D - 1; ++q) {
+    if (N - 1 - q >= 0) load_backward<NS, NV, R>(sh + q * Lay::buf, in, ls, N, N - 1 - q, gi);
+    __pipeline_commit();
+  }
+  for (int k = N - 1, it = 0; k >= 0; --k, ++it) {
+    const float* cur = sh + (it % D) * Lay::buf;
+    if (k - (D - 1) >= 0)
+      load_backward<NS, NV, R>(sh + ((it + D - 1) % D) * Lay::buf, in, ls, N, k - (D - 1), gi);
+    __pipeline_commit();
+    __pipeline_wait_prior(D - 1);
+    __syncwarp();
+    const float* Qss = cur + Lay::Qss;
+    const float* Qsv = cur + Lay::Qsv;
+    const float* Qvv = cur + Lay::Qvv;
+    const float* A = cur + Lay::A;
+    const float* B = cur + Lay::B;
+    const float* qs = cur + Lay::qs;
+    const float* qv = cur + Lay::qv;
+    const float* rb = cur + Lay::b;
+
+    // row gi of PA = P·A and PB = P·B; entry gi of w_r = P·b_r + p_r
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) acc += Prow[t] * A[t * NS + j];
+      sPA[gi * NS + j] = acc;
+    }
+#pragma unroll
+    for (int a = 0; a < NV; ++a) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) acc += Prow[t] * B[t * NV + a];
+      sPB[gi * NV + a] = acc;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) acc += rb[r * NS + j] * Prow[j];
+      sW[r * NS + gi] = acc + p[r];
+    }
+    __syncwarp();
+
+    // Hvv = Qvv + BᵀPB and its Cholesky (every thread)
+    float H[NV][NV];
+#pragma unroll
+    for (int a = 0; a < NV; ++a)
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < NS; ++t) acc += B[t * NV + a] * sPB[t * NV + c];
+        H[a][c] = Qvv[a * NV + c] + acc;
+      }
+    float Lv[NV][NV];
+    ok = chol_or_identity<NV>(H, Lv, NV) && ok;
+    // each output is stored as soon as it is known, which keeps it out of
+    // the registers for the rest of the knot
+    const long st = (long)l * N + k;
+    if (store) {
+#pragma unroll
+      for (int e = 0; e < NV * NV; ++e)
+        if (e % G == gi) out.Lv[st * NV * NV + e] = Lv[e / NV][e % NV];
+    }
+    // column gi of Mvs = Qsvᵀ + BᵀPA and of Kg = −Hvv⁻¹Mvs
+    float mcol[NV], kcol[NV];
+#pragma unroll
+    for (int a = 0; a < NV; ++a) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) acc += B[t * NV + a] * sPA[t * NS + gi];
+      mcol[a] = Qsv[gi * NV + a] + acc;
+      kcol[a] = mcol[a];
+    }
+    cho_solve<NV>(Lv, kcol, NV);
+#pragma unroll
+    for (int a = 0; a < NV; ++a) {
+      sKg[a * NS + gi] = -kcol[a];
+      if (store) {
+        out.Kg[(st * NV + a) * NS + gi] = -kcol[a];
+        out.Mvs[(st * NV + a) * NS + gi] = mcol[a];
+      }
+    }
+    // right-hand sides: kff_r (every thread) and entry gi of p_r
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float kff[NV];
+#pragma unroll
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) acc += sW[r * NS + i] * B[i * NV + a];
+        kff[a] = qv[r * NV + a] + acc;
+      }
+      cho_solve<NV>(Lv, kff, NV);
+#pragma unroll
+      for (int a = 0; a < NV; ++a) kff[a] = -kff[a];
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) acc += sW[r * NS + t] * A[t * NS + gi];
+      float acc2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < NV; ++a) acc2 += kff[a] * mcol[a];
+      p[r] = (qs[r * NS + gi] + acc) + acc2;
+      if (store) {
+        const long rk = ((long)l * R + r) * N + k;
+        out.dzs[rk * NS + gi] = p[r];  // stash p_k
+#pragma unroll
+        for (int a = 0; a < NV; ++a)
+          if ((r * NV + a) % G == gi) out.dzv[rk * NV + a] = kff[a];  // stash kff_k
+      }
+    }
+    __syncwarp();
+
+    // row gi of P_k = sym(Qss + AᵀPA + MvsᵀKg)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) acc += A[t * NS + gi] * sPA[t * NS + j];
+      float acc2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < NV; ++a) acc2 += mcol[a] * sKg[a * NS + j];
+      sPn[gi * NS + j] = (Qss[gi * NS + j] + acc) + acc2;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      Prow[j] = 0.5f * (sPn[gi * NS + j] + sPn[j * NS + gi]);
+      if (store) out.P[(st * NS + gi) * NS + j] = Prow[j];
+    }
+  }
+
+  // ---- masked Cholesky of P0 and the initial-state solve (every thread) ----
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sPn[gi * NS + j] = Prow[j];
+#pragma unroll
+  for (int r = 0; r < R; ++r) sS[r * NS + gi] = p[r];
+  __syncwarp();
+  float P0m[NS][NS], L0[NS][NS];  // P0m = P0∘(s0 s0ᵀ) + diag(1 − s0), as initial_factor
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      P0m[i][j] = (((s0mask >> i) & (s0mask >> j) & 1u) != 0) ? sPn[i * NS + j]
+                                                             : ((i == j) ? 1.0f : 0.0f);
+  ok = chol_or_identity<NS>(P0m, L0, NS) && ok;
+  float s[R];  // entry gi of s_0, per right-hand side
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float x[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] = ((s0mask >> i) & 1u) ? sS[r * NS + i] : 0.0f;
+    cho_solve<NS>(L0, x, NS);
+    s[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      if (i == gi) s[r] = ((s0mask >> i) & 1u) ? -x[i] : 0.0f;
+  }
+  if (store) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      if (i == gi) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          out.L0[((long)l * NS + i) * NS + j] = (j <= i) ? L0[i][j] : 0.0f;
+      }
+    if (gi == 0) out.ok[l] = ok ? 1.0f : 0.0f;
+  }
+  // the group's stores of P, Kg and the stashes, before it reads them back
+  __threadfence_block();
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) sS[r * NS + gi] = s[r];
+
+  // ---- forward sweep ----
+#pragma unroll
+  for (int q = 0; q < D - 1; ++q) {
+    if (q < N) load_forward<NS, NV, R>(sh + q * Lay::buf, in, out, ls, N, q, gi);
+    __pipeline_commit();
+  }
+  for (int k = 0; k < N; ++k) {
+    const float* cur = sh + (k % D) * Lay::buf;
+    if (k + D - 1 < N)
+      load_forward<NS, NV, R>(sh + ((k + D - 1) % D) * Lay::buf, in, out, ls, N, k + D - 1, gi);
+    __pipeline_commit();
+    __pipeline_wait_prior(D - 1);
+    __syncwarp();
+    const float* fP = cur + Lay::fP;
+    const float* fKg = cur + Lay::fKg;
+    const float* fA = cur + Lay::fA;
+    const float* fB = cur + Lay::fB;
+    const float* fb = cur + Lay::fb;
+    const float* fp = cur + Lay::fp;
+    const float* fkff = cur + Lay::fkff;
+    float sn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float* sr = sS + r * NS;
+      const long rk = ((long)l * R + r) * N + k;
+      if (k >= 1) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) acc += fP[gi * NS + j] * sr[j];
+        if (store)
+          out.lam[(((long)l * R + r) * (N - 1) + k - 1) * NS + gi] = -(acc + fp[r * NS + gi]);
+      }
+      float v[NV];
+#pragma unroll
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) acc += sr[j] * fKg[a * NS + j];
+        v[a] = acc + fkff[r * NV + a];
+      }
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) acc += sr[j] * fA[gi * NS + j];
+      float acc2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < NV; ++a) acc2 += v[a] * fB[gi * NV + a];
+      sn[r] = acc + acc2 + fb[r * NS + gi];
+      if (store) {
+        out.dzs[rk * NS + gi] = sr[gi];
+#pragma unroll
+        for (int a = 0; a < NV; ++a)
+          if ((r * NV + a) % G == gi) out.dzv[rk * NV + a] = v[a];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < R; ++r) sS[r * NS + gi] = sn[r];
+  }
+}
+
+template <int NS>
+unsigned grouped_grid(int L) {
+  constexpr int lanes = kGroupBlock / NS;
+  return (unsigned)((L + lanes - 1) / lanes);
 }
 
 constexpr int kNsMax = 16, kNvMax = 8, kRMax = 8;
@@ -630,11 +1027,32 @@ extern "C" int dto_factor_solve(int L, int N, int ns, int nv, int R, unsigned s0
       (const float*)B, (const float*)qs, (const float*)qv, (const float*)rb, (float*)P, \
       (float*)Lv, (float*)Kg, (float*)Mvs, (float*)L0, (float*)ok, (float*)dzs,         \
       (float*)dzv, (float*)lam
-  if (ns == 8 && nv == 3 && R == 3)
-    factor_solve_fixed<8, 3, 3><<<grid, kThreads, 0, s>>>(L, N, s0mask, ARGS);
-  else
-    factor_solve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
+  factor_solve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
 #undef ARGS
+  return (int)cudaGetLastError();
+}
+
+// Lane-major K1: stage stacks (L, N, r, c) and right-hand sides (L, R, N, d)
+// in, contiguous and 16-byte aligned; P, Lv, Kg, Mvs (L, N, r, c), L0
+// (L, ns, ns), ok (L,), dzs, dzv (L, R, N, d) and λ (L, R, N − 1, ns) out.
+extern "C" int dto_factor_solve_grouped(int L, int N, int ns, int nv, int R, unsigned s0mask,
+                                        const void* Qss, const void* Qsv, const void* Qvv,
+                                        const void* A, const void* B, const void* qs,
+                                        const void* qv, const void* rb, void* P, void* Lv,
+                                        void* Kg, void* Mvs, void* L0, void* ok, void* dzs,
+                                        void* dzv, void* lam, void* stream) {
+  if (L < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const FactorIn in{(const float*)Qss, (const float*)Qsv, (const float*)Qvv, (const float*)A,
+                    (const float*)B,   (const float*)qs,  (const float*)qv,  (const float*)rb};
+  const FactorOut out{(float*)P,  (float*)Lv,  (float*)Kg,  (float*)Mvs, (float*)L0,
+                      (float*)ok, (float*)dzs, (float*)dzv, (float*)lam};
+  if (ns == 8 && nv == 3 && R == 3)
+    factor_solve_grouped<8, 3, 3><<<grouped_grid<8>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+  else if (ns == 2 && nv == 1 && R == 3)
+    factor_solve_grouped<2, 1, 3><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

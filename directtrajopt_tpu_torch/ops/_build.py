@@ -49,6 +49,7 @@ _SIGNATURES = {
     "dto_residual": [_I] * 5 + [_VP] * 8,
     "dto_residual_l1": [_I] * 5 + [_VP] * 9,
     "dto_factor_solve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
+    "dto_factor_solve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
     "dto_resolve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
 }
 

@@ -21,7 +21,11 @@ of the masked P0 is not positive (or non-finite); the identity is then
 substituted for that factor, as the JAX package's XLA scan does.
 
 Routing: CPU → plain version; CUDA float32 → the kernel
-(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. The plain
+(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. K1 takes
+its shape's kernel: a shape in :data:`GROUPED_SHAPES` runs
+``factor_solve_grouped`` (a thread group per lane, reading and writing the
+lane-major tensors above as they are), any other the generic one-thread-
+per-lane kernel on lanes-minor copies. The plain
 versions are ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over
 knots with batched small matmuls and ``torch.linalg.cholesky_ex``.
 """
@@ -33,10 +37,16 @@ import torch
 
 from . import _build
 
-__all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain", "MAX_SIZES"]
+__all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain", "MAX_SIZES",
+           "GROUPED_SHAPES", "RESOLVE_EXACT_SHAPES"]
 
 # kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, kRMax)
 MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
+# (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
+# gate problem and path 2's state-constrained family
+GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3)})
+# (n_s, n_v, R') instantiations of K2's resolve_fixed; other shapes run resolve_generic
+RESOLVE_EXACT_SHAPES = frozenset({(8, 3, 2)})
 
 
 def _chol_or_identity(H: torch.Tensor):
@@ -138,6 +148,36 @@ def _lanes_minor_rhs(x: torch.Tensor) -> torch.Tensor:
     return x.permute(2, 1, 3, 0).contiguous()
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned, as the grouped kernel's copies
+    need; a fresh contiguous tensor is returned as it is."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _factor_solve_grouped(s0m, ins, L, N, ns, nv, R):
+    """Launch ``factor_solve_grouped`` on lane-major inputs; contiguous outputs."""
+    dev = ins[0].device
+    kw = dict(dtype=torch.float32, device=dev)
+    ins = [_aligned(t) for t in ins]
+    outs = (
+        torch.empty((L, N, ns, ns), **kw), torch.empty((L, N, nv, nv), **kw),
+        torch.empty((L, N, nv, ns), **kw), torch.empty((L, N, nv, ns), **kw),
+        torch.empty((L, ns, ns), **kw), torch.empty((L,), **kw),
+        torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
+        torch.empty((L, R, N - 1, ns), **kw),
+    )
+    rc = _build.library().dto_factor_solve_grouped(
+        L, N, ns, nv, R, _s0_bits(s0m),
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+        _build.stream_ptr(dev),
+    )
+    _build.check_rc(rc, "factor_solve")
+    _build.LAUNCHES["factor_solve"] += 1
+    P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam = outs
+    return P, Lv, Kg, Mvs, L0, ok > 0.5, dzs, dzv, lam
+
+
 def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
     if x.device.type == "cpu" or x.dtype == torch.float64:
         return False
@@ -174,6 +214,8 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
     })
     if not _use_kernel(Qss, ins, {"ns": ns, "nv": nv, "R": R}):
         return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+    if (ns, nv, R) in GROUPED_SHAPES:
+        return _factor_solve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
     dev = Qss.device
     kw = dict(dtype=torch.float32, device=dev)
     stage = [_lanes_minor_stage(t) for t in (Qss, Qsv, Qvv, A, B)]

@@ -8,6 +8,9 @@ against the Pallas kernels in interpret mode to 5e-6 relative, the bound
 certificate must agree exactly, including on indefinite stages.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -149,6 +152,54 @@ def test_state_constrained_shapes_f32_match_pallas_interpret():
     out_r = trk.resolve(s0m, *(torch.as_tensor(a) for a in fac + args[3:5] + rhs))
     for name, x, y in zip(["dzs", "dzv", "lam"], ref_r, out_r):
         assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
+
+
+def test_path2_shape_n51_f32_matches_pallas_interpret():
+    """Path 2's K1 shape at its full depth: (n_s, n_v, R) = (2, 1, 3), N=51,
+    the initial state pinned, lane 1 indefinite; 5e-6 relative on the
+    certified lanes, ``ok`` equal."""
+    ns, nv, R, N = 2, 1, 3, 51
+    s0m = np.zeros(ns)
+    args = [a.astype(np.float32) for a in _stage_data(8, B=4, N=N, ns=ns, nv=nv, R=R)]
+    args[2][1, 30] = -1e6
+    ref = rk._factor_solve_pallas(s0m, *map(jnp.asarray, args), interpret=True)
+    out = trk.factor_solve(s0m, *(torch.as_tensor(a) for a in args))
+    ok = np.asarray(ref[5])
+    assert (ok == out[5].numpy()).all() and ok.tolist() == [True, False, True, True]
+    for name, x, y in zip(NAMES, ref, out):
+        if name != "ok":
+            assert y.shape == np.asarray(x).shape, name
+            assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
+
+
+def test_instantiated_shapes_match_the_kernel_source():
+    """``GROUPED_SHAPES`` are exactly the shapes ``dto_factor_solve_grouped``
+    dispatches to ``factor_solve_grouped`` (each condition naming the
+    template arguments it launches), and ``RESOLVE_EXACT_SHAPES`` those of
+    ``resolve_fixed``."""
+    src = (Path(trk.__file__).parent.parent / "csrc" / "riccati_kernel.cu").read_text()
+    entry = src[src.index('extern "C" int dto_factor_solve_grouped'):]
+    entry = entry[: entry.index("\n}\n")]
+    pairs = re.findall(r"if \(ns == (\d+) && nv == (\d+) && R == (\d+)\)\s*"
+                       r"factor_solve_grouped<(\d+), (\d+), (\d+)>", entry)
+    assert all(p[:3] == p[3:] for p in pairs)
+    assert {tuple(map(int, p[:3])) for p in pairs} == set(trk.GROUPED_SHAPES)
+    assert len(re.findall(r"factor_solve_grouped<", entry)) == len(trk.GROUPED_SHAPES)
+    fixed = re.findall(r"resolve_fixed<(\d+), (\d+), (\d+)>", src)
+    assert {tuple(map(int, f)) for f in fixed} == set(trk.RESOLVE_EXACT_SHAPES)
+
+
+def test_grouped_inputs_are_passed_without_a_copy():
+    """The grouped kernel reads the caller's lane-major tensors as they are:
+    a fresh contiguous tensor is not copied; a strided or misaligned one
+    (its copies move 16 bytes at a time) is."""
+    x = torch.zeros(10, 4)
+    assert trk._aligned(x) is x
+    y = torch.arange(41, dtype=torch.float32)[1:]  # 4 bytes past an aligned start
+    z = trk._aligned(y)
+    assert z.data_ptr() % 16 == 0 and torch.equal(z, y)
+    t = torch.arange(12, dtype=torch.float32).reshape(4, 3).t()
+    assert trk._aligned(t).is_contiguous() and torch.equal(trk._aligned(t), t)
 
 
 def test_cpu_tensors_take_the_plain_version():
