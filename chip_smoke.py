@@ -11,7 +11,10 @@ Phases, each printing its own lines:
    card, in float32, at the shapes the pipeline gives it (and the generic
    Riccati kernels at other shapes): deviation, bound, median CUDA-event
    times of kernel and plain version, and the kernel's time bound (bytes
-   over the card's memory rate, or float32 operations over its peak).
+   over the card's memory rate, or float32 operations over its peak). The
+   K2 and K4 rows add the kernel's device time per launch from
+   ``torch.profiler``. K4 reads the line search's trial grid in place, as
+   strided views of the knot matrix (problems × slots × knots × width).
    Then the same at the state-constrained family's shapes: K3/K4 for a
    2-D state with 1 drive at a fixed Δt, K1/K2 at (n_s, n_v) = (2, 1) on
    inputs captured from that family's own solve, one lane made indefinite.
@@ -111,6 +114,27 @@ def cuda_ms_back_to_back(fn, calls: int = 20) -> float:
     return a.elapsed_time(b) / calls
 
 
+def device_ms(fn, name: str, calls: int = 20):
+    """Mean device milliseconds per launch of the kernels whose name
+    contains ``name``, from ``torch.profiler`` over ``calls`` calls of
+    ``fn``; None where the profiler records no such launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us, n = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key:
+            t = getattr(e, "device_time_total", None)
+            total_us += e.cuda_time_total if t is None else t
+            n += e.count
+    return total_us / n / 1e3 if n else None
+
+
 def max_dev(ref, out, rel: bool):
     """Max |ref − out| over a tuple of outputs (relative to max(|ref|, 1) per
     output when ``rel``), and the max absolute deviation."""
@@ -126,7 +150,30 @@ def max_dev(ref, out, rel: bool):
 
 
 def nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+    """Bytes of storage the tensors touch, each element once: a view that
+    overlaps another of the same storage (x and x_next of one knot matrix)
+    or repeats its elements (a scalar expanded with stride 0) adds only
+    the elements no other view touched."""
+    groups: dict = {}
+    for t in tensors:
+        if torch.is_tensor(t) and t.numel():
+            groups.setdefault(t.untyped_storage().data_ptr(), []).append(t)
+    total = 0
+    for ts in groups.values():
+        t0 = ts[0]
+        if len(ts) == 1 and t0.is_contiguous():
+            total += t0.numel() * t0.element_size()
+            continue
+        size = t0.element_size()
+        if any(t.element_size() != size for t in ts):
+            raise ValueError("views of one storage with different element sizes")
+        n = t0.untyped_storage().nbytes() // size
+        seen = torch.zeros(n, dtype=torch.bool, device=t0.device)
+        idx = torch.arange(n, device=t0.device)
+        for t in ts:
+            seen[idx.as_strided(t.shape, t.stride(), t.storage_offset())] = True
+        total += int(seen.sum()) * size
+    return total
 
 
 def time_bound(n_bytes: int, n_ops: int):
@@ -235,14 +282,14 @@ class Capture:
 def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
     """(kernel, registers, stack frame and spills, shared memory) per kernel
     from ``nvcc -Xptxas -v`` output."""
-    kernels = ("factor_solve_grouped", "factor_solve_generic", "resolve_fixed",
-               "resolve_generic", "window_jac_kernel", "residual_kernel", "lane_sum_kernel")
+    kernels = ("factor_solve_grouped", "factor_solve_generic", "resolve_grouped",
+               "resolve_generic", "window_jac_kernel", "residual_grid_kernel")
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search("(" + "|".join(kernels) + r")(I(?:Li\d+E)+E)?", ln)
+            m = re.search("(" + "|".join(kernels) + r")(I(?:L[ib]\d+E)+E)?", ln)
             name = None if m is None else m.group(1) + (
-                "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">" if m.group(2) else "")
+                "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">" if m.group(2) else "")
         elif name and "stack frame" in ln:
             frame = ln.split(":", 1)[-1].strip()
         elif name and "Used" in ln:
@@ -279,13 +326,16 @@ def main() -> None:
     ptxas = ptxas_summary(info.get("log", ""))
     for name, regs, frame, smem in ptxas:
         print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
-    # the grouped K1 keeps every array in registers or shared memory
-    grouped = [(name, frame) for name, _, frame, _ in ptxas
-               if name.startswith("factor_solve_grouped")]
-    if info.get("log") and (len(grouped) != len(riccati_kernel.GROUPED_SHAPES) or any(
-            re.search(r"[1-9]\d* bytes", frame) for _, frame in grouped)):
-        fail(f"factor_solve_grouped: want {len(riccati_kernel.GROUPED_SHAPES)} instantiations "
-             f"with no stack frame and no spills, ptxas says {grouped}")
+    # the grouped K1 and K2 and the K4 kernel keep every array in registers
+    # or shared memory
+    for kname, count in (("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES)),
+                         ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES)),
+                         ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES))):
+        found = [(name, frame) for name, _, frame, _ in ptxas if name.startswith(kname + "<")]
+        if info.get("log") and (len(found) != count or any(
+                re.search(r"[1-9]\d* bytes", frame) for _, frame in found)):
+            fail(f"{kname}: want {count} instantiations with no stack frame and no spills, "
+                 f"ptxas says {found}")
 
     # ---------------- 2. kernels against their plain versions -------------- #
     cfg = benchmarks.headline_config()
@@ -299,10 +349,15 @@ def main() -> None:
         solve(prob256, max_iter=3, compensated_residuals=True)
     results = {}
 
-    def check(name, label, kern, plain, tol, rel, ins, n_ops, extra_ok=None, lanes=None):
+    def check(name, label, kern, plain, tol, rel, ins, n_ops, extra_ok=None, lanes=None,
+              prof=None):
         """``ins``: the kernel's input tensors and ``n_ops`` its float32
-        operations, for its time bound; ``lanes``: compare the outputs on
-        these lanes only (a bool mask)."""
+        operations, for its time bound (the storage the views touch, each
+        element once: K4's x and x_next one slab of N knots, u and Δt once
+        per window, a fixed Δt one scalar, the generators once per problem);
+        ``lanes``: compare the outputs on these lanes only (a bool mask);
+        ``prof``: the CUDA kernel's name, to read its device time from the
+        profiler."""
         out_k = kern()
         out_p = plain()
         torch.cuda.synchronize()
@@ -313,18 +368,22 @@ def main() -> None:
         else:
             dev_rel, dev_abs = max_dev([t[lanes] for t in outs_p], [t[lanes] for t in outs_k], rel)
         ms_k, ms_p, ms_seq = cuda_ms(kern), cuda_ms(plain), cuda_ms_back_to_back(kern)
+        ms_dev = device_ms(kern, prof) if prof else None
+        dev_txt = "" if prof is None else (
+            f", device {ms_dev:.4f} ms per launch (profiler)" if ms_dev is not None
+            else ", device time not measured (the profiler recorded no launch)")
         b_ms, b_by = time_bound(nbytes(ins) + nbytes(outs_k), n_ops)
         ok = dev_rel <= tol and (extra_ok is None or extra_ok(outs_p, outs_k))
         kind = "relative" if rel else "absolute"
         print(f"[kernel] {label}: max {kind} deviation {dev_rel:.3e} (bound {tol:g}), "
               f"max abs {dev_abs:.3e}; kernel {ms_k:.4f} ms ({ms_seq:.4f} ms per call "
-              f"back to back), plain {ms_p:.4f} ms; "
+              f"back to back{dev_txt}), plain {ms_p:.4f} ms; "
               f"time bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} of it reached "
               f"-> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{label} disagrees with its plain version")
         results.setdefault(name, dict(max_abs_err=dev_abs, ms=ms_k, plain_ms=ms_p, tol=tol,
-                                      bound_ms=b_ms, bound_by=b_by))
+                                      bound_ms=b_ms, bound_by=b_by, device_ms=ms_dev))
 
     def ok_equal(p, k):
         return bool((p[5] == k[5]).all())
@@ -349,7 +408,7 @@ def main() -> None:
     def instantiation(name, shape):
         if name == "factor_solve":
             return "grouped" if shape in riccati_kernel.GROUPED_SHAPES else "generic"
-        return "exact" if shape in riccati_kernel.RESOLVE_EXACT_SHAPES else "generic"
+        return "grouped" if shape in riccati_kernel.RESOLVE_GROUPED_SHAPES else "generic"
 
     for key, lanes, shape, bad in (
         ("factor_solve", 256, (8, 3, 3), None),
@@ -370,10 +429,12 @@ def main() -> None:
     ):
         s0, st = riccati_inputs(1, 256, *shape)
         fac = riccati_kernel.factor_solve_plain(s0, *st)
-        check(key, f"K2 resolve ({instantiation('resolve', shape)}) B=256 (n_s,n_v,R')={shape}",
+        inst = instantiation("resolve", shape)
+        check(key, f"K2 resolve ({inst}) B=256 (n_s,n_v,R')={shape}",
               lambda: riccati_kernel.resolve(s0, *fac[:5], *st[3:]),
               lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
-              list(fac[:5]) + st[3:], riccati_ops(256, N, *shape, factor=False))
+              list(fac[:5]) + st[3:], riccati_ops(256, N, *shape, factor=False),
+              prof=f"resolve_{inst}")
     # ... and on the inputs the pipeline gives them (every captured call):
     # the certificate must agree exactly, and on certified lanes each output
     # of the kernel may be no further from a float64 evaluation than 3x the
@@ -453,15 +514,18 @@ def main() -> None:
     alphas = torch.as_tensor(0.5 ** np.arange(n_slots), dtype=torch.float32, device=dev)
     Zt = (Z[:, None] + alphas[None, :, None] * dZ[:, None]).reshape(
         Z.shape[0], n_slots, layout.N, layout.dim)
-    targs = prob256.integrators[0]._lane_args(layout, Zt)  # 256 problems x grid slots
-    ops4 = horner_ops(targs[5].shape[0], targs[5].shape[1], targs[5].shape[2],
-                      targs[1].shape[1], order, False)
-    check("residual_l1", f"K4 residual (L1 form) lanes=256x{n_slots}",
+    # 256 problems x grid slots, views of Zt as the line search passes them
+    targs = prob256.integrators[0]._trial_views(layout, Zt)
+    P4, T4, K4, xd4 = targs[4].shape
+    ops4 = horner_ops(P4 * T4, K4, xd4, targs[1].shape[1], order, False)
+    check("residual_l1", f"K4 residual (L1 form) on Zt {tuple(Zt.shape)}",
           lambda: expv_kernel.residual_l1(order, *targs),
-          lambda: expv_kernel.residual_l1_plain(order, *targs), 2e-6, False, targs, ops4)
-    check("residual", f"K4 residual (vector form) lanes=256x{n_slots}",
+          lambda: expv_kernel.residual_l1_plain(order, *targs), 2e-6, False, targs, ops4,
+          prof="residual_grid_kernel")
+    check("residual", f"K4 residual (vector form) on Zt {tuple(Zt.shape)}",
           lambda: expv_kernel.residual_action(order, *targs),
-          lambda: expv_kernel.residual_action_plain(order, *targs), 2e-6, False, targs, ops4)
+          lambda: expv_kernel.residual_action_plain(order, *targs), 2e-6, False, targs, ops4,
+          prof="residual_grid_kernel")
 
     # ---- at the state-constrained family's shapes (path 2) ---------------- #
     sc_cfg = benchmarks.state_constrained_config()
@@ -484,19 +548,20 @@ def main() -> None:
     al2 = torch.as_tensor(0.5 ** np.arange(n_slots2), dtype=torch.float32, device=dev)
     Zt2 = (Z2[:, None] + al2[None, :, None] * dZ2[:, None]).reshape(
         B2, n_slots2, lay_sc.N, lay_sc.dim)
-    t_sc = integ_sc._lane_args(lay_sc, Zt2)
-    ops4_sc = horner_ops(t_sc[5].shape[0], t_sc[5].shape[1], t_sc[5].shape[2],
-                         t_sc[1].shape[1], order_sc, False)
+    t_sc = integ_sc._trial_views(lay_sc, Zt2)
+    P2, T2, K2, xd2 = t_sc[4].shape
+    ops4_sc = horner_ops(P2 * T2, K2, xd2, t_sc[1].shape[1], order_sc, False)
     # the L1 form sums 100 rounded terms of this family's O(0.1) residuals
     # per lane (Σ|r| of a few units), so its 2e-6 bound is relative to
     # max(Σ|r|, 1), as the CPU tests hold it (rtol 2e-6)
-    check("residual_l1_sc", f"K4 residual <2,1> (L1 form) lanes={B2}x{n_slots2}",
+    check("residual_l1_sc", f"K4 residual <2,1> (L1 form) on Zt {tuple(Zt2.shape)}",
           lambda: expv_kernel.residual_l1(order_sc, *t_sc),
-          lambda: expv_kernel.residual_l1_plain(order_sc, *t_sc), 2e-6, True, t_sc, ops4_sc)
-    check("residual_sc", f"K4 residual <2,1> (vector form) lanes={B2}x{n_slots2}",
+          lambda: expv_kernel.residual_l1_plain(order_sc, *t_sc), 2e-6, True, t_sc, ops4_sc,
+          prof="residual_grid_kernel")
+    check("residual_sc", f"K4 residual <2,1> (vector form) on Zt {tuple(Zt2.shape)}",
           lambda: expv_kernel.residual_action(order_sc, *t_sc),
           lambda: expv_kernel.residual_action_plain(order_sc, *t_sc), 2e-6, False, t_sc,
-          ops4_sc)
+          ops4_sc, prof="residual_grid_kernel")
     # K1 at (2,1,3) and K2 at (2,1,2) on inputs captured from path 2's own
     # solve: its problem, all B2 lanes in one chunk, its options, 3 iterations
     kw2 = {k: v for k, v in sc_cfg["solve_kw"].items() if k not in ("phases", "chunk")}
@@ -546,7 +611,8 @@ def main() -> None:
                         f"(compared on {int(well_r.sum())} lanes)",
           lambda: riccati_kernel.resolve(*r_args),
           lambda: riccati_kernel.resolve_plain(*r_args), 5e-6, True, r_args[1:],
-          riccati_ops(B2, N2, *shape_r, factor=False), lanes=well_r)
+          riccati_ops(B2, N2, *shape_r, factor=False), lanes=well_r,
+          prof=f"resolve_{instantiation('resolve', shape_r)}")
     pipeline_calls("path-2", cap_f2, cap_r2, well_only=True)
 
     # the captured calls (≈ 1.5 GiB at B=8192) go before the paths' peak
@@ -634,14 +700,14 @@ def main() -> None:
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches[name], max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                          bound_by=r["bound_by"], library_ms=None))
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     for name, key in PATH2:
         route, src, replaces = KERNELS[key]
         r = results[name]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches2[key], max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                          bound_by=r["bound_by"], library_ms=None))
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     print(json.dumps({"kernels": table}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

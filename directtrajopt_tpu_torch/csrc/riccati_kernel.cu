@@ -4,7 +4,7 @@
 // Replaces the two Pallas kernels of directtrajopt_tpu/ops/riccati_kernel.py:
 //   * _fused_kernel (:342; wrapper _factor_solve_pallas)
 //       -> factor_solve_grouped, factor_solve_generic
-//   * _resolve_kernel (:488; wrapper _resolve_pallas) -> resolve_fixed, resolve_generic
+//   * _resolve_kernel (:488; wrapper _resolve_pallas) -> resolve_grouped, resolve_generic
 //
 // Per lane: a backward sweep over the N stages (PB = P·B, PA = P·A,
 // Hvv = Qvv + BᵀPB, its Cholesky, Mvs = Qsvᵀ + BᵀPA, Kg = −Hvv⁻¹Mvs,
@@ -15,8 +15,9 @@
 // an entry of the factor is non-finite), and the identity is substituted for
 // that factor, exactly as the XLA scan (_factor_solve_xla) does.
 //
-// Two designs of the factor sweep (K1), chosen by shape in the wrapper
-// (ops/riccati_kernel.py: GROUPED_SHAPES):
+// Two designs of each, chosen by shape in the wrapper
+// (ops/riccati_kernel.py: GROUPED_SHAPES for K1, RESOLVE_GROUPED_SHAPES for
+// K2):
 //
 // * factor_solve_grouped<NS, NV, R> — a group of G = NS threads per lane,
 //   32/G lanes to a warp, 64-thread blocks. Thread i owns row i of P and
@@ -42,13 +43,23 @@
 //   on the group (a knot's critical path is ~NS times shorter than one
 //   thread's) and hides each knot's load latency behind the previous
 //   knot's arithmetic; at 256 lanes it still fills only 32 blocks.
-// * factor_solve_generic — one thread per lane for any n_s ≤ 16, n_v ≤ 8,
-//   R ≤ 8, stage stacks lanes-minor ((N, rows, cols, L), the Pallas
-//   kernel's layout) so that neighbouring threads read neighbouring
-//   addresses; the stage blocks sit in per-thread arrays of the maximum
-//   size (local memory). The resolve (K2) kernels keep this design, with
-//   an exact instantiation at (8,3,2) for the fused SOC + restoration
-//   resolve of the bilinear benchmark.
+// * resolve_grouped<NS, NV, R> (K2) — the same design for new right-hand
+//   sides against stored factors: w row-parallel, mv summed by every thread
+//   in order from shared memory and solved against Lv_k, p column-parallel;
+//   each knot's P_{k+1}, Lv, Mvs, A, B, qs, qv, b double-buffered with
+//   cp.async; the initial-state solve and the forward sweep are K1's own
+//   (initial_and_forward, one device function for both). Lane-major in and
+//   out: K1's outputs are read as K1 wrote them. Instantiated at (8,3,2)
+//   (path 1's fused SOC + restoration) and (2,1,2) (path 2's). Bound (each
+//   input byte read once, each output byte written once): 58.3 KB per lane
+//   at (8,3,2), N=51 — 14.9 MB, 4.5 µs at 256 lanes — and 58.5 MB, 17.5 µs
+//   at (2,1,2), 8192 lanes; like K1 it waits on each knot's dependent
+//   chain, not on its loads.
+// * factor_solve_generic / resolve_generic — one thread per lane for any
+//   n_s ≤ 16, n_v ≤ 8, R ≤ 8, stage stacks lanes-minor ((N, rows, cols, L),
+//   the Pallas kernel's layout) so that neighbouring threads read
+//   neighbouring addresses, which the wrapper copies; the stage blocks sit
+//   in per-thread arrays of the maximum size (local memory).
 //
 // Division and sqrt are IEEE (no fast math): correctly rounded.
 
@@ -619,6 +630,9 @@ struct GroupLayout {
                        A = align4(Qvv + NV * NV), B = align4(A + NS * NS),
                        qs = align4(B + NS * NV), qv = align4(qs + R * NS),
                        b = align4(qv + R * NV), bwd = align4(b + R * NS);
+  // K2's backward buffer: P_{k+1}, Mvs_k and Lv_k in the places (and sizes)
+  // of Qss, Qsv and Qvv; A, B, qs, qv, b as K1's
+  static constexpr int rP = Qss, rMvs = Qsv, rLv = Qvv;
   // forward buffer: knot k's P and Kg, its A, B, b, and the stashed p, kff
   static constexpr int fP = 0, fKg = align4(fP + NS * NS), fA = align4(fKg + NV * NS),
                        fB = align4(fA + NS * NS), fb = align4(fB + NS * NV),
@@ -675,23 +689,126 @@ __device__ __forceinline__ void load_backward(float* buf, const FactorIn& in, in
   copy_async<NS, R, NS>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
 }
 
-// Forward sweep: knot k's P, Kg (written by the backward sweep), A, B, b
-// and the stashed p_k, kff_k of lane l into `buf`.
+// What the forward sweep reads and writes: P_k and Kg_k (K1's outputs, or
+// K2's stored factors), A_k, B_k, b_k and the stashed p_k, kff_k (in dzs,
+// dzv, written by the backward sweep of the same group); it overwrites dzs
+// and dzv and writes λ.
+struct ForwardIO {
+  const float *P, *Kg, *A, *B, *b;
+  float *dzs, *dzv, *lam;
+};
+
+// Forward sweep: knot k's P, Kg, A, B, b and the stashed p_k, kff_k of lane
+// l into `buf`.
 template <int NS, int NV, int R>
-__device__ __forceinline__ void load_forward(float* buf, const FactorIn& in,
-                                             const FactorOut& out, int l, int N, int k,
+__device__ __forceinline__ void load_forward(float* buf, const ForwardIO& io, int l, int N, int k,
                                              int gi) {
   using Lay = GroupLayout<NS, NV, R>;
   const long st = (long)l * N + k;
   const long rh = (long)l * R * N + k;
   const long rs = N;
-  copy_async<NS * NS, 1, NS>(buf + Lay::fP, out.P + st * NS * NS, 0, gi);
-  copy_async<NV * NS, 1, NS>(buf + Lay::fKg, out.Kg + st * NV * NS, 0, gi);
-  copy_async<NS * NS, 1, NS>(buf + Lay::fA, in.A + st * NS * NS, 0, gi);
-  copy_async<NS * NV, 1, NS>(buf + Lay::fB, in.B + st * NS * NV, 0, gi);
-  copy_async<NS, R, NS>(buf + Lay::fb, in.b + rh * NS, rs * NS, gi);
-  copy_async<NS, R, NS>(buf + Lay::fp, out.dzs + rh * NS, rs * NS, gi);
-  copy_async<NV, R, NS>(buf + Lay::fkff, out.dzv + rh * NV, rs * NV, gi);
+  copy_async<NS * NS, 1, NS>(buf + Lay::fP, io.P + st * NS * NS, 0, gi);
+  copy_async<NV * NS, 1, NS>(buf + Lay::fKg, io.Kg + st * NV * NS, 0, gi);
+  copy_async<NS * NS, 1, NS>(buf + Lay::fA, io.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, NS>(buf + Lay::fB, io.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, NS>(buf + Lay::fb, io.b + rh * NS, rs * NS, gi);
+  copy_async<NS, R, NS>(buf + Lay::fp, io.dzs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, NS>(buf + Lay::fkff, io.dzv + rh * NV, rs * NV, gi);
+}
+
+// The initial-state solve and the forward sweep of lane l, shared by K1 and
+// K2 (the same arithmetic, in the same order of summation, as
+// forward_sweep). On entry every thread of the group holds the masked
+// initial factor L0 and entry gi of each p_0, and the group has stashed
+// p_k, kff_k in dzs, dzv. Threads of a ragged lane (store false) read lane
+// ls and store nothing.
+template <int NS, int NV, int R>
+__device__ __forceinline__ void initial_and_forward(float* sh, const float (&L0)[NS][NS],
+                                                    const float (&p)[R], const ForwardIO& io,
+                                                    int l, int ls, bool store, int N,
+                                                    unsigned s0mask, int gi) {
+  using Lay = GroupLayout<NS, NV, R>;
+  constexpr int G = NS, D = kStages;
+  float* const sS = sh + Lay::S;
+#pragma unroll
+  for (int r = 0; r < R; ++r) sS[r * NS + gi] = p[r];
+  __syncwarp();
+  float s[R];  // entry gi of s_0, per right-hand side
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float x[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] = ((s0mask >> i) & 1u) ? sS[r * NS + i] : 0.0f;
+    cho_solve<NS>(L0, x, NS);
+    s[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      if (i == gi) s[r] = ((s0mask >> i) & 1u) ? -x[i] : 0.0f;
+  }
+  // the group's stores of the stashes (and of K1's P and Kg), before it
+  // reads them back
+  __threadfence_block();
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) sS[r * NS + gi] = s[r];
+
+#pragma unroll
+  for (int q = 0; q < D - 1; ++q) {
+    if (q < N) load_forward<NS, NV, R>(sh + q * Lay::buf, io, ls, N, q, gi);
+    __pipeline_commit();
+  }
+  for (int k = 0; k < N; ++k) {
+    const float* cur = sh + (k % D) * Lay::buf;
+    if (k + D - 1 < N)
+      load_forward<NS, NV, R>(sh + ((k + D - 1) % D) * Lay::buf, io, ls, N, k + D - 1, gi);
+    __pipeline_commit();
+    __pipeline_wait_prior(D - 1);
+    __syncwarp();
+    const float* fP = cur + Lay::fP;
+    const float* fKg = cur + Lay::fKg;
+    const float* fA = cur + Lay::fA;
+    const float* fB = cur + Lay::fB;
+    const float* fb = cur + Lay::fb;
+    const float* fp = cur + Lay::fp;
+    const float* fkff = cur + Lay::fkff;
+    float sn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float* sr = sS + r * NS;
+      const long rk = ((long)l * R + r) * N + k;
+      if (k >= 1) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) acc += fP[gi * NS + j] * sr[j];
+        if (store)
+          io.lam[(((long)l * R + r) * (N - 1) + k - 1) * NS + gi] = -(acc + fp[r * NS + gi]);
+      }
+      float v[NV];
+#pragma unroll
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) acc += sr[j] * fKg[a * NS + j];
+        v[a] = acc + fkff[r * NV + a];
+      }
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) acc += sr[j] * fA[gi * NS + j];
+      float acc2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < NV; ++a) acc2 += v[a] * fB[gi * NV + a];
+      sn[r] = acc + acc2 + fb[r * NS + gi];
+      if (store) {
+        io.dzs[rk * NS + gi] = sr[gi];
+#pragma unroll
+        for (int a = 0; a < NV; ++a)
+          if ((r * NV + a) % G == gi) io.dzv[rk * NV + a] = v[a];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < R; ++r) sS[r * NS + gi] = sn[r];
+  }
 }
 
 // The same arithmetic, in the same order of summation, as factor_solve_lane.
@@ -713,7 +830,6 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
   float* const sW = sh + Lay::W;
   float* const sKg = sh + Lay::Kg;
   float* const sPn = sh + Lay::Pn;
-  float* const sS = sh + Lay::S;
 
   float Prow[NS];  // row gi of P_{k+1}
   float p[R];      // entry gi of p_{k+1}, per right-hand side
@@ -863,12 +979,10 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
     }
   }
 
-  // ---- masked Cholesky of P0 and the initial-state solve (every thread) ----
+  // ---- masked Cholesky of P0 (every thread), then the forward sweep ----
   __syncwarp();
 #pragma unroll
   for (int j = 0; j < NS; ++j) sPn[gi * NS + j] = Prow[j];
-#pragma unroll
-  for (int r = 0; r < R; ++r) sS[r * NS + gi] = p[r];
   __syncwarp();
   float P0m[NS][NS], L0[NS][NS];  // P0m = P0∘(s0 s0ᵀ) + diag(1 − s0), as initial_factor
 #pragma unroll
@@ -878,18 +992,6 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
       P0m[i][j] = (((s0mask >> i) & (s0mask >> j) & 1u) != 0) ? sPn[i * NS + j]
                                                              : ((i == j) ? 1.0f : 0.0f);
   ok = chol_or_identity<NS>(P0m, L0, NS) && ok;
-  float s[R];  // entry gi of s_0, per right-hand side
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float x[NS];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) x[i] = ((s0mask >> i) & 1u) ? sS[r * NS + i] : 0.0f;
-    cho_solve<NS>(L0, x, NS);
-    s[r] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NS; ++i)
-      if (i == gi) s[r] = ((s0mask >> i) & 1u) ? -x[i] : 0.0f;
-  }
   if (store) {
 #pragma unroll
     for (int i = 0; i < NS; ++i)
@@ -900,70 +1002,135 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
       }
     if (gi == 0) out.ok[l] = ok ? 1.0f : 0.0f;
   }
-  // the group's stores of P, Kg and the stashes, before it reads them back
-  __threadfence_block();
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < R; ++r) sS[r * NS + gi] = s[r];
+  const ForwardIO io{out.P, out.Kg, in.A, in.B, in.b, out.dzs, out.dzv, out.lam};
+  initial_and_forward<NS, NV, R>(sh, L0, p, io, l, ls, store, N, s0mask, gi);
+}
 
-  // ---- forward sweep ----
+// ---- resolve_grouped: K2 on K1's thread-group design ---------------------
+
+struct ResolveIn {
+  const float *P, *Lv, *Kg, *Mvs, *L0, *A, *B, *qs, *qv, *b;
+};
+
+// Backward sweep of the resolve: knot k's P_{k+1} (for k < N − 1), Lv_k,
+// Mvs_k, A_k, B_k and right-hand sides of lane l into `buf`.
+template <int NS, int NV, int R>
+__device__ __forceinline__ void load_resolve(float* buf, const ResolveIn& in, int l, int N, int k,
+                                             int gi) {
+  using Lay = GroupLayout<NS, NV, R>;
+  const long st = (long)l * N + k;
+  const long rh = (long)l * R * N + k;
+  const long rs = N;
+  if (k + 1 < N) copy_async<NS * NS, 1, NS>(buf + Lay::rP, in.P + (st + 1) * NS * NS, 0, gi);
+  copy_async<NV * NS, 1, NS>(buf + Lay::rMvs, in.Mvs + st * NV * NS, 0, gi);
+  copy_async<NV * NV, 1, NS>(buf + Lay::rLv, in.Lv + st * NV * NV, 0, gi);
+  copy_async<NS * NS, 1, NS>(buf + Lay::A, in.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, NS>(buf + Lay::B, in.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, NS>(buf + Lay::qs, in.qs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, NS>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
+  copy_async<NS, R, NS>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
+}
+
+// The same arithmetic, in the same order of summation, as resolve_lane, on
+// K1's design: NS threads per lane, thread gi owns entry gi of w_r and p_r
+// (w row-parallel, p column-parallel), and every thread of the group sums
+// mv_r = qv_r + Bᵀw_r in order from shared memory and solves it against
+// Lv_k. Each knot's blocks are double-buffered in shared memory with
+// cp.async; the initial-state solve and the forward sweep are K1's.
+template <int NS, int NV, int R>
+__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
+    resolve_grouped(int L, int N, unsigned s0mask, ResolveIn in, ForwardIO io) {
+  using Lay = GroupLayout<NS, NV, R>;
+  constexpr int G = NS, D = kStages;
+  __shared__ __align__(16) float smem[Lay::lanes * Lay::stride];
+  const int grp = threadIdx.x / G, gi = threadIdx.x % G;
+  const int l = blockIdx.x * Lay::lanes + grp;
+  const bool store = l < L;
+  const int ls = store ? l : L - 1;
+  float* const sh = smem + grp * Lay::stride;
+  float* const sW = sh + Lay::W;
+
+  float p[R];  // entry gi of p_{k+1}, per right-hand side
+#pragma unroll
+  for (int r = 0; r < R; ++r) p[r] = 0.0f;
+
+  // knot k's copies are committed as group N − 1 − k. Each iteration waits
+  // for its knot, then (behind the __syncwarp that ends every thread's
+  // reads of the previous knot) refills the buffer that knot used.
 #pragma unroll
   for (int q = 0; q < D - 1; ++q) {
-    if (q < N) load_forward<NS, NV, R>(sh + q * Lay::buf, in, out, ls, N, q, gi);
+    if (N - 1 - q >= 0) load_resolve<NS, NV, R>(sh + q * Lay::buf, in, ls, N, N - 1 - q, gi);
     __pipeline_commit();
   }
-  for (int k = 0; k < N; ++k) {
-    const float* cur = sh + (k % D) * Lay::buf;
-    if (k + D - 1 < N)
-      load_forward<NS, NV, R>(sh + ((k + D - 1) % D) * Lay::buf, in, out, ls, N, k + D - 1, gi);
-    __pipeline_commit();
-    __pipeline_wait_prior(D - 1);
+  for (int k = N - 1, it = 0; k >= 0; --k, ++it) {
+    const float* cur = sh + (it % D) * Lay::buf;
+    __pipeline_wait_prior(D - 2);
     __syncwarp();
-    const float* fP = cur + Lay::fP;
-    const float* fKg = cur + Lay::fKg;
-    const float* fA = cur + Lay::fA;
-    const float* fB = cur + Lay::fB;
-    const float* fb = cur + Lay::fb;
-    const float* fp = cur + Lay::fp;
-    const float* fkff = cur + Lay::fkff;
-    float sn[R];
+    if (k - (D - 1) >= 0)
+      load_resolve<NS, NV, R>(sh + ((it + D - 1) % D) * Lay::buf, in, ls, N, k - (D - 1), gi);
+    __pipeline_commit();
+    const float* Pn = cur + Lay::rP;
+    const float* Lvk = cur + Lay::rLv;
+    const float* Mvs = cur + Lay::rMvs;
+    const float* A = cur + Lay::A;
+    const float* B = cur + Lay::B;
+    const float* qs = cur + Lay::qs;
+    const float* qv = cur + Lay::qv;
+    const float* rb = cur + Lay::b;
+
+    // entry gi of w_r = P_{k+1}·b_r + p_r (P_N = 0)
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float* sr = sS + r * NS;
-      const long rk = ((long)l * R + r) * N + k;
-      if (k >= 1) {
-        float acc = 0.0f;
+      float acc = 0.0f;
+      if (k < N - 1) {
 #pragma unroll
-        for (int j = 0; j < NS; ++j) acc += fP[gi * NS + j] * sr[j];
-        if (store)
-          out.lam[(((long)l * R + r) * (N - 1) + k - 1) * NS + gi] = -(acc + fp[r * NS + gi]);
+        for (int j = 0; j < NS; ++j) acc += rb[r * NS + j] * Pn[gi * NS + j];
       }
-      float v[NV];
+      sW[r * NS + gi] = acc + p[r];
+    }
+    __syncwarp();
+    float Lv[NV][NV];
+#pragma unroll
+    for (int a = 0; a < NV; ++a)
+#pragma unroll
+      for (int c = 0; c < NV; ++c) Lv[a][c] = Lvk[a * NV + c];
+    // kff_r (every thread) and entry gi of p_r
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float kff[NV];
 #pragma unroll
       for (int a = 0; a < NV; ++a) {
         float acc = 0.0f;
 #pragma unroll
-        for (int j = 0; j < NS; ++j) acc += sr[j] * fKg[a * NS + j];
-        v[a] = acc + fkff[r * NV + a];
+        for (int i = 0; i < NS; ++i) acc += sW[r * NS + i] * B[i * NV + a];
+        kff[a] = qv[r * NV + a] + acc;
       }
+      cho_solve<NV>(Lv, kff, NV);
+#pragma unroll
+      for (int a = 0; a < NV; ++a) kff[a] = -kff[a];
       float acc = 0.0f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) acc += sr[j] * fA[gi * NS + j];
+      for (int t = 0; t < NS; ++t) acc += sW[r * NS + t] * A[t * NS + gi];
       float acc2 = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NV; ++a) acc2 += v[a] * fB[gi * NV + a];
-      sn[r] = acc + acc2 + fb[r * NS + gi];
+      for (int a = 0; a < NV; ++a) acc2 += kff[a] * Mvs[a * NS + gi];
+      p[r] = (qs[r * NS + gi] + acc) + acc2;
       if (store) {
-        out.dzs[rk * NS + gi] = sr[gi];
+        const long rk = ((long)l * R + r) * N + k;
+        io.dzs[rk * NS + gi] = p[r];  // stash p_k
 #pragma unroll
         for (int a = 0; a < NV; ++a)
-          if ((r * NV + a) % G == gi) out.dzv[rk * NV + a] = v[a];
+          if ((r * NV + a) % G == gi) io.dzv[rk * NV + a] = kff[a];  // stash kff_k
       }
     }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < R; ++r) sS[r * NS + gi] = sn[r];
   }
+
+  float L0[NS][NS];  // the stored masked initial factor (lower triangle)
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) L0[i][j] = (j <= i) ? in.L0[((long)ls * NS + i) * NS + j] : 0.0f;
+  initial_and_forward<NS, NV, R>(sh, L0, p, io, l, ls, store, N, s0mask, gi);
 }
 
 template <int NS>
@@ -984,17 +1151,6 @@ __global__ void __launch_bounds__(128) factor_solve_generic(
   factor_solve_lane<kNsMax, kNvMax, kRMax>(l, L, N, ns, nv, R, s0mask, Qss, Qsv, Qvv, A, B,
                                            qs, qv, rb, P, Lv, Kg, Mvs, L0, ok, dzs, dzv,
                                            lam);
-}
-
-template <int NS, int NV, int R>
-__global__ void __launch_bounds__(128) resolve_fixed(
-    int L, int N, unsigned s0mask, const float* P, const float* Lv, const float* Kg,
-    const float* Mvs, const float* L0, const float* A, const float* B, const float* qs,
-    const float* qv, const float* rb, float* dzs, float* dzv, float* lam) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  resolve_lane<NS, NV, R>(l, L, N, NS, NV, R, s0mask, P, Lv, Kg, Mvs, L0, A, B, qs, qv, rb,
-                          dzs, dzv, lam);
 }
 
 __global__ void __launch_bounds__(128) resolve_generic(
@@ -1069,10 +1225,32 @@ extern "C" int dto_resolve(int L, int N, int ns, int nv, int R, unsigned s0mask,
   (const float*)P, (const float*)Lv, (const float*)Kg, (const float*)Mvs,              \
       (const float*)L0, (const float*)A, (const float*)B, (const float*)qs,            \
       (const float*)qv, (const float*)rb, (float*)dzs, (float*)dzv, (float*)lam
-  if (ns == 8 && nv == 3 && R == 2)
-    resolve_fixed<8, 3, 2><<<grid, kThreads, 0, s>>>(L, N, s0mask, ARGS);
-  else
-    resolve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
+  resolve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
 #undef ARGS
+  return (int)cudaGetLastError();
+}
+
+// Lane-major K2: stored factors P, Lv, Kg, Mvs (L, N, r, c), L0 (L, ns, ns),
+// A, B (L, N, r, c) and right-hand sides (L, R, N, d) in, contiguous and
+// 16-byte aligned; dzs, dzv (L, R, N, d) and λ (L, R, N − 1, ns) out.
+extern "C" int dto_resolve_grouped(int L, int N, int ns, int nv, int R, unsigned s0mask,
+                                   const void* P, const void* Lv, const void* Kg,
+                                   const void* Mvs, const void* L0, const void* A,
+                                   const void* B, const void* qs, const void* qv,
+                                   const void* rb, void* dzs, void* dzv, void* lam,
+                                   void* stream) {
+  if (L < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ResolveIn in{(const float*)P,  (const float*)Lv, (const float*)Kg, (const float*)Mvs,
+                     (const float*)L0, (const float*)A,  (const float*)B,  (const float*)qs,
+                     (const float*)qv, (const float*)rb};
+  const ForwardIO io{(const float*)P, (const float*)Kg, (const float*)A, (const float*)B,
+                     (const float*)rb, (float*)dzs, (float*)dzv, (float*)lam};
+  if (ns == 8 && nv == 3 && R == 2)
+    resolve_grouped<8, 3, 2><<<grouped_grid<8>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+  else if (ns == 2 && nv == 1 && R == 2)
+    resolve_grouped<2, 1, 2><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -9,10 +9,15 @@ item 12).
 Residuals and window Jacobians route through ``ops/expv_kernel.py``. The
 dtype gate is the JAX package's: float32 residuals take the residual
 kernel, float64 residuals the generic differentiable chain; the window
-Jacobian takes the closed-form recurrences at both.
+Jacobian takes the closed-form recurrences at both. The residual kernel
+reads the knot matrix in place (:meth:`BilinearIntegrator._trial_views`);
+the window Jacobian takes contiguous per-lane copies
+(:meth:`BilinearIntegrator._lane_args`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -99,22 +104,43 @@ class BilinearIntegrator:
         dt = layout.knot_timestep(zm[:, :-1]).contiguous()
         return Gd, Gv, u, dt, x, xn
 
+    def _trial_views(self, layout: Layout, zmat: torch.Tensor):
+        """The residual kernel's arguments, all views: the knot matrix
+        (B, *trial, N, d) seen as (P=B, T, N, d), its trial axes flattened
+        into T (T = 1 without them), and u, Δt, x, x_next as (P, T, N−1, ·)
+        views of it (``as_strided`` on its strides, one knot further on for
+        x_next); a fixed Δt is a scalar expanded with stride 0. The
+        generators are the per-problem (B, ·) tensors as they lie, broadcast
+        over T by the kernel."""
+        N, d = zmat.shape[-2:]
+        z = zmat.reshape(zmat.shape[0], -1, N, d)
+        lead = z.shape[:2] + (N - 1,)
+        st, base = z.stride(), z.storage_offset()
+        o_x, o_u = layout.offsets[self.x_name], layout.offsets[self.u_name]
+        xd, nd = self.G_drift.shape[-1], self.G_drives.shape[-3]
+        x = z.as_strided(lead + (xd,), st, base + o_x)
+        xn = z.as_strided(lead + (xd,), st, base + st[2] + o_x)
+        u = z.as_strided(lead + (nd,), st, base + o_u)
+        if layout.has_free_time:
+            dt = z.as_strided(lead, st[:3], base + layout.offsets[layout.timestep])
+        else:
+            dt = _scalar(float(layout.timestep), z.dtype, z.device).expand(lead)
+        return self.G_drift, self.G_drives, u, dt, x, xn
+
     def residuals_stacked(self, layout: Layout, zmat: torch.Tensor):
         """Closed-form stacked residuals through the residual kernel
         (float32 only; None sends float64 to the generic path)."""
         if zmat.dtype != torch.float32:
             return None
-        Gd, Gv, u, dt, x, xn = self._lane_args(layout, zmat)
-        out = expv_kernel.residual_action(self.taylor_order, Gd, Gv, u, dt, x, xn)
-        return out.reshape(zmat.shape[:-2] + out.shape[1:])
+        out = expv_kernel.residual_action(self.taylor_order, *self._trial_views(layout, zmat))
+        return out.reshape(zmat.shape[:-2] + out.shape[2:])
 
     def residuals_l1_stacked(self, layout: Layout, zmat: torch.Tensor):
         """``Σ|residual|`` per lane through the L1 form of the residual kernel
         (float32 only)."""
         if zmat.dtype != torch.float32:
             return None
-        Gd, Gv, u, dt, x, xn = self._lane_args(layout, zmat)
-        out = expv_kernel.residual_l1(self.taylor_order, Gd, Gv, u, dt, x, xn)
+        out = expv_kernel.residual_l1(self.taylor_order, *self._trial_views(layout, zmat))
         return out.reshape(zmat.shape[:-2])
 
     def jacobians_zk_stacked(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
@@ -134,3 +160,10 @@ class BilinearIntegrator:
 
     def __repr__(self) -> str:
         return f"BilinearIntegrator: {self.x_name} = exp(Δt G({self.u_name})) {self.x_name}"
+
+
+@functools.lru_cache(maxsize=16)
+def _scalar(value: float, dtype, device) -> torch.Tensor:
+    """A 0-d tensor holding a fixed Δt, made once per (value, dtype, device)
+    rather than filled on the device at every residual call."""
+    return torch.full((), value, dtype=dtype, device=device)

@@ -46,11 +46,11 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "dto_window_jac": [_I] * 6 + [_VP] * 7,
-    "dto_residual": [_I] * 5 + [_VP] * 8,
-    "dto_residual_l1": [_I] * 5 + [_VP] * 9,
+    "dto_residual": [_I] * 7 + [_VP] * 9,
     "dto_factor_solve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
     "dto_factor_solve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
     "dto_resolve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
+    "dto_resolve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
 }
 
 
@@ -123,9 +123,13 @@ def build_info() -> dict:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a
+    ``torch.device`` or an index), which every kernel launches on."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device if isinstance(device, int) else device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check_rc(rc: int, what: str) -> None:

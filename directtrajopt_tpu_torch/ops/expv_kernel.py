@@ -7,21 +7,30 @@ k of every lane, with ``G = Gd + Σ_m u_m·Gv_m`` and ``A = Δt·G``:
   order-m Taylor action, by tangent recurrences of the Horner chain
   ``y ← x + A·y/k`` (replaces the Pallas ``_kernel``);
 * :func:`residual_action` — ``xn − E·x`` (replaces ``_res_kernel``);
-* :func:`residual_l1` — ``Σ|xn − E·x|`` per lane over all windows (the
+* :func:`residual_l1` — ``Σ|xn − E·x|`` per instance over all windows (the
   line-search θ term; ``_res_kernel`` in its L1 form).
 
-Shapes: Gd (L, xd, xd), Gv (L, nd, xd, xd), u (L, K, nd), dt (L, K),
-x / xn (L, K, xd), where L counts lanes (problems × line-search trials,
-flattened by the caller in place of the JAX package's two-level
-``custom_vmap``).
+Shapes of the window Jacobian: Gd (L, xd, xd), Gv (L, nd, xd, xd), u
+(L, K, nd), dt (L, K), x (L, K, xd), contiguous, where L counts lanes.
+
+Shapes of the residual chain: the line search's trial grid as the JAX
+package's two-level ``custom_vmap`` holds it, P problems × T trial slots
+(T = 1 for a call with no trial axis). Gd (P, xd, xd) and Gv
+(P, nd, xd, xd) once per problem, any strides; u (P, T, K, nd), dt (P, T, K), x and xn
+(P, T, K, xd) any strided views with a unit stride on the last axis (the
+kernel reads the knot matrix in place; a fixed Δt is a scalar expanded with
+stride 0). Out: (P, T, K, xd), or (P, T) for the L1 form.
 
 Routing: a CPU tensor takes the plain PyTorch version; a CUDA float32
 tensor launches the kernel (``csrc/expv_kernel.cu``) or raises; float64
 takes the plain version on either device, as the JAX package sends f64 to
-XLA. The plain versions are ports of ``_window_jac_xla`` and ``_res_xla``.
+XLA. The plain versions are ports of ``_window_jac_xla`` and ``_res_xla``
+and take the same arguments as the wrappers.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -38,6 +47,9 @@ __all__ = [
 # benchmark's 4-D state with 2 drives, and the state-constrained family's
 # 2-D state with 1 drive
 SUPPORTED_SHAPES = {(4, 2), (2, 1)}
+# the residual kernel's 19 element strides go in one array (one argument for
+# all of them, which halves the cost of the ctypes call)
+_Strides19 = ctypes.c_longlong * 19
 
 
 def window_jac_plain(order, free_time, Gd, Gv, u, dt, x):
@@ -72,30 +84,29 @@ def window_jac_plain(order, free_time, Gd, Gv, u, dt, x):
 
 
 def residual_action_plain(order, Gd, Gv, u, dt, x, xn):
-    """(L, K, xd) residuals ``xn − E·x`` — port of ``_res_xla``."""
-    G = Gd[:, None] + torch.einsum("lkm,lmij->lkij", u, Gv)
+    """(P, T, K, xd) residuals ``xn − E·x`` — port of ``_res_xla``."""
+    G = Gd[:, None, None] + torch.einsum("ptkm,pmij->ptkij", u, Gv)
     A = dt[..., None, None] * G
     y = x
     for k in range(order, 0, -1):
-        y = x + torch.einsum("lkij,lkj->lki", A, y) / k
+        y = x + torch.einsum("ptkij,ptkj->ptki", A, y) / k
     return xn - y
 
 
 def residual_l1_plain(order, Gd, Gv, u, dt, x, xn):
-    """(L,) ``Σ|xn − E·x|`` over windows and state components."""
+    """(P, T) ``Σ|xn − E·x|`` over windows and state components."""
     return residual_action_plain(order, Gd, Gv, u, dt, x, xn).abs().sum((-2, -1))
 
 
-def _kernel_args(Gd, Gv, u, dt, x, xn=None):
-    """Validate a CUDA call: float32, contiguous, one device, matching shapes."""
+def _kernel_args(Gd, Gv, u, dt, x):
+    """Validate a window-Jacobian call: float32, contiguous, one device,
+    matching shapes."""
     L, K, xd = x.shape
     nd = Gv.shape[1]
     want = {
         "Gd": (Gd, (L, xd, xd)), "Gv": (Gv, (L, nd, xd, xd)), "u": (u, (L, K, nd)),
         "dt": (dt, (L, K)), "x": (x, (L, K, xd)),
     }
-    if xn is not None:
-        want["xn"] = (xn, (L, K, xd))
     for name, (t, shape) in want.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -139,34 +150,54 @@ def window_jac(order: int, free_time: bool, Gd, Gv, u, dt, x):
     return out
 
 
+def _res_launch(order, l1, Gd, Gv, u, dt, x, xn):
+    """Check a residual-chain call on the card and launch it: one
+    allocation, one ctypes call. The kernel's entry checks its own size
+    limits and refuses a call beyond them."""
+    P, T, K, xd = x.shape
+    nd = Gv.shape[1]
+    dev = x.get_device()
+    for name, t, shape in (("Gd", Gd, (P, xd, xd)), ("Gv", Gv, (P, nd, xd, xd)),
+                           ("u", u, (P, T, K, nd)), ("dt", dt, (P, T, K)),
+                           ("x", x, (P, T, K, xd)), ("xn", xn, (P, T, K, xd))):
+        if t.get_device() != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if u.stride(-1) != 1 or x.stride(-1) != 1 or xn.stride(-1) != 1:
+        raise ValueError("u, x and xn need a unit stride on their last axis")
+    if (xd, nd) not in SUPPORTED_SHAPES:
+        raise NotImplementedError(
+            f"no kernel instantiation for x_dim={xd}, n_drives={nd} "
+            f"(instantiated: {sorted(SUPPORTED_SHAPES)})"
+        )
+    out = torch.empty((P, T) if l1 else (P, T, K, xd), dtype=torch.float32, device=x.device)
+    if out.numel():
+        strides = _Strides19(*Gd.stride(), *Gv.stride(), *u.stride()[:3], *dt.stride(),
+                             *x.stride()[:3], *xn.stride()[:3])
+        rc = _build.library().dto_residual(
+            P, T, K, xd, nd, int(order), int(l1), Gd.data_ptr(), Gv.data_ptr(), u.data_ptr(),
+            dt.data_ptr(), x.data_ptr(), xn.data_ptr(), ctypes.addressof(strides),
+            out.data_ptr(), _build.stream_ptr(dev),
+        )
+        # error 1 (invalid value): P·T·K or a view's offsets beyond 2^31 − 1, or
+        # the L1 form's partials beyond the kernel's shared memory
+        _build.check_rc(rc, f"{'residual_l1' if l1 else 'residual_action'} on {P} x {T} x {K}")
+        _build.LAUNCHES["residual_l1" if l1 else "residual"] += 1
+    return out
+
+
 def residual_action(order: int, Gd, Gv, u, dt, x, xn):
-    """Residuals (L, K, xd); see module docstring."""
+    """Residuals (P, T, K, xd); see module docstring."""
     if not _route(x):
         return residual_action_plain(order, Gd, Gv, u, dt, x, xn)
-    L, K, xd, nd = _kernel_args(Gd, Gv, u, dt, x, xn)
-    out = torch.empty((L, K, xd), dtype=torch.float32, device=x.device)
-    rc = _build.library().dto_residual(
-        L, K, xd, nd, int(order), Gd.data_ptr(), Gv.data_ptr(), u.data_ptr(),
-        dt.data_ptr(), x.data_ptr(), xn.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(x.device),
-    )
-    _build.check_rc(rc, "residual_action")
-    _build.LAUNCHES["residual"] += 1
-    return out
+    return _res_launch(order, False, Gd, Gv, u, dt, x, xn)
 
 
 def residual_l1(order: int, Gd, Gv, u, dt, x, xn):
-    """Per-lane ``Σ|residual|`` (L,); see module docstring."""
+    """Per-instance ``Σ|residual|`` (P, T); see module docstring."""
     if not _route(x):
         return residual_l1_plain(order, Gd, Gv, u, dt, x, xn)
-    L, K, xd, nd = _kernel_args(Gd, Gv, u, dt, x, xn)
-    part = torch.empty((L, K), dtype=torch.float32, device=x.device)
-    out = torch.empty((L,), dtype=torch.float32, device=x.device)
-    rc = _build.library().dto_residual_l1(
-        L, K, xd, nd, int(order), Gd.data_ptr(), Gv.data_ptr(), u.data_ptr(),
-        dt.data_ptr(), x.data_ptr(), xn.data_ptr(), part.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(x.device),
-    )
-    _build.check_rc(rc, "residual_l1")
-    _build.LAUNCHES["residual_l1"] += 1
-    return out
+    return _res_launch(order, True, Gd, Gv, u, dt, x, xn)

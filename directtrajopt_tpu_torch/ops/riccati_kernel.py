@@ -21,9 +21,10 @@ of the masked P0 is not positive (or non-finite); the identity is then
 substituted for that factor, as the JAX package's XLA scan does.
 
 Routing: CPU → plain version; CUDA float32 → the kernel
-(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. K1 takes
-its shape's kernel: a shape in :data:`GROUPED_SHAPES` runs
-``factor_solve_grouped`` (a thread group per lane, reading and writing the
+(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. Each takes
+its shape's kernel: a shape in :data:`GROUPED_SHAPES` (K1) or
+:data:`RESOLVE_GROUPED_SHAPES` (K2) runs ``factor_solve_grouped`` /
+``resolve_grouped`` (a thread group per lane, reading and writing the
 lane-major tensors above as they are), any other the generic one-thread-
 per-lane kernel on lanes-minor copies. The plain
 versions are ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over
@@ -38,15 +39,16 @@ import torch
 from . import _build
 
 __all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain", "MAX_SIZES",
-           "GROUPED_SHAPES", "RESOLVE_EXACT_SHAPES"]
+           "GROUPED_SHAPES", "RESOLVE_GROUPED_SHAPES"]
 
 # kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, kRMax)
 MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
 # (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
 # gate problem and path 2's state-constrained family
 GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3)})
-# (n_s, n_v, R') instantiations of K2's resolve_fixed; other shapes run resolve_generic
-RESOLVE_EXACT_SHAPES = frozenset({(8, 3, 2)})
+# (n_s, n_v, R') instantiations of K2's resolve_grouped: the fused SOC +
+# restoration resolve of both paths; other shapes run resolve_generic
+RESOLVE_GROUPED_SHAPES = frozenset({(8, 3, 2), (2, 1, 2)})
 
 
 def _chol_or_identity(H: torch.Tensor):
@@ -155,11 +157,24 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _launch_grouped(entry, key, s0m, ins, outs, L, N, ns, nv, R):
+    """Launch a thread-group kernel (K1's or K2's C ``entry``) on lane-major
+    inputs, writing the contiguous ``outs``."""
+    dev = ins[0].device
+    ins = [_aligned(t) for t in ins]
+    rc = getattr(_build.library(), entry)(
+        L, N, ns, nv, R, _s0_bits(s0m),
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+        _build.stream_ptr(dev),
+    )
+    _build.check_rc(rc, key)
+    _build.LAUNCHES[key] += 1
+    return outs
+
+
 def _factor_solve_grouped(s0m, ins, L, N, ns, nv, R):
     """Launch ``factor_solve_grouped`` on lane-major inputs; contiguous outputs."""
-    dev = ins[0].device
-    kw = dict(dtype=torch.float32, device=dev)
-    ins = [_aligned(t) for t in ins]
+    kw = dict(dtype=torch.float32, device=ins[0].device)
     outs = (
         torch.empty((L, N, ns, ns), **kw), torch.empty((L, N, nv, nv), **kw),
         torch.empty((L, N, nv, ns), **kw), torch.empty((L, N, nv, ns), **kw),
@@ -167,15 +182,17 @@ def _factor_solve_grouped(s0m, ins, L, N, ns, nv, R):
         torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
         torch.empty((L, R, N - 1, ns), **kw),
     )
-    rc = _build.library().dto_factor_solve_grouped(
-        L, N, ns, nv, R, _s0_bits(s0m),
-        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        _build.stream_ptr(dev),
-    )
-    _build.check_rc(rc, "factor_solve")
-    _build.LAUNCHES["factor_solve"] += 1
-    P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam = outs
+    P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam = _launch_grouped(
+        "dto_factor_solve_grouped", "factor_solve", s0m, ins, outs, L, N, ns, nv, R)
     return P, Lv, Kg, Mvs, L0, ok > 0.5, dzs, dzv, lam
+
+
+def _resolve_grouped(s0m, ins, L, N, ns, nv, R):
+    """Launch ``resolve_grouped`` on lane-major inputs; contiguous outputs."""
+    kw = dict(dtype=torch.float32, device=ins[0].device)
+    outs = (torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
+            torch.empty((L, R, N - 1, ns), **kw))
+    return _launch_grouped("dto_resolve_grouped", "resolve", s0m, ins, outs, L, N, ns, nv, R)
 
 
 def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
@@ -183,8 +200,9 @@ def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
         return False
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    dev = x.get_device()
     for name, t in tensors.items():
-        if t.device != x.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, expected {x.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
@@ -260,6 +278,8 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
     })
     if not _use_kernel(P, ins, {"ns": ns, "nv": nv, "R": R}):
         return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
+    if (ns, nv, R) in RESOLVE_GROUPED_SHAPES:
+        return _resolve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
     dev = P.device
     kw = dict(dtype=torch.float32, device=dev)
     stage = [_lanes_minor_stage(t) for t in (P, Lv, Kg, Mvs)]

@@ -5,7 +5,12 @@ f64: against ``_window_jac_xla`` / ``_res_xla`` to 1e-12. f32: against the
 Pallas kernels in interpret mode to atol 2e-6, the bound
 ``tests/test_expv_kernel.py`` puts on the Pallas kernels themselves.
 Includes the L1 form and batch sizes that are not multiples of anything.
+The residual chain takes the trial grid (P problems, T slots) as strided
+views of the knot matrix, as ``BilinearIntegrator._trial_views`` gives them.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -18,8 +23,11 @@ from directtrajopt_tpu.ops.expv_kernel import (
     _res_xla,
     _window_jac_pallas,
     _window_jac_xla,
+    make_residual_l1,
 )
+from directtrajopt_tpu_torch.integrators.bilinear import BilinearIntegrator
 from directtrajopt_tpu_torch.ops import expv_kernel as tek
+from directtrajopt_tpu_torch.trajectory import Layout
 
 torch.set_num_threads(1)
 
@@ -40,6 +48,11 @@ def _inputs(seed, B, K, xd, n_dr, dtype, with_xn=False):
 
 def _t(arrs):
     return [torch.as_tensor(a) for a in arrs]
+
+
+def _one_slot(arrs):
+    """Flat (B, K, ·) residual inputs as a trial grid of B problems × 1 slot."""
+    return [torch.as_tensor(a if i < 2 else a[:, None]) for i, a in enumerate(arrs)]
 
 
 @pytest.mark.parametrize("free_time", [True, False])
@@ -70,23 +83,25 @@ def test_window_jac_f32_matches_pallas_interpret(free_time, B):
 def test_residual_f64_matches_xla(B, K, xd, n_dr):
     args = _inputs(2, B, K, xd, n_dr, np.float64, with_xn=True)
     ref = jax.vmap(lambda *a: _res_xla(6, *a))(*map(jnp.asarray, args))
-    out = tek.residual_action(6, *_t(args))
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-12, rtol=0)
-    l1 = tek.residual_l1(6, *_t(args))
-    assert l1.shape == (B,)
+    out = tek.residual_action(6, *_one_slot(args))
+    assert out.shape == (B, 1, K, xd)
+    np.testing.assert_allclose(out[:, 0].numpy(), np.asarray(ref), atol=1e-12, rtol=0)
+    l1 = tek.residual_l1(6, *_one_slot(args))
+    assert l1.shape == (B, 1)
     np.testing.assert_allclose(
-        l1.numpy(), np.asarray(jnp.sum(jnp.abs(ref), axis=(-2, -1))), atol=1e-12, rtol=0
+        l1[:, 0].numpy(), np.asarray(jnp.sum(jnp.abs(ref), axis=(-2, -1))), atol=1e-12, rtol=0
     )
 
 
 @pytest.mark.parametrize("B", [7, 9 * 3])
 def test_residual_f32_matches_pallas_interpret(B):
-    """B = problems × trial slots, flattened (the line-search trial grid)."""
+    """B problems with one slot each (the trial grid is in
+    ``test_trial_grid_views_f32_matches_pallas_and_jax_l1``)."""
     args = _inputs(3, B, 50, 4, 2, np.float32, with_xn=True)
     ref = np.asarray(_res_pallas(6, *map(jnp.asarray, args), interpret=True))
-    out = tek.residual_action(6, *_t(args))
+    out = tek.residual_action(6, *_one_slot(args))[:, 0]
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-6, rtol=0)
-    l1 = tek.residual_l1(6, *_t(args)).numpy()
+    l1 = tek.residual_l1(6, *_one_slot(args))[:, 0].numpy()
     np.testing.assert_allclose(l1, np.abs(ref).sum(axis=(-2, -1)), rtol=2e-6, atol=2e-6)
 
 
@@ -104,8 +119,9 @@ def test_state_constrained_shape_f32_matches_pallas_interpret(B):
     assert out.shape == (B, 50, 2, 3)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6, rtol=0)
     ref_r = np.asarray(_res_pallas(12, *jargs, interpret=True))
-    np.testing.assert_allclose(tek.residual_action(12, *_t(args)).numpy(), ref_r, atol=2e-6, rtol=0)
-    np.testing.assert_allclose(tek.residual_l1(12, *_t(args)).numpy(),
+    np.testing.assert_allclose(tek.residual_action(12, *_one_slot(args))[:, 0].numpy(), ref_r,
+                               atol=2e-6, rtol=0)
+    np.testing.assert_allclose(tek.residual_l1(12, *_one_slot(args))[:, 0].numpy(),
                                np.abs(ref_r).sum(axis=(-2, -1)), rtol=2e-6, atol=2e-6)
 
 
@@ -116,3 +132,131 @@ def test_kernel_wrapper_rejects_uninstantiated_shapes_only_on_cuda():
     args = _inputs(4, 2, 3, 5, 2, np.float32)
     assert tek.window_jac(4, True, *_t(args)).shape == (2, 3, 5, 8)
     assert tek.SUPPORTED_SHAPES == {(4, 2), (2, 1)}
+
+
+# the two shapes of the paths: path 1's 4-D state, 2 drives and a free Δt in
+# an 11-wide knot (x, u, du, ddu, dt), order 6; path 2's 2-D state, 1 drive,
+# a fixed Δt of 0.15, order 12
+GRID_SHAPES = {
+    "x4u2_free_dt": dict(xd=4, nd=2, order=6, names=("x", "u", "du", "ddu", "dt"),
+                         dims=(4, 2, 2, 2, 1), timestep="dt"),
+    "x2u1_fixed_dt": dict(xd=2, nd=1, order=12, names=("x", "u"), dims=(2, 1),
+                          timestep=0.15),
+}
+
+
+def _grid(shape, P, T, N, seed):
+    """A knot matrix (P, T, N, d) near a rollout of each problem's dynamics
+    (residuals of 1e-3, as on a line search near feasibility), its layout
+    and the per-problem generators (float64 numpy). The generators are
+    skew-symmetric, as the benchmarks' are: the state keeps unit norm."""
+    c = GRID_SHAPES[shape]
+    xd, nd, order = c["xd"], c["nd"], c["order"]
+    rng = np.random.default_rng(seed)
+    lay = Layout(names=c["names"], dims=c["dims"], N=N, timestep=c["timestep"])
+    Gd = 0.5 * rng.normal(size=(P, xd, xd))
+    Gv = 0.5 * rng.normal(size=(P, nd, xd, xd))
+    Gd, Gv = Gd - np.swapaxes(Gd, -1, -2), Gv - np.swapaxes(Gv, -1, -2)
+    Z = rng.normal(size=(P, T, N, lay.dim))
+    cs_x, cs_u = lay.comp_slice("x"), lay.comp_slice("u")
+    Z[..., cs_u] *= 0.3
+    if lay.has_free_time:
+        Z[..., lay.offsets["dt"]] = 0.1 + 0.05 * rng.random((P, T, N))
+    x = Z[:, :, 0, cs_x] / np.linalg.norm(Z[:, :, 0, cs_x], axis=-1, keepdims=True)
+    for k in range(N - 1):
+        Z[:, :, k, cs_x] = x
+        h = Z[:, :, k, lay.offsets["dt"]] if lay.has_free_time else np.full((P, T), 0.15)
+        A = h[..., None, None] * (Gd[:, None] + np.einsum("ptm,pmij->ptij", Z[:, :, k, cs_u], Gv))
+        y = x
+        for j in range(order, 0, -1):
+            y = x + np.einsum("ptij,ptj->pti", A, y) / j
+        x = y + 1e-3 * rng.normal(size=y.shape)
+    Z[:, :, N - 1, cs_x] = x
+    return Z, lay, Gd, Gv
+
+
+def _views(Z, lay, Gd, Gv, dtype, order=12):
+    integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=Gd.shape[0], device="cpu",
+                                      dtype=dtype, taylor_order=order)
+    Zt = torch.as_tensor(Z, dtype=dtype)
+    return integ, Zt, integ._trial_views(lay, Zt)
+
+
+@pytest.mark.parametrize("T", [1, 9])
+@pytest.mark.parametrize("shape", list(GRID_SHAPES))
+def test_trial_grid_views_f64_matches_xla(shape, T):
+    """Both forms on the (P, T, K) views against ``_res_xla`` per
+    (problem, slot), f64, 1e-12."""
+    order = GRID_SHAPES[shape]["order"]
+    Z, lay, Gd, Gv = _grid(shape, 3, T, 51, seed=10 + T)
+    _, _, v = _views(Z, lay, Gd, Gv, torch.float64)
+    args = [np.asarray(a) for a in v]
+    ref = jax.vmap(lambda gd, gv, u, dt, x, xn: jax.vmap(
+        lambda *a: _res_xla(order, gd, gv, *a))(u, dt, x, xn))(*map(jnp.asarray, args))
+    out = tek.residual_action(order, *v)
+    assert out.shape == (3, T, 50, GRID_SHAPES[shape]["xd"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-12, rtol=0)
+    l1 = tek.residual_l1(order, *v)
+    assert l1.shape == (3, T)
+    np.testing.assert_allclose(l1.numpy(), np.abs(np.asarray(ref)).sum((-2, -1)),
+                               atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 9])
+@pytest.mark.parametrize("shape", list(GRID_SHAPES))
+def test_trial_grid_views_f32_matches_pallas_and_jax_l1(shape, T):
+    """f32, 2e-6 absolute: the vector form against ``_res_pallas`` in
+    interpret mode on the flattened (problem × slot) lanes, and the L1 form
+    against the JAX package's ``make_residual_l1`` under its production
+    nesting (problems × trials, the Pallas chain in interpret mode)."""
+    order = GRID_SHAPES[shape]["order"]
+    P = 3
+    Z, lay, Gd, Gv = _grid(shape, P, T, 51, seed=20 + T)
+    integ, Zt, v = _views(Z, lay, Gd, Gv, torch.float32, order)
+    gd, gv, u, dt, x, xn = (np.asarray(a) for a in v)
+    flat = [np.repeat(gd, T, 0), np.repeat(gv, T, 0)] + [
+        np.ascontiguousarray(a).reshape((P * T,) + a.shape[2:]) for a in (u, dt, x, xn)]
+    ref = np.asarray(_res_pallas(order, *map(jnp.asarray, flat), interpret=True))
+    out = tek.residual_action(order, *v)
+    np.testing.assert_allclose(out.reshape(ref.shape).numpy(), ref, atol=2e-6, rtol=0)
+    fn = make_residual_l1(order, "interpret")
+    ref_l1 = jax.vmap(lambda g0, g1, uu, tt, xx, nn: jax.vmap(
+        lambda *a: fn(g0, g1, *a))(uu, tt, xx, nn))(*map(jnp.asarray, (gd, gv, u, dt, x, xn)))
+    l1 = tek.residual_l1(order, *v)
+    np.testing.assert_allclose(l1.numpy(), np.asarray(ref_l1), atol=2e-6, rtol=0)
+    # the integrator's entries reshape to the knot matrix's leading axes
+    zt = Zt if T > 1 else Zt[:, 0]
+    torch.testing.assert_close(integ.residuals_l1_stacked(lay, zt), l1.reshape(zt.shape[:-2]))
+    torch.testing.assert_close(integ.residuals_stacked(lay, zt),
+                               out.reshape(zt.shape[:-2] + (50, -1)))
+
+
+@pytest.mark.parametrize("shape", list(GRID_SHAPES))
+def test_trial_views_share_the_knot_matrix(shape):
+    """The residual kernel's arguments are views of the knot matrix (no
+    copy); a fixed Δt is one scalar expanded with stride 0."""
+    Z, lay, Gd, Gv = _grid(shape, 2, 9, 7, seed=3)
+    integ, Zt, (gd, gv, u, dt, x, xn) = _views(Z, lay, Gd, Gv, torch.float32)
+    base = Zt.untyped_storage().data_ptr()
+    for t in (u, x, xn) + ((dt,) if lay.has_free_time else ()):
+        assert t.untyped_storage().data_ptr() == base
+        assert t.shape[:3] == (2, 9, 6)
+    assert gd is integ.G_drift and gv is integ.G_drives
+    assert x.stride(-1) == u.stride(-1) == xn.stride(-1) == 1
+    if not lay.has_free_time:
+        assert dt.stride() == (0, 0, 0) and float(dt[1, 8, 5]) == pytest.approx(0.15)
+
+
+def test_residual_instantiations_match_the_kernel_source():
+    """The (x_dim, n_drives) pairs that ``dto_residual`` dispatches, each to
+    both forms of ``residual_grid_kernel``, are ``SUPPORTED_SHAPES``; the
+    L1 form is one kernel (no second pass)."""
+    src = (Path(tek.__file__).parent.parent / "csrc" / "expv_kernel.cu").read_text()
+    entry = src[src.index('extern "C" int dto_residual('):]
+    entry = entry[: entry.index("\n}\n")]
+    pairs = re.findall(r"if \(xd == (\d+) && nd == (\d+)\)\s*return l1 \? "
+                       r"launch_res<(\d+), (\d+), true>.*?\s*: launch_res<(\d+), (\d+), false>",
+                       entry)
+    assert all(p[:2] == p[2:4] == p[4:] for p in pairs)
+    assert {tuple(map(int, p[:2])) for p in pairs} == tek.SUPPORTED_SHAPES
+    assert "lane_sum" not in src and src.count("__global__") == 2

@@ -174,19 +174,46 @@ def test_path2_shape_n51_f32_matches_pallas_interpret():
 
 def test_instantiated_shapes_match_the_kernel_source():
     """``GROUPED_SHAPES`` are exactly the shapes ``dto_factor_solve_grouped``
-    dispatches to ``factor_solve_grouped`` (each condition naming the
-    template arguments it launches), and ``RESOLVE_EXACT_SHAPES`` those of
-    ``resolve_fixed``."""
+    dispatches to ``factor_solve_grouped``, and ``RESOLVE_GROUPED_SHAPES``
+    those ``dto_resolve_grouped`` dispatches to ``resolve_grouped`` (each
+    condition naming the template arguments it launches)."""
     src = (Path(trk.__file__).parent.parent / "csrc" / "riccati_kernel.cu").read_text()
-    entry = src[src.index('extern "C" int dto_factor_solve_grouped'):]
-    entry = entry[: entry.index("\n}\n")]
-    pairs = re.findall(r"if \(ns == (\d+) && nv == (\d+) && R == (\d+)\)\s*"
-                       r"factor_solve_grouped<(\d+), (\d+), (\d+)>", entry)
-    assert all(p[:3] == p[3:] for p in pairs)
-    assert {tuple(map(int, p[:3])) for p in pairs} == set(trk.GROUPED_SHAPES)
-    assert len(re.findall(r"factor_solve_grouped<", entry)) == len(trk.GROUPED_SHAPES)
-    fixed = re.findall(r"resolve_fixed<(\d+), (\d+), (\d+)>", src)
-    assert {tuple(map(int, f)) for f in fixed} == set(trk.RESOLVE_EXACT_SHAPES)
+    for entry_name, kernel, shapes in (
+        ("dto_factor_solve_grouped", "factor_solve_grouped", trk.GROUPED_SHAPES),
+        ("dto_resolve_grouped", "resolve_grouped", trk.RESOLVE_GROUPED_SHAPES),
+    ):
+        entry = src[src.index(f'extern "C" int {entry_name}('):]
+        entry = entry[: entry.index("\n}\n")]
+        pairs = re.findall(r"if \(ns == (\d+) && nv == (\d+) && R == (\d+)\)\s*"
+                           + kernel + r"<(\d+), (\d+), (\d+)>", entry)
+        assert all(p[:3] == p[3:] for p in pairs)
+        assert {tuple(map(int, p[:3])) for p in pairs} == set(shapes)
+        assert len(re.findall(kernel + "<", entry)) == len(shapes)
+    assert "resolve_fixed" not in src
+
+
+@pytest.mark.parametrize("ns,nv,s0", [(8, 3, "free"), (2, 1, "pinned")])
+def test_resolve_path_shapes_n51_f32_matches_pallas_interpret(ns, nv, s0):
+    """K2 at both paths' shapes, (n_s, n_v, R') = (8, 3, 2) and (2, 1, 2),
+    N=51: factors from the Pallas factor kernel with lane 2 indefinite, then
+    two new right-hand sides (the fused SOC + restoration resolve) against
+    ``_resolve_pallas`` in interpret mode; 5e-6 relative on the certified
+    lanes."""
+    N = 51
+    s0m = _s0m(ns) if s0 == "free" else np.zeros(ns)
+    args = [a.astype(np.float32) for a in _stage_data(9, B=5, N=N, ns=ns, nv=nv, R=3)]
+    args[2][2, 17] = -1e6 * np.eye(nv)
+    fac = rk._factor_solve_pallas(s0m, *map(jnp.asarray, args), interpret=True)
+    ok = np.asarray(fac[5])
+    assert ok.tolist() == [True, True, False, True, True]
+    fac = [np.asarray(t) for t in fac[:5]]
+    rhs = [a.astype(np.float32) for a in _stage_data(10, B=5, N=N, ns=ns, nv=nv, R=2)[5:]]
+    ref = rk._resolve_pallas(s0m, *map(jnp.asarray, fac + args[3:5] + rhs), interpret=True)
+    out = trk.resolve(s0m, *(torch.as_tensor(a) for a in fac + args[3:5] + rhs))
+    assert (ns, nv, 2) in trk.RESOLVE_GROUPED_SHAPES
+    for name, x, y in zip(["dzs", "dzv", "lam"], ref, out):
+        assert y.shape == np.asarray(x).shape, name
+        assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
 
 
 def test_grouped_inputs_are_passed_without_a_copy():

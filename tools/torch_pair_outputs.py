@@ -1,0 +1,167 @@
+"""Fingerprint the PyTorch port's K1, K2 and K4 outputs on fixed inputs, on
+one GPU, to show whether two versions of the port compute bitwise the same.
+
+    python3 tools/torch_pair_outputs.py OUT.json [--root DIR]
+    python3 tools/torch_pair_outputs.py --compare A.json B.json
+
+The first form imports ``directtrajopt_tpu_torch`` from DIR (default: this
+checkout), builds its kernels and writes a SHA-256 digest of the inputs and
+of the outputs of each row:
+
+- K4, both forms, on the trial grids ``chip_smoke.py`` checks (path 1: 256
+  problems × 9 slots; path 2: 8192 × 12), through
+  ``BilinearIntegrator.residuals_stacked`` / ``residuals_l1_stacked``, the
+  entries every version has;
+- K1 at (8,3,3) on random stage data for 256 lanes and for 8192 (lane 77
+  indefinite), and at (2,1,3) on the first call captured from path 2's own
+  solve (one certified lane made indefinite);
+- K2 at (8,3,2) for 256 lanes against K1's factors, and at (2,1,2) on the
+  first call captured from path 2's solve.
+
+The second form prints, row by row, whether two such files agree on the
+inputs and on the outputs, bit for bit. Run both forms in one call on the
+card, the parent's tree unpacked into a directory ``.gitignore`` lists.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+BIG = 8192  # lanes of the second K1 row (path 1's batch)
+DEVICE = "cuda:0"
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:20]
+
+
+def chip_smoke():
+    """This checkout's ``chip_smoke.py``, for its fixtures (stage data,
+    call capture), whichever package is fingerprinted."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_fixtures", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fingerprint(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.ops import riccati_kernel as rk
+    from directtrajopt_tpu_torch.solvers.options import IPMOptions
+    from directtrajopt_tpu_torch.solvers.solve import cast_problem, solve
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script fingerprints the GPU kernels")
+    cs = chip_smoke()
+    dev = torch.device(DEVICE)
+    rows = {}
+
+    def row(name, ins, fn):
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        rows[name] = dict(inputs=digest(ins), outputs=digest(out))
+        print(f"{name}: inputs {rows[name]['inputs']} outputs {rows[name]['outputs']}",
+              flush=True)
+
+    def grid(prob, n_slots, rng):
+        Z = prob.trajectory.to_zvec()
+        dZ = torch.as_tensor(1e-3 * rng.standard_normal(Z.shape), dtype=torch.float32, device=dev)
+        al = torch.as_tensor(0.5 ** np.arange(n_slots), dtype=torch.float32, device=dev)
+        lay = prob.trajectory.layout
+        return (Z[:, None] + al[None, :, None] * dZ[:, None]).reshape(
+            Z.shape[0], n_slots, lay.N, lay.dim)
+
+    # K4 on both paths' trial grids, as chip_smoke.py builds them
+    cfg = benchmarks.headline_config()
+    N, order = cfg["N"], cfg["taylor_order"]
+    prob256 = cast_problem(benchmarks.make_batched_bilinear_problems(
+        256, N=N, feasible_start=True, taylor_order=order, device=dev,
+        dtype=torch.float64), torch.float32)
+    rng = np.random.default_rng(0)
+    Zt = grid(prob256, cfg["phase1_kw"]["max_ls"] + 2, rng)
+    integ, lay = prob256.integrators[0], prob256.trajectory.layout
+    gens = [integ.G_drift, integ.G_drives]
+    row("K4 vector, path 1", gens + [Zt], lambda: integ.residuals_stacked(lay, Zt))
+    row("K4 L1, path 1", gens + [Zt], lambda: integ.residuals_l1_stacked(lay, Zt))
+    sc_cfg = benchmarks.state_constrained_config()
+    prob_sc = cast_problem(benchmarks.make_batched_state_constrained_problems(
+        sc_cfg["batch"], N=sc_cfg["N"], device=dev), torch.float32)
+    Zt2 = grid(prob_sc, IPMOptions().max_ls + 2, rng)
+    integ2, lay2 = prob_sc.integrators[0], prob_sc.trajectory.layout
+    gens2 = [integ2.G_drift, integ2.G_drives]
+    row("K4 vector, path 2", gens2 + [Zt2], lambda: integ2.residuals_stacked(lay2, Zt2))
+    row("K4 L1, path 2", gens2 + [Zt2], lambda: integ2.residuals_l1_stacked(lay2, Zt2))
+
+    # K1 and K2 on random stage data
+    s0 = np.arange(8) >= 2
+    st = cs.stage_data(0, 256, N, dev, 8, 3, 3)
+    row("K1 (8,3,3) B=256", st, lambda: rk.factor_solve(s0, *st))
+    st = cs.stage_data(0, BIG, N, dev, 8, 3, 3)
+    st[2][77, 20] = -1e6 * torch.eye(3, device=dev)
+    row(f"K1 (8,3,3) B={BIG}, lane 77 indefinite", st, lambda: rk.factor_solve(s0, *st))
+    st = cs.stage_data(1, 256, N, dev, 8, 3, 2)
+    fac = rk.factor_solve_plain(s0, *st)
+    ins = list(fac[:5]) + st[3:]
+    row("K2 (8,3,2) B=256", ins, lambda: rk.resolve(s0, *ins))
+
+    # K1 and K2 on the first calls of path 2's own solve
+    kw2 = {k: v for k, v in sc_cfg["solve_kw"].items() if k not in ("phases", "chunk")}
+    with cs.Capture(rk, "factor_solve") as cap_f, cs.Capture(rk, "resolve") as cap_r:
+        solve(prob_sc, max_iter=3, **kw2)
+    f_args, r_args = list(cap_f.calls[0]), cap_r.calls[0]
+    bad = int(torch.nonzero(rk.factor_solve_plain(*f_args)[5])[0, 0])
+    f_args[3] = f_args[3].clone()
+    f_args[3][bad, 20] = -1e6
+    row("K1 (2,1,3) path-2 call, one lane indefinite", f_args[1:],
+        lambda: rk.factor_solve(*f_args))
+    row("K2 (2,1,2) path-2 call", r_args[1:], lambda: rk.resolve(*r_args))
+    return dict(root=str(root), device=torch.cuda.get_device_name(0), rows=rows)
+
+
+def compare(a: dict, b: dict) -> bool:
+    same_all = True
+    print(f"A: {a['root']} ({a['device']})\nB: {b['root']} ({b['device']})")
+    for name, ra in a["rows"].items():
+        rb = b["rows"].get(name)
+        if rb is None:
+            print(f"{name}: missing in B")
+            same_all = False
+            continue
+        same_in, same_out = ra["inputs"] == rb["inputs"], ra["outputs"] == rb["outputs"]
+        same_all &= same_in and same_out
+        print(f"{name}: inputs {'equal' if same_in else 'DIFFER'}, outputs "
+              f"{'bitwise equal' if same_out else 'DIFFER'}")
+    return same_all
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("files", nargs="+")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--compare", action="store_true")
+    args = ap.parse_args()
+    if args.compare:
+        a, b = (json.loads(Path(f).read_text()) for f in args.files)
+        compare(a, b)
+        return
+    out = fingerprint(Path(args.root).resolve())
+    Path(args.files[0]).write_text(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()
