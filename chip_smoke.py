@@ -75,6 +75,12 @@ PATH2 = [("factor_solve_sc", "factor_solve"), ("resolve_sc", "resolve"),
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# thread instructions a second: 132 SMs × 128 lanes at the 1.98 GHz boost
+# clock that the float32 peak assumes; and the instructions of one IEEE
+# float32 division (a reciprocal, its refinement and the rounding fix-up).
+# Both are estimates, beside the bound, for K3's divisions.
+INSTR_PER_S = 132 * 128 * 1.98e9
+DIV_INSTRUCTIONS = 12
 
 
 def fail(msg: str) -> None:
@@ -207,6 +213,12 @@ def horner_ops(L, K, xd, nd, order, jac: bool, free_time: bool = False) -> int:
     return L * K * (2 * nd * xd * xd + xd * xd + order * step + xd)
 
 
+def jac_divisions(xd, nd, order, free_time: bool) -> int:
+    """Correctly rounded divisions per window of K3: per Taylor step, one
+    for each entry of E, of each tangent and of y."""
+    return order * xd * (xd + nd + (1 if free_time else 0) + 1)
+
+
 def stage_data(seed, B, N, dev, ns=8, nv=3, R=3):
     """Well-conditioned random Riccati stage stacks (float32 on ``dev``): the
     generator of the JAX package's Pallas-kernel test, at the slice's sizes."""
@@ -326,11 +338,12 @@ def main() -> None:
     ptxas = ptxas_summary(info.get("log", ""))
     for name, regs, frame, smem in ptxas:
         print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
-    # the grouped K1 and K2 and the K4 kernel keep every array in registers
-    # or shared memory
+    # the grouped K1 and K2 and the K3 and K4 kernels keep every array in
+    # registers or shared memory
     for kname, count in (("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES)),
                          ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES)),
-                         ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES))):
+                         ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES)),
+                         ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES))):
         found = [(name, frame) for name, _, frame, _ in ptxas if name.startswith(kname + "<")]
         if info.get("log") and (len(found) != count or any(
                 re.search(r"[1-9]\d* bytes", frame) for _, frame in found)):
@@ -421,7 +434,8 @@ def main() -> None:
                    f"(n_s,n_v,R)={shape}" + (f", lane {bad} indefinite" if bad is not None else ""),
               lambda: riccati_kernel.factor_solve(s0, *st),
               lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
-              riccati_ops(lanes, N, *shape, factor=True), ok_equal)
+              riccati_ops(lanes, N, *shape, factor=True), ok_equal,
+              prof=f"factor_solve_{instantiation('factor_solve', shape)}")
     for key, shape in (
         ("resolve", (8, 3, 2)),
         ("resolve_generic", (8, 3, 1)),
@@ -495,15 +509,27 @@ def main() -> None:
     prob_big = cast_problem(benchmarks.make_batched_bilinear_problems(
         B, N=N, feasible_start=True, taylor_order=order, device=dev,
         dtype=torch.float64), torch.float32)
+
+    def check_k3(key, what, prob):
+        """K3 on the integrator's own arguments: views of the knot matrix,
+        −J written into the knot's width d."""
+        integ, lay = prob.integrators[0], prob.trajectory.layout
+        ja = integ._window_jac_args(lay, prob.trajectory.knot_matrix())
+        P3, T3, K3, xd3 = ja[4].shape
+        nd3, o3 = ja[1].shape[1], integ.taylor_order
+        free = ja[5][2] is not None
+        n_div = jac_divisions(xd3, nd3, o3, free)
+        est = P3 * T3 * K3 * n_div * DIV_INSTRUCTIONS / INSTR_PER_S * 1e3
+        check(key, f"K3 window_jac_zk {what} B={P3} x {K3} windows, d={ja[6]}; {n_div} "
+                   f"divisions a window, ≈ {n_div * DIV_INSTRUCTIONS} instructions (estimate: "
+                   f"{est:.4f} ms at the card's instruction rate)",
+              lambda: expv_kernel.window_jac_zk(o3, *ja),
+              lambda: expv_kernel.window_jac_zk_plain(o3, *ja), 2e-6, False, ja[:5],
+              horner_ops(P3 * T3, K3, xd3, nd3, o3, True, free), prof="window_jac_kernel")
+
     # K3 at path 1's shape (a compact chunk of 256 lanes) and at B lanes
-    for key, prob in (("window_jac", prob256), ("window_jac_big", prob_big)):
-        ja = prob.integrators[0]._lane_args(prob.trajectory.layout,
-                                            prob.trajectory.knot_matrix())[:5]
-        Lj, Kj, xdj = ja[4].shape
-        check(key, f"K3 window_jac B={Lj} x {Kj} windows",
-              lambda: expv_kernel.window_jac(order, True, *ja),
-              lambda: expv_kernel.window_jac_plain(order, True, *ja), 2e-6, False, ja,
-              horner_ops(Lj, Kj, xdj, ja[1].shape[1], order, True, True))
+    check_k3("window_jac", "<4,2> free dt", prob256)
+    check_k3("window_jac_big", "<4,2> free dt", prob_big)
     layout = prob_big.trajectory.layout
 
     # K4 on the seek's trial grid: lanes = 256 problems x (max_ls + 2) slots
@@ -535,12 +561,7 @@ def main() -> None:
     integ_sc = prob_sc.integrators[0]
     lay_sc = prob_sc.trajectory.layout
     order_sc = integ_sc.taylor_order
-    a_sc = integ_sc._lane_args(lay_sc, prob_sc.trajectory.knot_matrix())
-    check("window_jac_sc", f"K3 window_jac <2,1> fixed dt B={B2} x {a_sc[4].shape[1]} windows",
-          lambda: expv_kernel.window_jac(order_sc, False, *a_sc[:5]),
-          lambda: expv_kernel.window_jac_plain(order_sc, False, *a_sc[:5]), 2e-6, False,
-          a_sc[:5], horner_ops(B2, a_sc[4].shape[1], a_sc[4].shape[2], a_sc[1].shape[1],
-                               order_sc, True))
+    check_k3("window_jac_sc", "<2,1> fixed dt", prob_sc)
     # K4 on path 2's own trial grid: one chunk of B2 problems x (max_ls + 2) slots
     n_slots2 = IPMOptions().max_ls + 2
     Z2 = prob_sc.trajectory.to_zvec()
@@ -602,7 +623,8 @@ def main() -> None:
                              f"factors compared on {int(well_f.sum())} lanes",
           lambda: riccati_kernel.factor_solve(*f_args),
           lambda: riccati_kernel.factor_solve_plain(*f_args), 5e-6, True, f_args[1:],
-          riccati_ops(B2, N2, *shape_f, factor=True), ok_equal_sc, lanes=well_f)
+          riccati_ops(B2, N2, *shape_f, factor=True), ok_equal_sc, lanes=well_f,
+          prof=f"factor_solve_{instantiation('factor_solve', shape_f)}")
     r_args = cap_r2.calls[0]
     shape_r = (r_args[1].shape[-1], r_args[2].shape[-1], r_args[8].shape[1])
     well_r = well_conditioned(riccati_kernel.resolve_plain, r_args, tol=1e-6)

@@ -14,11 +14,28 @@
 // drives, the bilinear benchmark, and x_dim=2 with 1 drive, the
 // state-constrained family.
 //
-// window_jac_kernel (K3): one thread per (lane, window) on contiguous
-// (lanes, K, ·) inputs. Each thread reads ~(x_dim² (1 + n_drives) + x_dim +
-// n_drives + 1) floats, most of them the lane's generators (served from
-// L1/L2), and writes x_dim·(x_dim + n_drives + 1) floats: bound by the
-// output write at large batch and by launch latency at a compact chunk.
+// window_jac_kernel (K3): the knot matrix read in place, as K4 reads it (the
+// same (P, T, K) views, without x_next), and −J written straight into the
+// z_k-wide Jacobian (P, T, K, x_dim, d): J's columns at the state's, the
+// drives' and Δt's offsets in the knot, +0 in every other column. E and the
+// primal chain with its tangents are independent chains, so a window may
+// take two threads, one for E and one for y and the tangents. It does below
+// 65,536 windows: there one thread a window leaves most SMs short of warps
+// (path 1's chunk of 12,800 windows is 400 warps, against about 14 resident
+// warps an SM at the kernel's register count, 1,848 on the card), and a
+// second thread halves each window's chain. Above, the card is full and a
+// second thread only repeats G and A, so one thread runs both. Each output
+// is the same expression as before, in the same order, so the result is
+// bitwise the earlier kernel's. A block holds 64 threads; its windows' rows
+// are assembled in shared memory and stored as one contiguous span.
+// Splitting finer (a thread per column of E, or a warp per tangent on the
+// chain's y kept in shared memory) measured slower at 8192 lanes: more
+// threads a window hold more registers a window, so fewer windows fit on an
+// SM. Bound on the card: at path 1's chunk the launch; at 8192 lanes the
+// dependent chains (x_dim·(x_dim + n_drives + [1] + 1) correctly rounded
+// divisions a Taylor step, about a dozen instructions each) at the occupancy
+// the registers allow, far above the output write (x_dim·d floats a
+// window) that the byte bound counts.
 //
 // residual_grid_kernel (K4): the line search's trial grid read in place —
 // u, Δt, x and x_next are strided (problems P, trial slots T, windows K)
@@ -49,116 +66,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-template <int XD, int ND>
-__global__ void window_jac_kernel(int L, int K, int order, int free_time,
-                                  const float* __restrict__ Gd,
-                                  const float* __restrict__ Gv,
-                                  const float* __restrict__ u,
-                                  const float* __restrict__ dt,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ out) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)L * K) return;
-  const long l = t / K;
-  const int n_th = XD + ND + (free_time ? 1 : 0);
-  const float* gd = Gd + l * XD * XD;
-  const float* gv = Gv + l * ND * XD * XD;
-  const float h = dt[t];
-  float um[ND];
-#pragma unroll
-  for (int m = 0; m < ND; ++m) um[m] = u[t * ND + m];
-  float xs[XD], y[XD], ydt[XD];
-  float G[XD][XD], A[XD][XD], E[XD][XD], ydu[ND][XD];
-#pragma unroll
-  for (int i = 0; i < XD; ++i) {
-    xs[i] = x[t * XD + i];
-    y[i] = xs[i];
-    ydt[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < XD; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int m = 0; m < ND; ++m) s += um[m] * gv[(m * XD + i) * XD + j];
-      G[i][j] = gd[i * XD + j] + s;
-      A[i][j] = h * G[i][j];
-      E[i][j] = (i == j) ? 1.0f : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < ND; ++m)
-#pragma unroll
-    for (int i = 0; i < XD; ++i) ydu[m][i] = 0.0f;
-
-  for (int k = order; k >= 1; --k) {
-    const float fk = (float)k;
-    // tangents first: they reference the previous y
-#pragma unroll
-    for (int m = 0; m < ND; ++m) {
-      float nxt[XD];
-#pragma unroll
-      for (int i = 0; i < XD; ++i) {
-        float gy = 0.0f, ay = 0.0f;
-#pragma unroll
-        for (int j = 0; j < XD; ++j) {
-          gy += gv[(m * XD + i) * XD + j] * y[j];
-          ay += A[i][j] * ydu[m][j];
-        }
-        nxt[i] = (h * gy + ay) / fk;
-      }
-#pragma unroll
-      for (int i = 0; i < XD; ++i) ydu[m][i] = nxt[i];
-    }
-    if (free_time) {
-      float nxt[XD];
-#pragma unroll
-      for (int i = 0; i < XD; ++i) {
-        float gy = 0.0f, ay = 0.0f;
-#pragma unroll
-        for (int j = 0; j < XD; ++j) {
-          gy += G[i][j] * y[j];
-          ay += A[i][j] * ydt[j];
-        }
-        nxt[i] = (gy + ay) / fk;
-      }
-#pragma unroll
-      for (int i = 0; i < XD; ++i) ydt[i] = nxt[i];
-    }
-    float En[XD][XD];
-#pragma unroll
-    for (int i = 0; i < XD; ++i)
-#pragma unroll
-      for (int c = 0; c < XD; ++c) {
-        float s = 0.0f;
-#pragma unroll
-        for (int j = 0; j < XD; ++j) s += A[i][j] * E[j][c];
-        En[i][c] = ((i == c) ? 1.0f : 0.0f) + s / fk;
-      }
-    float yn[XD];
-#pragma unroll
-    for (int i = 0; i < XD; ++i) {
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < XD; ++j) s += A[i][j] * y[j];
-      yn[i] = xs[i] + s / fk;
-    }
-#pragma unroll
-    for (int i = 0; i < XD; ++i) {
-      y[i] = yn[i];
-#pragma unroll
-      for (int c = 0; c < XD; ++c) E[i][c] = En[i][c];
-    }
-  }
-  float* o = out + t * XD * n_th;
-#pragma unroll
-  for (int i = 0; i < XD; ++i) {
-#pragma unroll
-    for (int c = 0; c < XD; ++c) o[i * n_th + c] = E[i][c];
-#pragma unroll
-    for (int m = 0; m < ND; ++m) o[i * n_th + XD + m] = ydu[m][i];
-    if (free_time) o[i * n_th + XD + ND] = ydt[i];
-  }
-}
 
 // A (P, T, K, ·) view of the knot matrix: its element strides between
 // problems, trial slots and windows, then the last axis's (1, unused). The
@@ -287,16 +194,199 @@ __global__ void __launch_bounds__(kResBlock) residual_grid_kernel(
   }
 }
 
-constexpr int kThreads = 256;
+// Where K3 puts −J's columns in a row of its d-wide output: the state's
+// x_dim columns from x, the drives' from u, ∂/∂Δt at t (−1: a fixed Δt, no
+// such column). Every other column holds +0.
+struct JacCols {
+  int d, x, u, t;
+};
 
-inline unsigned blocks_for(long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+// K3's blocks: kJacThreads threads; two threads a window below kJacSplitBelow
+// windows, one above (see the note at the top).
+constexpr int kJacThreads = 64;
+constexpr unsigned kJacSplitBelow = 65536;
+constexpr size_t kJacSmem = 48 * 1024;       // the output tile (no opt-in)
+
+// G = Gd + Σ_m u_m·Gv_m and A = Δt·G of window k of instance (q, t); returns Δt.
+template <int XD, int ND>
+__device__ __forceinline__ float window_generator(unsigned q, unsigned t, unsigned k,
+                                                  const Gens& g, const View& u, const View& dt,
+                                                  float (&G)[XD][XD], float (&A)[XD][XD]) {
+  const float* gd = g.gd + q * g.d[0];
+  const float* gv = g.gv + q * g.v[0];
+  const float h = dt.p[q * dt.s[0] + t * dt.s[1] + k * dt.s[2]];
+  const float* up = u.p + (q * u.s[0] + t * u.s[1] + k * u.s[2]);
+  float um[ND];
+#pragma unroll
+  for (int m = 0; m < ND; ++m) um[m] = up[m];
+#pragma unroll
+  for (int i = 0; i < XD; ++i)
+#pragma unroll
+    for (int j = 0; j < XD; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < ND; ++m)
+        s += um[m] * __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]);
+      G[i][j] = __ldg(gd + i * g.d[1] + j * g.d[2]) + s;
+      A[i][j] = h * G[i][j];
+    }
+  return h;
+}
+
+// E, the Taylor polynomial of A: E ← I + A·E/k, each column a chain of its
+// own; −E goes to the XD columns of o from its first (row stride d).
+template <int XD>
+__device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float* o, int d) {
+  float E[XD][XD];
+#pragma unroll
+  for (int i = 0; i < XD; ++i)
+#pragma unroll
+    for (int c = 0; c < XD; ++c) E[i][c] = (i == c) ? 1.0f : 0.0f;
+  for (int k = order; k >= 1; --k) {
+    const float fk = (float)k;
+    float En[XD][XD];
+#pragma unroll
+    for (int i = 0; i < XD; ++i)
+#pragma unroll
+      for (int c = 0; c < XD; ++c) {
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < XD; ++j) s += A[i][j] * E[j][c];
+        En[i][c] = ((i == c) ? 1.0f : 0.0f) + s / fk;
+      }
+#pragma unroll
+    for (int i = 0; i < XD; ++i)
+#pragma unroll
+      for (int c = 0; c < XD; ++c) E[i][c] = En[i][c];
+  }
+#pragma unroll
+  for (int i = 0; i < XD; ++i)
+#pragma unroll
+    for (int c = 0; c < XD; ++c) o[i * d + c] = -E[i][c];
+}
+
+// The primal chain y ← x + A·y/k and its tangents ẏ_u = (Δt·Gv_m·y + A·ẏ_u)/k
+// and ẏ_t = (G·y + A·ẏ_t)/k (tangents first: they see the previous y, as
+// jax.jacfwd orders them); their negatives go to the drives' and Δt's
+// columns of o.
+template <int XD, int ND>
+__device__ __forceinline__ void jac_tangents(int order, float h, const float* gv, const Gens& g,
+                                             const float (&G)[XD][XD], const float (&A)[XD][XD],
+                                             const float* xp, float* o, const JacCols& c) {
+  const bool free_time = c.t >= 0;
+  float xs[XD], y[XD], ydt[XD], ydu[ND][XD];
+#pragma unroll
+  for (int i = 0; i < XD; ++i) {
+    xs[i] = xp[i];
+    y[i] = xs[i];
+    ydt[i] = 0.0f;
+  }
+#pragma unroll
+  for (int m = 0; m < ND; ++m)
+#pragma unroll
+    for (int i = 0; i < XD; ++i) ydu[m][i] = 0.0f;
+  for (int k = order; k >= 1; --k) {
+    const float fk = (float)k;
+#pragma unroll
+    for (int m = 0; m < ND; ++m) {
+      float nxt[XD];
+#pragma unroll
+      for (int i = 0; i < XD; ++i) {
+        float gy = 0.0f, ay = 0.0f;
+#pragma unroll
+        for (int j = 0; j < XD; ++j) {
+          gy += __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]) * y[j];
+          ay += A[i][j] * ydu[m][j];
+        }
+        nxt[i] = (h * gy + ay) / fk;
+      }
+#pragma unroll
+      for (int i = 0; i < XD; ++i) ydu[m][i] = nxt[i];
+    }
+    if (free_time) {
+      float nxt[XD];
+#pragma unroll
+      for (int i = 0; i < XD; ++i) {
+        float gy = 0.0f, ay = 0.0f;
+#pragma unroll
+        for (int j = 0; j < XD; ++j) {
+          gy += G[i][j] * y[j];
+          ay += A[i][j] * ydt[j];
+        }
+        nxt[i] = (gy + ay) / fk;
+      }
+#pragma unroll
+      for (int i = 0; i < XD; ++i) ydt[i] = nxt[i];
+    }
+    float yn[XD];
+#pragma unroll
+    for (int i = 0; i < XD; ++i) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < XD; ++j) s += A[i][j] * y[j];
+      yn[i] = xs[i] + s / fk;
+    }
+#pragma unroll
+    for (int i = 0; i < XD; ++i) y[i] = yn[i];
+  }
+#pragma unroll
+  for (int i = 0; i < XD; ++i) {
+#pragma unroll
+    for (int m = 0; m < ND; ++m) o[i * c.d + c.u + m] = -ydu[m][i];
+    if (free_time) o[i * c.d + c.t] = -ydt[i];
+  }
+}
+
+// K3: a block of kJacThreads threads, GS threads a window, over the n = P·T·K
+// windows flat (instance-major). With GS = 2, warps of the first half run E
+// and warps of the second half y and its tangents, for the same windows
+// (no divergence within a warp); with GS = 1 a thread runs both. Each
+// window's XD × d rows are assembled in shared memory (+0 where J has no
+// column), and the block stores its windows' rows, one contiguous span of
+// out (n, XD, d).
+template <int XD, int ND, int GS>
+__global__ void __launch_bounds__(kJacThreads) window_jac_kernel(
+    Divisor T, Divisor K, unsigned n, int order, Gens g, View u, View dt, View x, JacCols c,
+    float* __restrict__ out) {
+  constexpr unsigned W = kJacThreads / GS;  // windows per block
+  extern __shared__ float tile[];
+  const unsigned w0 = blockIdx.x * W;
+  const unsigned n_here = n - w0 < W ? n - w0 : W;
+  const unsigned span = XD * c.d;  // output floats per window
+  for (unsigned i = threadIdx.x; i < n_here * span; i += blockDim.x) tile[i] = 0.0f;
+  __syncthreads();
+  const unsigned role = threadIdx.x / W, lw = threadIdx.x % W;
+  if (lw < n_here) {
+    const unsigned w = w0 + lw, inst = K.div(w), q = T.div(inst);
+    const unsigned t = inst - q * T.d, k = w - inst * K.d;
+    float G[XD][XD], A[XD][XD];
+    const float h = window_generator<XD, ND>(q, t, k, g, u, dt, G, A);
+    float* o = tile + lw * span;
+    if (GS == 1 || role == 0) jac_e<XD>(order, A, o + c.x, c.d);
+    if (GS == 1 || role == 1)
+      jac_tangents<XD, ND>(order, h, g.gv + q * g.v[0], g, G, A,
+                           x.p + (q * x.s[0] + t * x.s[1] + k * x.s[2]), o, c);
+  }
+  __syncthreads();
+  float* dst = out + (size_t)w0 * span;
+  for (unsigned i = threadIdx.x; i < n_here * span; i += blockDim.x) dst[i] = tile[i];
+}
 
 template <int XD, int ND>
-int launch_jac(int L, int K, int order, int free_time, const float* Gd, const float* Gv,
-               const float* u, const float* dt, const float* x, float* out,
-               cudaStream_t s) {
-  window_jac_kernel<XD, ND><<<blocks_for((long)L * K), kThreads, 0, s>>>(
-      L, K, order, free_time, Gd, Gv, u, dt, x, out);
+int launch_jac(int P, int T, int K, int order, const Gens& g, const View& u, const View& dt,
+               const View& x, const JacCols& c, float* out, cudaStream_t s) {
+  const unsigned n = (unsigned)P * (unsigned)T * (unsigned)K;
+  if (n == 0) return 0;
+  const bool split = n < kJacSplitBelow;
+  const unsigned W = split ? kJacThreads / 2 : kJacThreads;
+  const size_t smem = sizeof(float) * W * XD * c.d;
+  if (smem > kJacSmem) return (int)cudaErrorInvalidValue;
+  if (split)
+    window_jac_kernel<XD, ND, 2><<<(n + W - 1) / W, kJacThreads, smem, s>>>(
+        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, out);
+  else
+    window_jac_kernel<XD, ND, 1><<<(n + W - 1) / W, kJacThreads, smem, s>>>(
+        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, out);
   return (int)cudaGetLastError();
 }
 
@@ -334,18 +424,46 @@ bool narrow(int n, const long long* size, const long long* st, int* out) {
   return true;
 }
 
+// Half-open column ranges [a, a + na) and [b, b + nb) share no column.
+bool apart(int a, int na, int b, int nb) { return a + na <= b || b + nb <= a; }
+
 }  // namespace
 
-extern "C" int dto_window_jac(int L, int K, int xd, int nd, int order, int free_time,
-                              const void* Gd, const void* Gv, const void* u,
-                              const void* dt, const void* x, void* out, void* stream) {
-  const float *gd = (const float*)Gd, *gv = (const float*)Gv, *uu = (const float*)u,
-              *h = (const float*)dt, *xx = (const float*)x;
+// K3 on P problems × T slots × K windows, the same views as dto_residual's
+// without x_next: Gd (P, xd, xd), Gv (P, nd, xd, xd), u (P, T, K, nd), Δt
+// (P, T, K), x (P, T, K, xd). `st` holds their 16 element strides (Gd 3, Gv
+// 4, u 3, Δt 3, x 3), then the column map of JacCols: d, the x, u and Δt
+// columns (Δt −1 for a fixed Δt). Writes −J as (P, T, K, xd, d),
+// contiguous. Returns cudaErrorInvalidValue, launching nothing, where P·T·K
+// or a view's element offset exceeds 2³¹ − 1, where J's columns fall outside
+// [0, d) or overlap, or where a block's output tile (up to kJacThreads
+// windows × xd × d floats) exceeds kJacSmem. Instantiated at (xd, nd) =
+// (4, 2) and (2, 1), as dto_residual.
+extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, const void* Gd,
+                              const void* Gv, const void* u, const void* dt, const void* x,
+                              const long long* st, void* out, void* stream) {
+  if (P < 1 || T < 1 || K < 0 || (long long)P * T * (K > 1 ? K : 1) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long* cm = st + 16;
+  if (cm[0] < 1 || cm[0] > INT_MAX) return (int)cudaErrorInvalidValue;
+  const JacCols c{(int)cm[0], (int)cm[1], (int)cm[2], (int)cm[3]};
+  const bool free_time = cm[3] >= 0;
+  if (cm[1] < 0 || cm[1] + xd > c.d || cm[2] < 0 || cm[2] + nd > c.d || cm[3] < -1 ||
+      cm[3] >= c.d || !apart(c.x, xd, c.u, nd) ||
+      (free_time && (!apart(c.x, xd, c.t, 1) || !apart(c.u, nd, c.t, 1))))
+    return (int)cudaErrorInvalidValue;
+  const long long gds[3] = {P, xd, xd}, gvs[4] = {P, nd, xd, xd}, one = 1;
+  const long long us[4] = {P, T, K, nd}, xs[4] = {P, T, K, xd};
+  const long long ust[4] = {st[7], st[8], st[9], one}, xst[4] = {st[13], st[14], st[15], one};
+  Gens g{(const float*)Gd, (const float*)Gv, {}, {}};
+  View vu{(const float*)u, {}}, vd{(const float*)dt, {}}, vx{(const float*)x, {}};
+  if (!narrow(3, gds, st, g.d) || !narrow(4, gvs, st + 3, g.v) || !narrow(4, us, ust, vu.s) ||
+      !narrow(3, us, st + 10, vd.s) || !narrow(4, xs, xst, vx.s))
+    return (int)cudaErrorInvalidValue;
+  float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (xd == 4 && nd == 2)
-    return launch_jac<4, 2>(L, K, order, free_time, gd, gv, uu, h, xx, (float*)out, s);
-  if (xd == 2 && nd == 1)
-    return launch_jac<2, 1>(L, K, order, free_time, gd, gv, uu, h, xx, (float*)out, s);
+  if (xd == 4 && nd == 2) return launch_jac<4, 2>(P, T, K, order, g, vu, vd, vx, c, o, s);
+  if (xd == 2 && nd == 1) return launch_jac<2, 1>(P, T, K, order, g, vu, vd, vx, c, o, s);
   return (int)cudaErrorInvalidValue;
 }
 

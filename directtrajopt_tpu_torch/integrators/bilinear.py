@@ -9,10 +9,10 @@ item 12).
 Residuals and window Jacobians route through ``ops/expv_kernel.py``. The
 dtype gate is the JAX package's: float32 residuals take the residual
 kernel, float64 residuals the generic differentiable chain; the window
-Jacobian takes the closed-form recurrences at both. The residual kernel
-reads the knot matrix in place (:meth:`BilinearIntegrator._trial_views`);
-the window Jacobian takes contiguous per-lane copies
-(:meth:`BilinearIntegrator._lane_args`).
+Jacobian takes the closed-form recurrences at both. Both kernels read the
+knot matrix in place (:meth:`BilinearIntegrator._trial_views`), and the
+window-Jacobian kernel writes the residual's Jacobian straight into the
+knot's width.
 """
 
 from __future__ import annotations
@@ -86,26 +86,9 @@ class BilinearIntegrator:
         G = Gd + torch.einsum("...m,...mij->...ij", u, Gv)
         return x_next - expv_taylor(dt[..., None, None] * G, x, order=self.taylor_order)
 
-    def _lane_args(self, layout: Layout, zmat: torch.Tensor):
-        """Flatten (B, *extra) into lanes for the kernels: returns
-        (Gd, Gv, u, dt, x, xn) contiguous with a leading lane axis."""
-        lead = zmat.shape[:-2]
-        Lanes = int(np.prod(lead))
-        N = zmat.shape[-2]
-        Gd, Gv = self._gens(len(lead) - 1)
-        Gd = Gd.expand(lead + Gd.shape[-2:]).reshape(Lanes, *Gd.shape[-2:]).contiguous()
-        Gv = Gv.expand(lead + Gv.shape[-3:]).reshape(Lanes, *Gv.shape[-3:]).contiguous()
-        zm = zmat.reshape(Lanes, N, zmat.shape[-1])
-        cs_x = layout.comp_slice(self.x_name)
-        cs_u = layout.comp_slice(self.u_name)
-        x = zm[:, :-1, cs_x].contiguous()
-        xn = zm[:, 1:, cs_x].contiguous()
-        u = zm[:, :-1, cs_u].contiguous()
-        dt = layout.knot_timestep(zm[:, :-1]).contiguous()
-        return Gd, Gv, u, dt, x, xn
-
     def _trial_views(self, layout: Layout, zmat: torch.Tensor):
-        """The residual kernel's arguments, all views: the knot matrix
+        """The residual kernel's arguments (the window-Jacobian kernel's
+        without x_next), all views: the knot matrix
         (B, *trial, N, d) seen as (P=B, T, N, d), its trial axes flattened
         into T (T = 1 without them), and u, Δt, x, x_next as (P, T, N−1, ·)
         views of it (``as_strided`` on its strides, one knot further on for
@@ -127,6 +110,15 @@ class BilinearIntegrator:
             dt = _scalar(float(layout.timestep), z.dtype, z.device).expand(lead)
         return self.G_drift, self.G_drives, u, dt, x, xn
 
+    def _window_jac_args(self, layout: Layout, zmat: torch.Tensor):
+        """The window-Jacobian kernel's arguments after the Taylor order: the
+        views of :meth:`_trial_views` without x_next, then where J's columns
+        go in the knot, (o_x, o_u, o_Δt; None for a fixed Δt), and the
+        knot's width."""
+        o_t = layout.offsets[layout.timestep] if layout.has_free_time else None
+        cols = (layout.offsets[self.x_name], layout.offsets[self.u_name], o_t)
+        return self._trial_views(layout, zmat)[:5] + (cols, layout.dim)
+
     def residuals_stacked(self, layout: Layout, zmat: torch.Tensor):
         """Closed-form stacked residuals through the residual kernel
         (float32 only; None sends float64 to the generic path)."""
@@ -144,19 +136,11 @@ class BilinearIntegrator:
         return out.reshape(zmat.shape[:-2])
 
     def jacobians_zk_stacked(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
-        """Closed-form ``∂residual/∂z_k`` (B, N−1, x_dim, d) through the
-        window-Jacobian kernel: columns (x, u, Δt) scattered into z_k width."""
-        Gd, Gv, u, dt, x, _ = self._lane_args(layout, zmat)
-        free_t = layout.has_free_time
-        J = expv_kernel.window_jac(self.taylor_order, free_t, Gd, Gv, u, dt, x)
-        cs_x = layout.comp_slice(self.x_name)
-        cs_u = layout.comp_slice(self.u_name)
-        cols = list(range(cs_x.start, cs_x.stop)) + list(range(cs_u.start, cs_u.stop))
-        if free_t:
-            cols.append(layout.offsets[layout.timestep])
-        out = torch.zeros(J.shape[:-1] + (layout.dim,), dtype=J.dtype, device=J.device)
-        out[..., cols] = -J
-        return out.reshape(zmat.shape[:-2] + out.shape[1:])
+        """Closed-form ``∂residual/∂z_k`` (B, *trial, N−1, x_dim, d) through
+        the window-Jacobian kernel, which writes −J's columns (x, u, Δt) into
+        z_k width: one allocation and one launch on the card."""
+        out = expv_kernel.window_jac_zk(self.taylor_order, *self._window_jac_args(layout, zmat))
+        return out.reshape(zmat.shape[:-2] + out.shape[2:])
 
     def __repr__(self) -> str:
         return f"BilinearIntegrator: {self.x_name} = exp(Δt G({self.u_name})) {self.x_name}"

@@ -45,7 +45,7 @@ _INFO: dict = {}
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "dto_window_jac": [_I] * 6 + [_VP] * 7,
+    "dto_window_jac": [_I] * 6 + [_VP] * 8,
     "dto_residual": [_I] * 7 + [_VP] * 9,
     "dto_factor_solve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
     "dto_factor_solve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,

@@ -6,20 +6,26 @@ k of every lane, with ``G = Gd + Σ_m u_m·Gv_m`` and ``A = Δt·G``:
 * :func:`window_jac` — ``J = ∂(E·x)/∂(x, u, Δt)`` (columns x, u, Δt), E the
   order-m Taylor action, by tangent recurrences of the Horner chain
   ``y ← x + A·y/k`` (replaces the Pallas ``_kernel``);
+* :func:`window_jac_zk` — the residual's Jacobian ``−J`` in the knot's
+  width d, J's columns at the offsets of x, u and Δt in the knot and zeros
+  elsewhere (the integrator's ``jacobians_zk_stacked``; the same kernel);
 * :func:`residual_action` — ``xn − E·x`` (replaces ``_res_kernel``);
 * :func:`residual_l1` — ``Σ|xn − E·x|`` per instance over all windows (the
   line-search θ term; ``_res_kernel`` in its L1 form).
 
-Shapes of the window Jacobian: Gd (L, xd, xd), Gv (L, nd, xd, xd), u
-(L, K, nd), dt (L, K), x (L, K, xd), contiguous, where L counts lanes.
+Shapes of :func:`window_jac`, the JAX package's interface: Gd (L, xd, xd),
+Gv (L, nd, xd, xd), u (L, K, nd), dt (L, K), x (L, K, xd), where L counts
+lanes; out (L, K, xd, xd + nd [+1]).
 
-Shapes of the residual chain: the line search's trial grid as the JAX
-package's two-level ``custom_vmap`` holds it, P problems × T trial slots
-(T = 1 for a call with no trial axis). Gd (P, xd, xd) and Gv
-(P, nd, xd, xd) once per problem, any strides; u (P, T, K, nd), dt (P, T, K), x and xn
-(P, T, K, xd) any strided views with a unit stride on the last axis (the
-kernel reads the knot matrix in place; a fixed Δt is a scalar expanded with
-stride 0). Out: (P, T, K, xd), or (P, T) for the L1 form.
+Shapes of :func:`window_jac_zk` and the residual chain: P problems × T
+trial slots (T = 1 for a call with no trial axis; the line search's trial
+grid as the JAX package's two-level ``custom_vmap`` holds it). Gd
+(P, xd, xd) and Gv (P, nd, xd, xd) once per problem, any strides; u
+(P, T, K, nd), dt (P, T, K), x and xn (P, T, K, xd) any strided views with a
+unit stride on the last axis (the kernels read the knot matrix in place; a
+fixed Δt is a scalar expanded with stride 0). Out: (P, T, K, xd, d) for
+:func:`window_jac_zk`; (P, T, K, xd), or (P, T) for the L1 form, for the
+residual chain.
 
 Routing: a CPU tensor takes the plain PyTorch version; a CUDA float32
 tensor launches the kernel (``csrc/expv_kernel.cu``) or raises; float64
@@ -37,7 +43,7 @@ import torch
 from . import _build
 
 __all__ = [
-    "window_jac", "window_jac_plain",
+    "window_jac", "window_jac_plain", "window_jac_zk", "window_jac_zk_plain",
     "residual_action", "residual_action_plain",
     "residual_l1", "residual_l1_plain",
     "SUPPORTED_SHAPES",
@@ -48,8 +54,10 @@ __all__ = [
 # 2-D state with 1 drive
 SUPPORTED_SHAPES = {(4, 2), (2, 1)}
 # the residual kernel's 19 element strides go in one array (one argument for
-# all of them, which halves the cost of the ctypes call)
+# all of them, which halves the cost of the ctypes call); the window
+# Jacobian's 16 strides go with its column map (d, o_x, o_u, o_t)
 _Strides19 = ctypes.c_longlong * 19
+_Strides20 = ctypes.c_longlong * 20
 
 
 def window_jac_plain(order, free_time, Gd, Gv, u, dt, x):
@@ -98,32 +106,6 @@ def residual_l1_plain(order, Gd, Gv, u, dt, x, xn):
     return residual_action_plain(order, Gd, Gv, u, dt, x, xn).abs().sum((-2, -1))
 
 
-def _kernel_args(Gd, Gv, u, dt, x):
-    """Validate a window-Jacobian call: float32, contiguous, one device,
-    matching shapes."""
-    L, K, xd = x.shape
-    nd = Gv.shape[1]
-    want = {
-        "Gd": (Gd, (L, xd, xd)), "Gv": (Gv, (L, nd, xd, xd)), "u": (u, (L, K, nd)),
-        "dt": (dt, (L, K)), "x": (x, (L, K, xd)),
-    }
-    for name, (t, shape) in want.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if (xd, nd) not in SUPPORTED_SHAPES:
-        raise NotImplementedError(
-            f"no kernel instantiation for x_dim={xd}, n_drives={nd} "
-            f"(instantiated: {sorted(SUPPORTED_SHAPES)})"
-        )
-    return L, K, xd, nd
-
-
 def _route(x: torch.Tensor) -> bool:
     """True → launch the kernel; False → plain version (CPU or float64)."""
     if x.device.type == "cpu" or x.dtype == torch.float64:
@@ -133,20 +115,82 @@ def _route(x: torch.Tensor) -> bool:
     return True
 
 
+def window_jac_zk_plain(order, Gd, Gv, u, dt, x, cols, d):
+    """(P, T, K, xd, d): −:func:`window_jac_plain` on the (P·T) lanes, its
+    columns placed at ``cols``, zeros elsewhere (see :func:`window_jac_zk`)."""
+    P, T, K, xd = x.shape
+    o_x, o_u, o_t = cols
+    nd = Gv.shape[1]
+
+    def lanes(t):
+        return t.reshape((P * T,) + t.shape[2:]).contiguous()
+
+    def per_lane(g):
+        return g[:, None].expand((P, T) + g.shape[1:]).reshape((P * T,) + g.shape[1:])
+
+    J = window_jac_plain(order, o_t is not None, per_lane(Gd), per_lane(Gv), lanes(u), lanes(dt),
+                         lanes(x))
+    idx = list(range(o_x, o_x + xd)) + list(range(o_u, o_u + nd))
+    if o_t is not None:
+        idx.append(o_t)
+    out = torch.zeros((P * T, K, xd, d), dtype=J.dtype, device=J.device)
+    out[..., idx] = -J
+    return out.reshape(P, T, K, xd, d)
+
+
 def window_jac(order: int, free_time: bool, Gd, Gv, u, dt, x):
-    """Window Jacobians (L, K, xd, xd + nd [+1]); see module docstring."""
+    """Window Jacobians (L, K, xd, xd + nd [+1]); see module docstring. On
+    the card: :func:`window_jac_zk` with J's own columns, negated back."""
     if not _route(x):
         return window_jac_plain(order, free_time, Gd, Gv, u, dt, x)
-    L, K, xd, nd = _kernel_args(Gd, Gv, u, dt, x)
+    xd, nd = x.shape[-1], Gv.shape[1]
+    cols = (0, xd, xd + nd if free_time else None)
     n_th = xd + nd + (1 if free_time else 0)
-    out = torch.empty((L, K, xd, n_th), dtype=torch.float32, device=x.device)
-    rc = _build.library().dto_window_jac(
-        L, K, xd, nd, int(order), int(bool(free_time)),
-        Gd.data_ptr(), Gv.data_ptr(), u.data_ptr(), dt.data_ptr(), x.data_ptr(),
-        out.data_ptr(), _build.stream_ptr(x.device),
-    )
-    _build.check_rc(rc, "window_jac")
-    _build.LAUNCHES["window_jac"] += 1
+    return -window_jac_zk(order, Gd, Gv, u[:, None], dt[:, None], x[:, None], cols, n_th)[:, 0]
+
+
+def window_jac_zk(order: int, Gd, Gv, u, dt, x, cols, d):
+    """The residual's window Jacobians in z_k width, (P, T, K, xd, d): −J with
+    its columns x, u and Δt at ``cols`` = (o_x, o_u, o_t) (``o_t`` None for a
+    fixed Δt, which has no column) and +0 in every other column of the
+    d-wide knot; see module docstring. On the card: one pass of checks, one
+    allocation and one ctypes call; the kernel's entry checks the column map
+    and its own size limits and refuses a call beyond them."""
+    if not _route(x):
+        return window_jac_zk_plain(order, Gd, Gv, u, dt, x, cols, d)
+    P, T, K, xd = x.shape
+    nd = Gv.shape[1]
+    dev = x.get_device()
+    for name, t, shape in (("Gd", Gd, (P, xd, xd)), ("Gv", Gv, (P, nd, xd, xd)),
+                           ("u", u, (P, T, K, nd)), ("dt", dt, (P, T, K)),
+                           ("x", x, (P, T, K, xd))):
+        if t.get_device() != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if u.stride(-1) != 1 or x.stride(-1) != 1:
+        raise ValueError("u and x need a unit stride on their last axis")
+    if (xd, nd) not in SUPPORTED_SHAPES:
+        raise NotImplementedError(
+            f"no kernel instantiation for x_dim={xd}, n_drives={nd} "
+            f"(instantiated: {sorted(SUPPORTED_SHAPES)})"
+        )
+    out = torch.empty((P, T, K, xd, d), dtype=torch.float32, device=x.device)
+    if out.numel():
+        o_x, o_u, o_t = cols
+        meta = _Strides20(*Gd.stride(), *Gv.stride(), *u.stride()[:3], *dt.stride(),
+                          *x.stride()[:3], d, o_x, o_u, -1 if o_t is None else o_t)
+        rc = _build.library().dto_window_jac(
+            P, T, K, xd, nd, int(order), Gd.data_ptr(), Gv.data_ptr(), u.data_ptr(),
+            dt.data_ptr(), x.data_ptr(), ctypes.addressof(meta), out.data_ptr(),
+            _build.stream_ptr(dev),
+        )
+        # error 1 (invalid value): P·T·K or a view's offsets beyond 2^31 − 1,
+        # columns outside the knot or overlapping, or d too wide for the tile
+        _build.check_rc(rc, f"window_jac on {P} x {T} x {K}, d={d}")
+        _build.LAUNCHES["window_jac"] += 1
     return out
 
 

@@ -145,12 +145,22 @@ GRID_SHAPES = {
 }
 
 
+# the window Jacobian also at each shape's other kind of Δt
+JAC_SHAPES = dict(
+    GRID_SHAPES,
+    x4u2_fixed_dt=dict(GRID_SHAPES["x4u2_free_dt"], names=("x", "u", "du", "ddu"),
+                       dims=(4, 2, 2, 2), timestep=0.1),
+    x2u1_free_dt=dict(GRID_SHAPES["x2u1_fixed_dt"], names=("x", "u", "dt"), dims=(2, 1, 1),
+                      timestep="dt"),
+)
+
+
 def _grid(shape, P, T, N, seed):
     """A knot matrix (P, T, N, d) near a rollout of each problem's dynamics
     (residuals of 1e-3, as on a line search near feasibility), its layout
     and the per-problem generators (float64 numpy). The generators are
     skew-symmetric, as the benchmarks' are: the state keeps unit norm."""
-    c = GRID_SHAPES[shape]
+    c = JAC_SHAPES[shape]
     xd, nd, order = c["xd"], c["nd"], c["order"]
     rng = np.random.default_rng(seed)
     lay = Layout(names=c["names"], dims=c["dims"], N=N, timestep=c["timestep"])
@@ -165,7 +175,7 @@ def _grid(shape, P, T, N, seed):
     x = Z[:, :, 0, cs_x] / np.linalg.norm(Z[:, :, 0, cs_x], axis=-1, keepdims=True)
     for k in range(N - 1):
         Z[:, :, k, cs_x] = x
-        h = Z[:, :, k, lay.offsets["dt"]] if lay.has_free_time else np.full((P, T), 0.15)
+        h = Z[:, :, k, lay.offsets["dt"]] if lay.has_free_time else np.full((P, T), lay.timestep)
         A = h[..., None, None] * (Gd[:, None] + np.einsum("ptm,pmij->ptij", Z[:, :, k, cs_u], Gv))
         y = x
         for j in range(order, 0, -1):
@@ -260,3 +270,126 @@ def test_residual_instantiations_match_the_kernel_source():
     assert all(p[:2] == p[2:4] == p[4:] for p in pairs)
     assert {tuple(map(int, p[:2])) for p in pairs} == tek.SUPPORTED_SHAPES
     assert "lane_sum" not in src and src.count("__global__") == 2
+
+
+def _jax_window_jac_zk(fn, order, Gd, Gv, Z, lay):
+    """JAX's window Jacobians ``fn(order, free_time, Gd, Gv, u, dt, x)`` on
+    the (problem × slot) lanes of a knot matrix Z (P, T, N, d), placed in z_k
+    width as the JAX package's ``BilinearIntegrator.jacobians_zk`` places
+    them: a product with a one-hot (n_th, d) matrix, negated."""
+    P, T, N, d = Z.shape
+    cs_x, cs_u = lay.comp_slice("x"), lay.comp_slice("u")
+    free = lay.has_free_time
+    dt = Z[:, :, :-1, lay.offsets["dt"]] if free else np.full((P, T, N - 1), lay.timestep, Z.dtype)
+
+    def lanes(a):
+        return jnp.asarray(np.ascontiguousarray(a).reshape((P * T,) + a.shape[2:]))
+
+    J = fn(order, free, jnp.asarray(np.repeat(Gd, T, 0)), jnp.asarray(np.repeat(Gv, T, 0)),
+           lanes(Z[:, :, :-1, cs_u]), lanes(dt), lanes(Z[:, :, :-1, cs_x]))
+    cols = list(range(cs_x.start, cs_x.stop)) + list(range(cs_u.start, cs_u.stop))
+    if free:
+        cols.append(lay.offsets["dt"])
+    Em = np.zeros((len(cols), d), Z.dtype)
+    Em[np.arange(len(cols)), cols] = 1.0
+    return np.asarray(-(J @ jnp.asarray(Em))).reshape(P, T, N - 1, -1, d)
+
+
+@pytest.mark.parametrize("P,T", [(7, 1), (2, 3)])
+@pytest.mark.parametrize("shape", list(JAC_SHAPES))
+def test_window_jac_zk_views_f64_matches_xla(shape, P, T):
+    """The d-wide window Jacobian on strided views of the knot matrix (the
+    integrator's arguments) against ``_window_jac_xla`` placed in z_k width,
+    f64, 1e-12; and the integrator's entry reshapes it to the knot matrix's
+    leading axes."""
+    order = JAC_SHAPES[shape]["order"]
+    Z, lay, Gd, Gv = _grid(shape, P, T, 51, seed=30 + T)
+    integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=P, device="cpu",
+                                      dtype=torch.float64, taylor_order=order)
+    Zt = torch.as_tensor(Z)
+    ref = _jax_window_jac_zk(lambda o, f, *a: jax.vmap(lambda *b: _window_jac_xla(o, f, *b))(*a),
+                             order, Gd, Gv, Z, lay)
+    out = tek.window_jac_zk(order, *integ._window_jac_args(lay, Zt))
+    assert out.shape == (P, T, 50, JAC_SHAPES[shape]["xd"], lay.dim)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-12, rtol=0)
+    zt = Zt if T > 1 else Zt[:, 0]
+    assert torch.equal(integ.jacobians_zk_stacked(lay, zt), out.reshape(zt.shape[:-2] + out.shape[2:]))
+
+
+@pytest.mark.parametrize("shape", list(JAC_SHAPES))
+def test_window_jac_zk_views_f32_matches_pallas_interpret(shape):
+    """f32, 2e-6 absolute, against ``_window_jac_pallas`` in interpret mode
+    placed in z_k width, at 7 problems (a multiple of nothing)."""
+    order = JAC_SHAPES[shape]["order"]
+    Z, lay, Gd, Gv = _grid(shape, 7, 1, 51, seed=40)
+    integ, Zt, _ = _views(Z, lay, Gd, Gv, torch.float32, order)
+    ref = _jax_window_jac_zk(lambda *a: _window_jac_pallas(*a, interpret=True), order,
+                             Gd.astype(np.float32), Gv.astype(np.float32), Z.astype(np.float32),
+                             lay)
+    out = tek.window_jac_zk(order, *integ._window_jac_args(lay, Zt))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", list(JAC_SHAPES))
+def test_jacobians_zk_stacked_is_the_scatter_of_window_jac(shape, dtype):
+    """``jacobians_zk_stacked`` equals zeros with −``window_jac_plain`` on
+    contiguous per-lane copies placed at the columns of x, u and Δt, bit for
+    bit (the port's entry before it wrote z_k width itself)."""
+    c = JAC_SHAPES[shape]
+    Z, lay, Gd, Gv = _grid(shape, 5, 1, 9, seed=50)
+    integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=5, device="cpu", dtype=dtype,
+                                      taylor_order=c["order"])
+    zm = torch.as_tensor(Z[:, 0], dtype=dtype)
+    cs_x, cs_u = lay.comp_slice("x"), lay.comp_slice("u")
+    x, u = zm[:, :-1, cs_x].contiguous(), zm[:, :-1, cs_u].contiguous()
+    dt = lay.knot_timestep(zm[:, :-1]).contiguous()
+    J = tek.window_jac_plain(c["order"], lay.has_free_time, integ.G_drift, integ.G_drives, u, dt,
+                             x)
+    cols = list(range(cs_x.start, cs_x.stop)) + list(range(cs_u.start, cs_u.stop))
+    if lay.has_free_time:
+        cols.append(lay.offsets["dt"])
+    want = torch.zeros(J.shape[:-1] + (lay.dim,), dtype=dtype)
+    want[..., cols] = -J
+    got = integ.jacobians_zk_stacked(lay, zm)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+@pytest.mark.parametrize("shape", list(JAC_SHAPES))
+def test_window_jac_args_share_the_knot_matrix(shape):
+    """The window-Jacobian kernel's arguments are views of the knot matrix
+    (no copy, no x_next), the generators as they lie, and J's columns at the
+    offsets of x, u and Δt in the knot."""
+    Z, lay, Gd, Gv = _grid(shape, 2, 1, 7, seed=4)
+    integ, Zt, _ = _views(Z, lay, Gd, Gv, torch.float32)
+    zm = Zt[:, 0]
+    gd, gv, u, dt, x, cols, d = integ._window_jac_args(lay, zm)
+    base = zm.untyped_storage().data_ptr()
+    for t in (u, x) + ((dt,) if lay.has_free_time else ()):
+        assert t.untyped_storage().data_ptr() == base
+        assert t.shape[:3] == (2, 1, 6)
+    assert gd is integ.G_drift and gv is integ.G_drives
+    assert x.stride(-1) == u.stride(-1) == 1
+    assert d == lay.dim
+    assert cols == (lay.offsets["x"], lay.offsets["u"],
+                    lay.offsets["dt"] if lay.has_free_time else None)
+    if not lay.has_free_time:
+        assert dt.stride() == (0, 0, 0) and float(dt[1, 0, 5]) == pytest.approx(lay.timestep)
+
+
+def test_window_jac_instantiations_match_the_kernel_source():
+    """The (x_dim, n_drives) pairs that ``dto_window_jac`` dispatches are
+    ``SUPPORTED_SHAPES``, each to ``launch_jac`` of the same pair, which
+    launches the one kernel with one or two threads a window; the (L, K, ·)
+    interface and the z_k-wide entry share it."""
+    src = (Path(tek.__file__).parent.parent / "csrc" / "expv_kernel.cu").read_text()
+    entry = src[src.index('extern "C" int dto_window_jac('):]
+    entry = entry[: entry.index("\n}\n")]
+    pairs = re.findall(r"if \(xd == (\d+) && nd == (\d+)\) return launch_jac<(\d+), (\d+)>", entry)
+    assert all(p[:2] == p[2:] for p in pairs)
+    assert {tuple(map(int, p[:2])) for p in pairs} == tek.SUPPORTED_SHAPES
+    launches = re.findall(r"window_jac_kernel<XD, ND, (\d)><<<", src)
+    assert sorted(launches) == ["1", "2"]

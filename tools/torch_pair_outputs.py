@@ -1,4 +1,4 @@
-"""Fingerprint the PyTorch port's K1, K2 and K4 outputs on fixed inputs, on
+"""Fingerprint the PyTorch port's K1-K4 outputs on fixed inputs, on
 one GPU, to show whether two versions of the port compute bitwise the same.
 
     python3 tools/torch_pair_outputs.py OUT.json [--root DIR]
@@ -12,6 +12,9 @@ of the outputs of each row:
   problems × 9 slots; path 2: 8192 × 12), through
   ``BilinearIntegrator.residuals_stacked`` / ``residuals_l1_stacked``, the
   entries every version has;
+- K3 through ``BilinearIntegrator.jacobians_zk_stacked`` on the knot matrix
+  of path 1's problem at 256 and 8192 lanes and of path 2's at 8192 (its
+  output, the z_k-wide Jacobian, is the same function in every version);
 - K1 at (8,3,3) on random stage data for 256 lanes and for 8192 (lane 77
   indefinite), and at (2,1,3) on the first call captured from path 2's own
   solve (one certified lane made indefinite);
@@ -106,6 +109,16 @@ def fingerprint(root: Path) -> dict:
     gens2 = [integ2.G_drift, integ2.G_drives]
     row("K4 vector, path 2", gens2 + [Zt2], lambda: integ2.residuals_stacked(lay2, Zt2))
     row("K4 L1, path 2", gens2 + [Zt2], lambda: integ2.residuals_l1_stacked(lay2, Zt2))
+
+    # K3 through the integrator's entry, on each problem's knot matrix
+    prob_big = cast_problem(benchmarks.make_batched_bilinear_problems(
+        BIG, N=N, feasible_start=True, taylor_order=order, device=dev,
+        dtype=torch.float64), torch.float32)
+    for name, prob in (("K3 <4,2> path 1 B=256", prob256), (f"K3 <4,2> B={BIG}", prob_big),
+                       (f"K3 <2,1> path 2 B={sc_cfg['batch']}", prob_sc)):
+        ig, ly, zm = prob.integrators[0], prob.trajectory.layout, prob.trajectory.knot_matrix()
+        row(name, [ig.G_drift, ig.G_drives, zm], lambda: ig.jacobians_zk_stacked(ly, zm))
+    del prob_big
 
     # K1 and K2 on random stage data
     s0 = np.arange(8) >= 2
