@@ -9,7 +9,11 @@ which the tests and ``chip_smoke.py`` take from this one place.
 ``make_batched_state_constrained_problems`` builds the second family: the
 2-D bilinear transfer with a state constraint ‖x_k‖² ≤ cap at every knot
 (the state-constrained end-to-end problem of the JAX package's tests), one
-lane per initial guess.
+lane per initial guess. ``make_batched_global_problems`` builds the third:
+the same transfer with a global phase parameter θ ∈ ℝ² coupled to the
+trajectory through a knot equality, a knot objective and a global objective
+(the arrowhead end-to-end problem of the JAX package's tests), one lane per
+start.
 
 Problems are built on the host in numpy from a seed (the same draws as the
 JAX package, so both packages pose the same problems) and put on
@@ -24,9 +28,18 @@ import time
 import numpy as np
 import torch
 
-from .constraints import NonlinearKnotPointConstraint
+from .constraints import (
+    GlobalLinearConstraint,
+    NonlinearGlobalKnotPointConstraint,
+    NonlinearKnotPointConstraint,
+)
 from .integrators import BilinearIntegrator, DerivativeIntegrator
-from .objectives import QuadraticRegularizer, TerminalObjective
+from .objectives import (
+    GlobalKnotPointObjective,
+    GlobalObjective,
+    QuadraticRegularizer,
+    TerminalObjective,
+)
 from .problem import DirectTrajOptProblem
 from .rollout import bilinear_rollout
 from .trajectory import Trajectory
@@ -38,17 +51,22 @@ __all__ = [
     "make_batched_state_constrained_problems",
     "state_constrained_config",
     "state_constrained_certificate",
+    "make_batched_global_problems",
+    "global_config",
+    "global_certificate",
     "headline_config",
     "run_headline",
     "rms_u_vs_golden",
     "GOLDEN_N51",
     "GOLDEN_STATE_CONSTRAINED",
+    "GOLDEN_GLOBAL_PHASE",
 ]
 
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "tests", "golden")
 GOLDEN_N51 = os.path.join(_GOLDEN_DIR, "bilinear_n51_seed42.npz")
 GOLDEN_STATE_CONSTRAINED = os.path.join(_GOLDEN_DIR, "torch", "state_constrained_n51.npz")
+GOLDEN_GLOBAL_PHASE = os.path.join(_GOLDEN_DIR, "torch", "global_phase_n51.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):
@@ -111,7 +129,7 @@ def _bilinear_problem(data: dict, *, device, dtype, free_time: bool, taylor_orde
     return DirectTrajOptProblem.create(traj, obj, integrators)
 
 
-def make_bilinear_problem(N: int = 51, seed: int = 42, *, device, dtype=torch.float64,
+def make_bilinear_problem(N: int = 51, seed: int = 42, *, device=None, dtype=torch.float64,
                           free_time: bool = True, goal_objective: float | None = None,
                           feasible_start: bool = False,
                           taylor_order: int = 12) -> DirectTrajOptProblem:
@@ -134,7 +152,7 @@ def make_bilinear_problem(N: int = 51, seed: int = 42, *, device, dtype=torch.fl
                              taylor_order=taylor_order, goal_objective=goal_objective)
 
 
-def make_batched_bilinear_problems(batch: int, N: int = 51, seed: int = 42, *, device,
+def make_batched_bilinear_problems(batch: int, N: int = 51, seed: int = 42, *, device=None,
                                    dtype=torch.float64, free_time: bool = True,
                                    feasible_start: bool = False,
                                    goal_objective: float | None = None,
@@ -162,9 +180,10 @@ SC_G_DRIFT = np.array([[0.0, 1.0], [-1.0, 0.0]])
 SC_G_DRIVE = np.array([[0.0, 1.0], [1.0, 0.0]])
 
 
-def make_batched_state_constrained_problems(batch: int, N: int = 51, seed0: int = 0, *, device,
+def make_batched_state_constrained_problems(batch: int, N: int = 51, seed0: int = 0, *,
+                                            device=None,
                                             dtype=torch.float64, dt: float = 0.15,
-                                            u_scale: float = 0.3,
+                                            u_scale: float = 0.3, cap: float | None = None,
                                             taylor_order: int = 12) -> DirectTrajOptProblem:
     """The state-constrained bilinear transfer, one lane per initial guess.
 
@@ -173,18 +192,19 @@ def make_batched_state_constrained_problems(batch: int, N: int = 51, seed0: int 
     ``u = u_scale·sin(2πk/(N−1))``, minimizing ½Σ‖Δt u_k‖², subject to
     ``‖x_k‖² ≤ cap`` at every knot. Lane ℓ starts from the rollout plus
     noise from ``np.random.default_rng(seed0 + ℓ)`` (0.05·N(0,1) on x, then
-    on u); the cap is lane 0's max ‖x_k‖² plus 0.2, shared by all lanes.
+    on u); the cap, unless given, is lane 0's max ‖x_k‖² plus 0.2, shared by
+    all lanes.
     Built on the host in float64, then put on ``device`` once."""
     u = u_scale * np.sin(np.linspace(0, 2 * np.pi, N))[:, None]
     x0 = np.array([1.0, 0.0])
-    host = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=1, device="cpu")
-    xs = bilinear_rollout(host, torch.as_tensor(x0)[None], torch.as_tensor(u)[None], dt)[0].numpy()
+    xs = _host_rollout(x0, u, dt)
     xg, ug = [], []
     for lane in range(batch):
         rng = np.random.default_rng(seed0 + lane)
         xg.append(xs + 0.05 * rng.normal(size=(N, 2)))
         ug.append(u + 0.05 * rng.normal(size=(N, 1)))
-    cap = float(np.max(np.sum(xg[0] ** 2, axis=1))) + 0.2
+    if cap is None:
+        cap = float(np.max(np.sum(xg[0] ** 2, axis=1))) + 0.2
     traj = Trajectory.create({"x": np.stack(xg), "u": np.stack(ug)}, timestep=dt, controls="u",
                              initial={"x": x0}, final={"x": xs[-1]}, device=device, dtype=dtype)
     integ = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=batch,
@@ -209,6 +229,97 @@ def state_constrained_certificate(res, path: str = GOLDEN_STATE_CONSTRAINED):
     err = np.abs(u - u_star[None]).max(axis=(1, 2))
     viol = (x**2).sum(-1).max(-1) - float(data["cap"])
     return err, viol
+
+
+def _host_rollout(x0, u, dt):
+    """The 2-D transfer's rollout on the host, in float64: (N, 2)."""
+    host = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=1, device="cpu")
+    return bilinear_rollout(host, torch.as_tensor(x0)[None], torch.as_tensor(u)[None], dt)[0].numpy()
+
+
+def make_batched_global_problems(batch: int, N: int = 51, seed0: int = 0, *, device=None,
+                                 dtype=torch.float64, dt: float = 0.12,
+                                 taylor_order: int = 12) -> DirectTrajOptProblem:
+    """The global-phase family, one lane per start.
+
+    The 2-D transfer ``x_{k+1} = exp(Δt (G_d + u_k G_u)) x_k`` (fixed Δt,
+    |u| ≤ 0.8) from x_1 = (1, 0) to the final state of the rollout of
+    ``u = 0.3·sin(linspace(0, 4, N))``, with a global θ ∈ ℝ² (|θ| ≤ 3);
+    objective ½Σ‖Δt u_k‖² + Σ(θ − 0.3)² + Σ_k 0.02·(x_k[1] − θ[1])²;
+    constraints u_3 − 0.5·θ[0] − 0.1 = 0 (a global-coupled knot equality)
+    and θ[0] + θ[1] = 0.2 (a global linear row). Lane ℓ starts from the
+    rollout plus 0.02·N(0,1) on x and from θ = (0.4, −0.2) plus 0.2·N(0,1),
+    both from ``np.random.default_rng(seed0 + ℓ)``; every lane poses the
+    same problem. Built on the host in float64, then put on ``device`` once."""
+    u = 0.3 * np.sin(np.linspace(0, 4, N))[:, None]
+    x0 = np.array([1.0, 0.0])
+    xs = _host_rollout(x0, u, dt)
+    xg, thg = [], []
+    for lane in range(batch):
+        rng = np.random.default_rng(seed0 + lane)
+        xg.append(xs + 0.02 * rng.normal(size=(N, 2)))
+        thg.append(np.array([0.4, -0.2]) + 0.2 * rng.normal(size=2))
+    traj = Trajectory.create(
+        {"x": np.stack(xg), "u": np.repeat(u[None], batch, axis=0)}, timestep=dt, controls="u",
+        initial={"x": x0}, final={"x": xs[-1]}, bounds={"u": 0.8, "theta": 3.0},
+        global_data={"theta": np.stack(thg)}, device=device, dtype=dtype)
+    integ = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=batch,
+                                      device=device, dtype=dtype, taylor_order=taylor_order)
+    obj = (QuadraticRegularizer.create("u", traj, 1.0)
+           + GlobalObjective.create(lambda th: ((th - 0.3) ** 2).sum(), "theta", traj)
+           + GlobalKnotPointObjective.create(lambda v: 0.02 * (v[1] - v[-1]) ** 2, "x",
+                                             "theta", traj))
+    cons = [
+        NonlinearGlobalKnotPointConstraint.create(
+            lambda v: (v[0] - 0.5 * v[-2] - 0.1).reshape(1), "u", "theta", traj, times=[3]),
+        GlobalLinearConstraint.create("theta", np.array([[1.0, 1.0]]), lb=[0.2], ub=[0.2],
+                                      traj=traj),
+    ]
+    return DirectTrajOptProblem.create(traj, obj, integ, constraints=cons)
+
+
+def global_certificate(res, path: str = GOLDEN_GLOBAL_PHASE):
+    """Per-lane max |u − u*| and max |θ − θ*| against the float64 optimum of
+    the global-phase family (tol 1e-10), the residuals |θ[0] + θ[1] − 0.2|
+    and |u_3 − 0.5·θ[0] − 0.1| of its two equalities, and, for the first
+    lanes (as many as the golden holds, 64), max |Z − Z_ref| against the JAX
+    package's float64 solve of the same lanes at :func:`global_config`'s
+    options (tol 1e-6). The last holds only for a batch built with
+    ``seed0 = 0``. Five arrays; the first four over all lanes."""
+    data = np.load(path)
+    traj = res.problem.trajectory
+    layout = traj.layout
+    N, d = int(data["N"]), layout.dim
+    Zs = np.asarray(data["Z_star"], dtype=np.float64)
+    u_star = Zs[: N * d].reshape(N, d)[:, layout.comp_slice("u")]
+    th_star = Zs[N * d :][layout.global_slice("theta")]
+    u = traj.data["u"].detach().to("cpu", torch.float64).numpy()
+    th = traj.global_data["theta"].detach().to("cpu", torch.float64).numpy()
+    err_u = np.abs(u - u_star[None]).max(axis=(1, 2))
+    err_th = np.abs(th - th_star[None]).max(axis=1)
+    lin = np.abs(th[:, 0] + th[:, 1] - 0.2)
+    eq3 = np.abs(u[:, 3, 0] - 0.5 * th[:, 0] - 0.1)
+    Z_ref = np.asarray(data["Z_ref"], dtype=np.float64)
+    n_ref = min(len(u), len(Z_ref))
+    Z = traj.to_zvec()[:n_ref].detach().to("cpu", torch.float64).numpy()
+    err_ref = np.abs(Z - Z_ref[:n_ref]).max(axis=1)
+    return err_u, err_th, lin, eq3, err_ref
+
+
+def global_config() -> dict:
+    """The global-phase family's solve on the card: the options of
+    :func:`state_constrained_config` (one float32 phase of 40 iterations,
+    exact Hessian with ``hessian_regularization="auto"``, compensated
+    residuals, tol = acceptable_tol = 1e-6, one chunk of ``batch`` lanes)
+    with ``delta_c = 1e-7``. At the default 1e-8 the JAX package's own
+    float32 solve fails every lane (restoration failed after 10-11
+    iterations), and the port with it: the linear row θ[0] + θ[1] = 0.2 has
+    no knot part, so its Schur pivot is δ_c alone and its term W₁ᵀM⁻¹W₁ ≈
+    1e8 swamps the reduced global Hessian T in float32; T's Cholesky then
+    fails at every δ_w. Returns ``{"N", "batch", "solve_kw"}``."""
+    cfg = state_constrained_config()
+    cfg["solve_kw"]["delta_c"] = 1e-7
+    return cfg
 
 
 def state_constrained_config() -> dict:

@@ -6,11 +6,12 @@ problem: every array leaf is read through numpy (copied) and the static
 metadata (names, dims, timestep name, orders, knot indices) is read off the
 objects' attributes. This module never imports ``jax``.
 
-A user function (a nonlinear constraint's ``g``, a knot objective's ℓ, a
-custom HVP apply) is JAX code and cannot cross: ``functions`` maps
-``("constraint", i)`` (index into ``problem.constraints``),
-``("objective", j)`` (index into the flattened objective terms) or
-``("hvp", j)`` to its torch counterpart.
+A user function (a nonlinear constraint's ``g``, a knot or global
+objective's ℓ, a custom HVP apply) is JAX code and cannot cross:
+``functions`` maps ``("constraint", i)`` (index into
+``problem.constraints``), ``("objective", j)`` (index into the flattened
+objective terms) or ``("hvp", j)`` to its torch counterpart. The global
+block (``global_data`` and its bounds) crosses with the trajectory.
 
 A JAX problem built unbatched becomes a port problem with one lane; a
 batched one (leading axis on every leaf, e.g. from
@@ -83,8 +84,24 @@ def _objective(obj, B, batched, device, dtype, functions, j=0):
             hvp_carrier=carrier, ell=_fn(functions, ("objective", j), "a knot objective's ell"),
             var_names=tuple(obj.var_names), takes_params=bool(obj.takes_params),
         )
-    raise NotImplementedError(f"objective {kind} is not ported yet (ROADMAP Queue 1 "
-                              "'Left for later': global variables)")
+    if kind == "NullObjective":
+        return O.NullObjective()
+    if kind == "GlobalObjective":
+        q = np.array(obj.Q, dtype=np.float64)
+        return O.GlobalObjective(
+            Q=_lanes(q if batched else q.reshape(()), B, batched, device, dtype),
+            ell=_fn(functions, ("objective", j), "a global objective's ell"),
+            global_names=tuple(obj.global_names),
+        )
+    if kind == "GlobalKnotPointObjective":
+        return O.GlobalKnotPointObjective(
+            Qs=_lanes(obj.Qs, B, batched, device, dtype),
+            params=None if obj.params is None else _lanes(obj.params, B, batched, device, dtype),
+            ell=_fn(functions, ("objective", j), "a global knot objective's ell"),
+            var_names=tuple(obj.var_names), global_names=tuple(obj.global_names),
+            takes_params=bool(obj.takes_params),
+        )
+    raise TypeError(f"unknown objective {kind}")
 
 
 def _integrator(integ, B, batched, device, dtype):
@@ -92,7 +109,7 @@ def _integrator(integ, B, batched, device, dtype):
     if kind == "BilinearIntegrator":
         if integ.G_fn is not None or integ.method != "taylor":
             raise NotImplementedError("only the Taylor method with array generators is "
-                                      "ported (ROADMAP Queue 1 item 12)")
+                                      "ported (ROADMAP Queue 1 item 7)")
         return BilinearIntegrator(
             G_drift=_lanes(integ.G_drift, B, batched, device, dtype),
             G_drives=_lanes(integ.G_drives, B, batched, device, dtype),
@@ -101,7 +118,7 @@ def _integrator(integ, B, batched, device, dtype):
         )
     if kind == "DerivativeIntegrator":
         return DerivativeIntegrator(x_name=integ.x_name, xdot_name=integ.xdot_name)
-    raise NotImplementedError(f"integrator {kind} is not ported yet (ROADMAP Queue 1 item 12)")
+    raise NotImplementedError(f"integrator {kind} is not ported yet (ROADMAP Queue 1 item 7)")
 
 
 def _constraint(con, B, batched, device, dtype, functions, i):
@@ -148,19 +165,47 @@ def _constraint(con, B, batched, device, dtype, functions, i):
             g_dim=int(con.g_dim), equality=bool(con.equality), convention=con.convention,
             takes_params=bool(con.takes_params),
         )
-    raise NotImplementedError(f"constraint {kind} is not ported yet (ROADMAP Queue 1 "
-                              "'Left for later': global variables)")
+    if kind == "GlobalEqualityConstraint":
+        vals = np.array(con.values, dtype=np.float64).reshape(B if batched else 1, -1)
+        return C.GlobalEqualityConstraint(
+            values=torch.as_tensor(np.broadcast_to(vals, (B, vals.shape[1])).copy(), dtype=dtype,
+                                   device=device),
+            name=con.name, label=con.label)
+    if kind == "GlobalBoundsConstraint":
+        return C.GlobalBoundsConstraint(
+            lb=_lanes(con.lb, B, batched, device, dtype), ub=_lanes(con.ub, B, batched, device, dtype),
+            name=con.name, label=con.label)
+    if kind == "GlobalLinearConstraint":
+        A = np.array(con.A, dtype=np.float64)
+        if batched:
+            if not np.all(A == A[:1]):
+                raise ValueError("GlobalLinearConstraint: the port shares A across the lanes")
+            A = A[0]
+        return C.GlobalLinearConstraint(
+            A=A, lb=_lanes(con.lb, B, batched, device, dtype), ub=_lanes(con.ub, B, batched, device, dtype),
+            name=con.name, label=con.label, eq_mask=tuple(con.eq_mask),
+            finite_lb=tuple(con.finite_lb), finite_ub=tuple(con.finite_ub))
+    if kind == "NonlinearGlobalConstraint":
+        return C.NonlinearGlobalConstraint(
+            g=_fn(functions, ("constraint", i), "a nonlinear constraint's g"),
+            global_names=tuple(con.global_names), g_dim=int(con.g_dim),
+            equality=bool(con.equality))
+    if kind == "NonlinearGlobalKnotPointConstraint":
+        return C.NonlinearGlobalKnotPointConstraint(
+            params=None if con.params is None else _lanes(con.params, B, batched, device, dtype),
+            g=_fn(functions, ("constraint", i), "a nonlinear constraint's g"),
+            var_names=tuple(con.var_names), global_names=tuple(con.global_names),
+            times=tuple(int(t) for t in con.times), g_dim=int(con.g_dim),
+            equality=bool(con.equality), takes_params=bool(con.takes_params))
+    raise TypeError(f"unknown constraint {kind}")
 
 
-def from_numpy_problem(jax_problem, device, dtype=torch.float64, *,
+def from_numpy_problem(jax_problem, device=None, dtype=torch.float64, *,
                        functions: dict | None = None) -> DirectTrajOptProblem:
     """The port's problem for a ``directtrajopt_tpu`` problem (see module doc)."""
     functions = functions or {}
     device = check_device(device)
     jt = jax_problem.trajectory
-    if jt.global_names:
-        raise NotImplementedError("global variables are not ported yet (ROADMAP Queue 1 "
-                                  "'Left for later': global variables)")
     first = np.asarray(jt.data[jt.names[0]])
     batched = first.ndim == 3
     B = first.shape[0] if batched else 1
@@ -171,7 +216,9 @@ def from_numpy_problem(jax_problem, device, dtype=torch.float64, *,
         goal={k: _lanes(v, B, batched, device, dtype) for k, v in jt.goal.items()},
         bounds={k: (_lanes(lb, B, batched, device, dtype), _lanes(ub, B, batched, device, dtype))
                 for k, (lb, ub) in jt.bounds.items()},
+        global_data={k: _lanes(v, B, batched, device, dtype) for k, v in jt.global_data.items()},
         names=tuple(jt.names),
+        global_names=tuple(jt.global_names),
         timestep=jt.timestep,
         controls=tuple(jt.controls),
     )
@@ -185,7 +232,7 @@ def from_numpy_problem(jax_problem, device, dtype=torch.float64, *,
     )
 
 
-def from_numpy_warm(warm, device, dtype=torch.float64) -> WarmStart:
+def from_numpy_warm(warm, device=None, dtype=torch.float64) -> WarmStart:
     """The port's :class:`WarmStart` for a JAX ``WarmStart`` (batched or one lane)."""
     device = check_device(device)
 

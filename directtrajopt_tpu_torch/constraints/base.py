@@ -13,7 +13,8 @@ Riccati backend's chain promotion requires; a constraint that passes a
 tensor (``(nnz,)``, no lane axis) opts out of promotion.
 
 Nonlinear constraints are residual functions with an ``equality`` flag
-(``g = 0`` or ``g ≤ 0``), differentiated by ``torch.func``.
+(``g = 0`` or ``g ≤ 0``), differentiated by ``torch.func``. Rows may reach
+the global block, whose columns follow the knots' in flat Z.
 """
 
 from __future__ import annotations
@@ -87,10 +88,14 @@ class LinearConstraintBase:
 class NonlinearConstraintBase:
     """Nonlinear constraints: residual functions with an equality flag.
 
-    Subtypes provide ``constraint_dim(layout)`` and ``knot_residuals``
-    (the per-knot residuals of all lanes at once)."""
+    Subtypes provide ``constraint_dim(layout)`` and
+    ``evaluate_flat(layout, zmat, g)`` (all residuals of all lanes at once),
+    and the structured accessor the Riccati backend reads: a per-knot
+    ``knot_residual(layout, z, p, g)`` (``uses_global`` true when it reads
+    the global block g), or a pure-global ``global_residual(layout, g)``."""
 
     equality: bool = True
+    uses_global: bool = False
 
     def constraint_dim(self, layout: Layout) -> int:
         raise NotImplementedError

@@ -4,9 +4,8 @@ Counterpart of ``directtrajopt_tpu/constraints/linear.py``: pins, box bounds
 and the affine-row constraints, each lowering to the canonical pins /
 bounds / COO rows of :class:`~.base.LinearCanon`. All time indices are
 0-based. Per-lane data (pin values, bounds, totals) are ``(B, ·)`` tensors;
-row coefficients are shared by the lanes. The ``Global*`` constraints and
-``fix_global_variable`` are not ported yet (ROADMAP Queue 1 "Left for
-later": global variables).
+row coefficients are shared by the lanes. The ``Global*`` constraints act
+on the global block, whose columns follow the knots' in flat Z.
 """
 
 from __future__ import annotations
@@ -17,12 +16,16 @@ import numpy as np
 import torch
 
 from ..module import module
-from ..trajectory import Layout
+from ..trajectory import Layout, normalize_bound
 from .base import LinearCanon, LinearConstraintBase
 
 __all__ = [
     "EqualityConstraint",
+    "GlobalEqualityConstraint",
+    "fix_trajectory_variable",
+    "fix_global_variable",
     "BoundsConstraint",
+    "GlobalBoundsConstraint",
     "AllEqualConstraint",
     "TimeStepsAllEqualConstraint",
     "TotalConstraint",
@@ -31,6 +34,7 @@ __all__ = [
     "SymmetricControlConstraint",
     "TimeConsistencyConstraint",
     "L1SlackConstraint",
+    "GlobalLinearConstraint",
 ]
 
 
@@ -41,6 +45,20 @@ def _z_indices(layout: Layout, name: str, times: Sequence[int], sub: slice | Non
     if sub is not None:
         comp_idx = comp_idx[sub]
     return np.concatenate([t * layout.dim + comp_idx for t in times]), len(comp_idx)
+
+
+def _lane_values(values, traj, width: int | None = None) -> torch.Tensor:
+    """Per-lane values ``(B, n)``: a tensor as it is (one row broadcast over
+    the lanes), host data broadcast over ``traj``'s lanes on its device."""
+    ref = traj.data[traj.names[0]]
+    if isinstance(values, torch.Tensor):
+        v = values.to(dtype=ref.dtype, device=ref.device)
+        return v.reshape(1, -1).expand(traj.B, -1) if v.ndim < 2 else v.reshape(v.shape[0], -1)
+    a = np.asarray(values, dtype=np.float64).reshape(-1)
+    if width is not None:
+        a = np.broadcast_to(a, (width,))
+    return torch.as_tensor(np.broadcast_to(a, (traj.B, a.shape[0])).copy(), dtype=ref.dtype,
+                           device=ref.device)
 
 
 def _resolve_timestep_name(layout: Layout, name: str | None) -> str:
@@ -83,6 +101,48 @@ class EqualityConstraint(LinearConstraintBase):
 
 
 @module
+class GlobalEqualityConstraint(LinearConstraintBase):
+    """Pin a global component to ``values`` (B, dim), or (B, 1) for all of it."""
+
+    values: torch.Tensor
+    name: str
+    label: str = "global equality constraint"
+
+    @staticmethod
+    def create(name, values, *, traj, label=None):
+        """``values``: a tensor (B, dim), or host data broadcast over
+        ``traj``'s lanes."""
+        return GlobalEqualityConstraint(
+            values=_lane_values(values, traj), name=name,
+            label=label or f"equality constraint on global {name}",
+        )
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        gs = layout.global_z_slice(self.name)
+        idx = np.arange(gs.start, gs.stop)
+        canon.pin(idx, self.values.expand(self.values.shape[0], len(idx)))
+
+
+def fix_trajectory_variable(traj, name: str, times, values):
+    """Pin a trajectory variable at ``times`` and drop its bounds (which a
+    pin makes moot); returns (trajectory, constraint). ``values`` as for
+    :class:`EqualityConstraint`, or host data broadcast over the lanes."""
+    new_bounds = {k: v for k, v in traj.bounds.items() if k != name}
+    if not isinstance(values, torch.Tensor):
+        values = _lane_values(values, traj)
+    return traj.replace(bounds=new_bounds), EqualityConstraint.create(
+        name, times, values, label=f"fixed variable {name}")
+
+
+def fix_global_variable(traj, name: str, values):
+    """Pin a global variable and drop its bounds; returns (trajectory,
+    constraint)."""
+    new_bounds = {k: v for k, v in traj.bounds.items() if k != name}
+    return traj.replace(bounds=new_bounds), GlobalEqualityConstraint.create(
+        name, values, traj=traj, label=f"fixed global variable {name}")
+
+
+@module
 class BoundsConstraint(LinearConstraintBase):
     """Box bounds ``lb ≤ v ≤ ub`` (each (B, n)) on a component over knots."""
 
@@ -98,6 +158,27 @@ class BoundsConstraint(LinearConstraintBase):
         idx, _ = _z_indices(layout, self.name, self.times, sub)
         T = len(self.times)
         canon.bound(idx, self.lb.repeat(1, T), self.ub.repeat(1, T))
+
+
+@module
+class GlobalBoundsConstraint(LinearConstraintBase):
+    """Box bounds ``lb ≤ g ≤ ub`` (each (B, dim)) on a global component."""
+
+    lb: torch.Tensor
+    ub: torch.Tensor
+    name: str
+    label: str = "global bounds constraint"
+
+    @staticmethod
+    def create(name, bound, traj, *, label=None):
+        """``bound`` in any of the forms of ``normalize_bound``."""
+        lb, ub = normalize_bound(bound, traj.dims[name])
+        return GlobalBoundsConstraint(lb=_lane_values(lb, traj), ub=_lane_values(ub, traj),
+                                      name=name, label=label or f"bounds on global {name}")
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        gs = layout.global_z_slice(self.name)
+        canon.bound(np.arange(gs.start, gs.stop), self.lb, self.ub)
 
 
 @module
@@ -282,3 +363,62 @@ class L1SlackConstraint(LinearConstraintBase):
         cols = np.stack([pair, pair], axis=1).reshape(-1)
         vals = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=torch.float64).repeat(n)
         canon.add_ineq_rows(rows, cols, vals, np.zeros(2 * n), 2 * n)
+
+
+@module
+class GlobalLinearConstraint(LinearConstraintBase):
+    """``lb ≤ A·g ≤ ub`` on a global component: rows with lb == ub are
+    equalities, ±inf sides are skipped, and an all-zero row that cannot be
+    satisfied raises at construction. ``A`` (n_rows, dim) is shared by the
+    lanes (static numpy); ``lb`` / ``ub`` are (B, n_rows). The row
+    classification is taken from the host values at construction."""
+
+    A: np.ndarray
+    lb: torch.Tensor
+    ub: torch.Tensor
+    name: str
+    label: str = "global linear constraint"
+    eq_mask: tuple = ()
+    finite_lb: tuple = ()
+    finite_ub: tuple = ()
+
+    @staticmethod
+    def create(name, A, lb, ub=None, *, traj, label=None):
+        """``traj`` gives the lane count, device and dtype of ``lb`` / ``ub``."""
+        A = np.asarray(A, dtype=np.float64)
+        lb = np.asarray(lb, dtype=np.float64).reshape(-1)
+        ub = lb.copy() if ub is None else np.asarray(ub, dtype=np.float64).reshape(-1)
+        if not (A.shape[0] == len(lb) == len(ub)):
+            raise ValueError("row count mismatch between A, lb, ub")
+        if not np.all(lb <= ub):
+            raise ValueError("lb must be elementwise <= ub")
+        eq_mask = tuple(bool(lo == hi) for lo, hi in zip(lb, ub))
+        for r in range(A.shape[0]):
+            if not np.any(A[r]) and ((eq_mask[r] and lb[r] != 0.0) or lb[r] > 0.0 or ub[r] < 0.0):
+                raise ValueError(f"infeasible all-zero row {r} in {name} constraint")
+        return GlobalLinearConstraint(
+            A=A, lb=_lane_values(lb, traj), ub=_lane_values(ub, traj), name=name,
+            label=label or f"global linear constraint on {name}", eq_mask=eq_mask,
+            finite_lb=tuple(bool(np.isfinite(v)) for v in lb),
+            finite_ub=tuple(bool(np.isfinite(v)) for v in ub),
+        )
+
+    def lower(self, layout: Layout, canon: LinearCanon) -> None:
+        gs = layout.global_z_slice(self.name)
+        g_cols = np.arange(gs.start, gs.stop)
+        n_rows, g_dim = self.A.shape
+        finite_lb = self.finite_lb or (True,) * n_rows
+        finite_ub = self.finite_ub or (True,) * n_rows
+        eq_r = [r for r in range(n_rows) if self.eq_mask[r]]
+        if eq_r:
+            canon.add_eq_rows(np.repeat(np.arange(len(eq_r)), g_dim), np.tile(g_cols, len(eq_r)),
+                              self.A[eq_r].reshape(-1), self.lb[:, eq_r], len(eq_r))
+        # a·g ≤ ub and −a·g ≤ −lb for the finite sides
+        up_r = [r for r in range(n_rows) if not self.eq_mask[r] and finite_ub[r]]
+        lo_r = [r for r in range(n_rows) if not self.eq_mask[r] and finite_lb[r]]
+        n_in = len(up_r) + len(lo_r)
+        if n_in:
+            vals = np.concatenate([self.A[up_r].reshape(-1), -self.A[lo_r].reshape(-1)])
+            rhs = torch.cat([self.ub[:, up_r], -self.lb[:, lo_r]], dim=1)
+            canon.add_ineq_rows(np.repeat(np.arange(n_in), g_dim), np.tile(g_cols, n_in), vals,
+                                rhs, n_in)

@@ -34,11 +34,14 @@
 //   stacks, (L, R, N, d) right-hand sides), so a group reads each block at
 //   contiguous addresses and the wrapper copies nothing. Every loop bound
 //   is a compile-time constant: no register array is indexed at run time.
-//   Instantiated at (8,3,3) (path 1) and (2,1,3) (path 2).
+//   Instantiated at (8,3,3) (path 1), (2,1,3) (path 2) and (2,1,7) (path 3,
+//   the global-phase family: 4 border columns, 2 arrowhead columns and the
+//   main system; its lane's shared memory is 196 floats, 25 KB a block).
 //   Bound on the card (H100 SXM, 3.35 TB/s; the FLOP bound is 5-10× lower):
 //   each input byte read once and each output byte written once is 85.8 KB
 //   per lane at (8,3,3), N=51 — 22.0 MB, 6.6 µs at 256 lanes and 703 MB,
-//   210 µs at 8192 — and 26 µs (86.9 MB) at (2,1,3), N=51, 8192 lanes. The
+//   210 µs at 8192 — 26 µs (86.9 MB) at (2,1,3), N=51, 8192 lanes, and
+//   46 µs (153.5 MB) at (2,1,7). The
 //   sweep is sequential in N, so the design spends the lane's parallelism
 //   on the group (a knot's critical path is ~NS times shorter than one
 //   thread's) and hides each knot's load latency behind the previous
@@ -1207,6 +1210,8 @@ extern "C" int dto_factor_solve_grouped(int L, int N, int ns, int nv, int R, uns
     factor_solve_grouped<8, 3, 3><<<grouped_grid<8>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
   else if (ns == 2 && nv == 1 && R == 3)
     factor_solve_grouped<2, 1, 3><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+  else if (ns == 2 && nv == 1 && R == 7)
+    factor_solve_grouped<2, 1, 7><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -4,7 +4,7 @@ Counterpart of ``directtrajopt_tpu/integrators/bilinear.py``, Taylor method
 only: ``G(u) = G_drift + Σᵢ uᵢ·G_drives[i]`` with per-lane generators
 ``G_drift`` (B, x_dim, x_dim) and ``G_drives`` (B, u_dim, x_dim, x_dim). The
 Padé method and callable generators are not ported yet (ROADMAP Queue 1
-item 12).
+item 7).
 
 Residuals and window Jacobians route through ``ops/expv_kernel.py``. The
 dtype gate is the JAX package's: float32 residuals take the residual
@@ -25,6 +25,7 @@ import torch
 from ..module import module
 from ..ops import expv_kernel
 from ..ops.expm import expv_taylor
+from ..precision import check_device
 from ..trajectory import Layout
 
 __all__ = ["BilinearIntegrator"]
@@ -44,14 +45,16 @@ class BilinearIntegrator:
     taylor_order: int = 12
 
     @staticmethod
-    def create(G, x_name: str, u_name: str, *, batch: int, device, dtype=torch.float64,
+    def create(G, x_name: str, u_name: str, *, batch: int, device=None, dtype=torch.float64,
                method: str = "taylor", taylor_order: int = 12) -> "BilinearIntegrator":
         """From a ``(G_drift, G_drives)`` pair of host arrays, per problem
-        ((x, x) and (u, x, x)) or per lane (with a leading batch axis)."""
+        ((x, x) and (u, x, x)) or per lane (with a leading batch axis).
+        ``device`` None means the card."""
         if callable(G):
-            raise NotImplementedError("callable generators are not ported yet (ROADMAP Queue 1 item 12)")
+            raise NotImplementedError("callable generators are not ported yet (ROADMAP Queue 1 item 7)")
         if method != "taylor":
-            raise NotImplementedError(f"method={method!r}: only 'taylor' is ported (ROADMAP Queue 1 item 12)")
+            raise NotImplementedError(f"method={method!r}: only 'taylor' is ported (ROADMAP Queue 1 item 7)")
+        device = check_device(device)
         G_drift, G_drives = G
         Gd = np.asarray(G_drift, dtype=np.float64)
         Gv = np.asarray(G_drives, dtype=np.float64)

@@ -1,25 +1,31 @@
 """Objective interface and composition.
 
 Counterpart of ``directtrajopt_tpu/objectives/base.py``. An objective is a
-sum of per-knot costs. Where the JAX package defines the cost of one knot
-and ``vmap``s it, the port computes all knots of all lanes at once:
+sum of per-knot costs plus a cost on the global block. Where the JAX
+package defines the cost of one knot and ``vmap``s it, the port computes
+all knots of all lanes at once:
 
-    cost_at_knot(layout, zmat) -> (B, ..., N)   for zmat (B, ..., N, dim)
+    cost_at_knot(layout, zmat, g) -> (B, ..., N)   zmat (B, ..., N, dim), g (B, ..., global_dim)
+    cost_global(layout, g)        -> (B, ...)
 
-Extra axes between the batch and the knot axis (the line search's trial
-grid) broadcast against the objective's per-lane data. Gradients and the
-per-knot Hessian blocks come from ``torch.func`` (see
-``solvers/assembly.py`` and ``solvers/ops_riccati.py``).
+``uses_global`` says whether ``cost_at_knot`` reads g (the knot × global
+cross terms of the Riccati backend's arrowhead). Extra axes between the
+batch and the knot axis (the line search's trial grid) broadcast against
+the objective's per-lane data. Gradients and the per-knot Hessian blocks
+come from ``torch.func`` (see ``solvers/assembly.py`` and
+``solvers/ops_riccati.py``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import grad
 
 from ..module import module
 from ..trajectory import Layout
 
-__all__ = ["ObjectiveBase", "CompositeObjective", "objective_value", "lane_data"]
+__all__ = ["ObjectiveBase", "CompositeObjective", "NullObjective", "objective_value",
+           "objective_gradient", "objective_total", "lane_data"]
 
 
 def lane_data(t: torch.Tensor, zmat: torch.Tensor) -> torch.Tensor:
@@ -32,8 +38,17 @@ def lane_data(t: torch.Tensor, zmat: torch.Tensor) -> torch.Tensor:
 class ObjectiveBase:
     """Mixin giving objectives ``+`` / ``*`` composition."""
 
-    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor, g=None) -> torch.Tensor:
         return torch.zeros(zmat.shape[:-1], dtype=zmat.dtype, device=zmat.device)
+
+    def cost_global(self, layout: Layout, g: torch.Tensor) -> torch.Tensor:
+        """Cost of the global block alone, ``(B, ...)`` for g (B, ..., global_dim)."""
+        return g.new_zeros(g.shape[:-1])
+
+    @property
+    def uses_global(self) -> bool:
+        """Whether ``cost_at_knot`` reads the global block."""
+        return False
 
     def __add__(self, other):
         return _compose((self, other), (1.0, 1.0))
@@ -69,17 +84,51 @@ class CompositeObjective(ObjectiveBase):
     objectives: tuple
     weights: tuple
 
-    def cost_at_knot(self, layout, zmat):
+    def cost_at_knot(self, layout, zmat, g=None):
         total = torch.zeros(zmat.shape[:-1], dtype=zmat.dtype, device=zmat.device)
         for w, obj in zip(self.weights, self.objectives):
-            total = total + w * obj.cost_at_knot(layout, zmat)
+            total = total + w * obj.cost_at_knot(layout, zmat, g)
         return total
+
+    def cost_global(self, layout, g):
+        total = g.new_zeros(g.shape[:-1])
+        for w, obj in zip(self.weights, self.objectives):
+            total = total + w * obj.cost_global(layout, g)
+        return total
+
+    @property
+    def uses_global(self) -> bool:
+        return any(obj.uses_global for obj in self.objectives)
 
     def __repr__(self):
         terms = ", ".join(f"{w:g} * {obj!r}" for w, obj in zip(self.weights, self.objectives))
         return f"CompositeObjective({terms})"
 
 
-def objective_value(obj: ObjectiveBase, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
-    """Total objective per lane (and per extra axis): ``(B, ...)``."""
-    return obj.cost_at_knot(layout, zmat).sum(-1)
+@module
+class NullObjective(ObjectiveBase):
+    """The zero objective."""
+
+    def __repr__(self):
+        return "NullObjective"
+
+
+def objective_total(obj: ObjectiveBase, layout: Layout, zmat: torch.Tensor,
+                    g: torch.Tensor | None = None) -> torch.Tensor:
+    """Total objective per lane (and per extra axis), ``(B, ...)``, from knot
+    matrices ``zmat`` (B, ..., N, dim) and global blocks ``g``
+    (B, ..., global_dim); the global cost enters only with a global block."""
+    total = obj.cost_at_knot(layout, zmat, g).sum(-1)
+    if layout.global_dim:
+        total = total + obj.cost_global(layout, g)
+    return total
+
+
+def objective_value(obj: ObjectiveBase, traj) -> torch.Tensor:
+    """Total objective of every lane of a trajectory, ``(B,)``."""
+    return objective_total(obj, traj.layout, traj.knot_matrix(), traj.global_vec())
+
+
+def objective_gradient(obj: ObjectiveBase, traj) -> torch.Tensor:
+    """Gradient with respect to the flat decision vectors, ``(B, z_dim)``."""
+    return grad(lambda z: objective_value(obj, traj.from_zvec(z)).sum())(traj.to_zvec())

@@ -59,7 +59,7 @@ class KnotPointObjective(ObjectiveBase):
             takes_params=params is not None,
         )
 
-    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor, g=None) -> torch.Tensor:
         vals = torch.cat([layout.knot_extract(zmat, n) for n in self.var_names], dim=-1)
         lead = vals.shape[:-1]
         flat = vals.reshape(-1, vals.shape[-1])
@@ -80,9 +80,11 @@ def TerminalObjective(ell: Callable, names: str | Sequence[str], traj: Trajector
     return KnotPointObjective.create(ell, names, traj, params, times=[traj.N - 1], Qs=[Q])
 
 
-def knot_hvp(obj, layout: Layout, zmat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def knot_hvp(obj, layout: Layout, zmat: torch.Tensor, v: torch.Tensor,
+             gvec: torch.Tensor | None = None) -> torch.Tensor:
     """Per-knot Hessian-vector products ``∇²_{z_k} cost_k · v_k`` for every
-    knot of every lane (``zmat``, ``v`` (B, ..., N, d)): forward over reverse
-    through the knot costs, which are independent across knots."""
-    g = grad(lambda z: obj.cost_at_knot(layout, z).sum())
+    knot of every lane (``zmat``, ``v`` (B, ..., N, d); the global block
+    ``gvec`` held fixed): forward over reverse through the knot costs, which
+    are independent across knots."""
+    g = grad(lambda z: obj.cost_at_knot(layout, z, gvec).sum())
     return jvp(g, (zmat,), (v,))[1]

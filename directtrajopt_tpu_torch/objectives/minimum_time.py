@@ -27,7 +27,7 @@ class MinimumTimeObjective(ObjectiveBase):
         return MinimumTimeObjective(D=torch.full((traj.B,), float(D), dtype=ref.dtype,
                                                  device=ref.device))
 
-    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor, g=None) -> torch.Tensor:
         dt = layout.knot_timestep(zmat)
         # the final knot's Δt is not part of the duration
         keep = torch.arange(layout.N, device=zmat.device) < layout.N - 1

@@ -58,7 +58,7 @@ class QuadraticRegularizer(ObjectiveBase):
             name=name,
         )
 
-    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor, g=None) -> torch.Tensor:
         v = layout.knot_extract(zmat, self.name)
         dv = v - lane_data(self.baseline, zmat)
         dt = layout.knot_timestep(zmat)
@@ -89,7 +89,7 @@ class LinearRegularizer(ObjectiveBase):
         return LinearRegularizer(R=torch.as_tensor(np.array(R_vec), **kw),
                                  mask=torch.as_tensor(np.array(mask), **kw), name=name)
 
-    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    def cost_at_knot(self, layout: Layout, zmat: torch.Tensor, g=None) -> torch.Tensor:
         v = layout.knot_extract(zmat, self.name)
         dt = layout.knot_timestep(zmat)
         R = lane_data(self.R, zmat)[..., None, :]

@@ -3,7 +3,7 @@
 Counterpart of ``directtrajopt_tpu/ops/expm.py``. ``expv_taylor`` is the
 integrators' action; ``expm_pade`` (Padé-13 with a fixed number of
 squarings) serves the rollouts (``rollout.bilinear_rollout``). The Padé
-integrator method is not ported yet (ROADMAP Queue 1 item 12).
+integrator method is not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

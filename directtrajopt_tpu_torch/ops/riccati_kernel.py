@@ -44,8 +44,9 @@ __all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain", "MA
 # kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, kRMax)
 MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
 # (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
-# gate problem and path 2's state-constrained family
-GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3)})
+# gate problem, path 2's state-constrained family and path 3's global-phase
+# family (R = 4 border + 2 arrowhead columns + the main system)
+GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3), (2, 1, 7)})
 # (n_s, n_v, R') instantiations of K2's resolve_grouped: the fused SOC +
 # restoration resolve of both paths; other shapes run resolve_generic
 RESOLVE_GROUPED_SHAPES = frozenset({(8, 3, 2), (2, 1, 2)})
@@ -209,7 +210,7 @@ def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
     for k, v in sizes.items():
         if not 1 <= v <= MAX_SIZES[k]:
             raise NotImplementedError(f"{k}={v} exceeds the kernel's bound {MAX_SIZES[k]} "
-                                      "(ROADMAP Queue 1 'Left for later' a1)")
+                                      "(ROADMAP Queue 2 item 3)")
     return True
 
 

@@ -5,7 +5,8 @@ JAX package forces this with ``jax.default_matmul_precision("highest")``
 (``directtrajopt_tpu/solvers/ipm.py``), because reduced-precision passes
 spoiled the KKT factorization. On Hopper the same trap is TF32, which
 cuBLAS and cuDNN may use for float32 unless told not to. ``apply()`` turns
-it off; the solver calls it once, when it is imported.
+it off; the solver calls it once, when it is imported. ``check_device``
+resolves the ``device`` argument of the entry points (None: the card).
 """
 
 from __future__ import annotations
@@ -23,8 +24,11 @@ def apply() -> None:
 
 
 def check_device(device) -> torch.device:
-    """Normalise a device argument. There is no default: callers name the
-    device, so that nothing silently runs on the CPU."""
+    """Normalise a device argument. ``None`` means the card: the port's entry
+    points run on the GPU unless the caller asks for the CPU (``"cpu"``), and
+    they never fall back to it — without a CUDA device, ``None`` raises."""
     if device is None:
-        raise ValueError("pass device= explicitly (e.g. 'cuda' or 'cpu')")
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+        return torch.device("cuda")
     return torch.device(device)

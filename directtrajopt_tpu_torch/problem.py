@@ -2,9 +2,10 @@
 
 Counterpart of ``directtrajopt_tpu/problem.py``: the constructor extracts
 the trajectory constraints (initial / final pins, bounds over the knots the
-pins leave free, time consistency ``t_{k+1} = t_k + Δt_k`` when a ``t``
-component meets a free timestep), and a free timestep with no bounds gets a
-default ``Δt ≥ 0`` lower bound with a warning.
+pins leave free, bounds on global components, time consistency
+``t_{k+1} = t_k + Δt_k`` when a ``t`` component meets a free timestep), and
+a free timestep with no bounds gets a default ``Δt ≥ 0`` lower bound with a
+warning.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from typing import Sequence
 
 import torch
 
-from .constraints import BoundsConstraint, EqualityConstraint, TimeConsistencyConstraint
+from .constraints import (
+    BoundsConstraint,
+    EqualityConstraint,
+    GlobalBoundsConstraint,
+    TimeConsistencyConstraint,
+)
 from .module import module
 from .trajectory import Trajectory
 
@@ -32,6 +38,10 @@ def get_trajectory_constraints(traj: Trajectory) -> list:
     for name, val in traj.final.items():
         cons.append(EqualityConstraint.create(name, [N - 1], val, label=f"final value of {name}"))
     for name, (lb, ub) in traj.bounds.items():
+        if name in traj.global_names:
+            cons.append(GlobalBoundsConstraint(lb=lb, ub=ub, name=name,
+                                               label=f"bounds on global {name}"))
+            continue
         if name in traj.initial and name in traj.final:
             ts = range(1, N - 1)
         elif name in traj.initial:

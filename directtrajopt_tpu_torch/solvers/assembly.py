@@ -2,7 +2,7 @@
 
 Counterpart of ``gradient`` in ``directtrajopt_tpu/solvers/assembly.py``.
 The dense Jacobian and Hessian assembly of the JAX package's dense backend
-is not ported yet (ROADMAP Queue 1 item 11).
+is not ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

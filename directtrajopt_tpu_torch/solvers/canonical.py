@@ -10,7 +10,9 @@ Counterpart of ``directtrajopt_tpu/solvers/canonical.py``:
 
 Every callable takes ``Z`` of shape ``(B, ..., z_dim)`` — one row per lane,
 with optional extra axes (the line search's trial grid) that broadcast
-against the per-lane problem data — and returns ``(B, ..., ·)``.
+against the per-lane problem data — and returns ``(B, ..., ·)``. Z's first
+N·dim columns are the knots (seen as a ``(B, ..., N, dim)`` view, no copy)
+and its last ``global_dim`` the global block.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..constraints.base import LinearCanon, NonlinearConstraintBase
 from ..integrators.base import stack_residuals, stack_residuals_l1
-from ..objectives.base import lane_data, objective_value
+from ..objectives.base import lane_data, objective_total
 from ..problem import DirectTrajOptProblem
 from ..trajectory import Layout
 
@@ -114,8 +116,12 @@ class CanonicalNLP:
         L = self.layout
         return Z[..., : L.N * L.dim].reshape(Z.shape[:-1] + (L.N, L.dim))
 
+    def _gvec(self, Z: torch.Tensor) -> torch.Tensor:
+        L = self.layout
+        return Z[..., L.N * L.dim :]
+
     def objective(self, Z: torch.Tensor) -> torch.Tensor:
-        return objective_value(self.objective_obj, self.layout, self._zmat(Z))
+        return objective_total(self.objective_obj, self.layout, self._zmat(Z), self._gvec(Z))
 
     def dynamics(self, Z: torch.Tensor) -> torch.Tensor:
         zmat = self._zmat(Z)
@@ -123,11 +129,11 @@ class CanonicalNLP:
             stack_residuals(integ, self.layout, zmat).reshape(Z.shape[:-1] + (-1,))
             for integ in self.integrators
         ]
-        return torch.cat(parts, dim=-1)
+        return torch.cat(parts, dim=-1) if parts else Z.new_zeros(Z.shape[:-1] + (0,))
 
     def _nl(self, cons, Z: torch.Tensor) -> torch.Tensor:
-        zmat = self._zmat(Z)
-        return torch.cat([c.evaluate_flat(self.layout, zmat) for c in cons], dim=-1)
+        zmat, g = self._zmat(Z), self._gvec(Z)
+        return torch.cat([c.evaluate_flat(self.layout, zmat, g) for c in cons], dim=-1)
 
     def _lin(self, A: COORows, b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
         return A.matvec(Z) - lane_data(b, Z[..., None, :])

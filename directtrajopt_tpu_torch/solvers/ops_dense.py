@@ -1,7 +1,7 @@
 """Inertia-regularization retry ladder shared by the KKT backends.
 
 Counterpart of ``_reg_retry`` in ``directtrajopt_tpu/solvers/ops_dense.py``.
-The dense KKT backend itself is not ported yet (ROADMAP Queue 1 item 11);
+The dense KKT backend itself is not ported yet (ROADMAP Queue 1 item 6);
 the Riccati backend uses this ladder.
 """
 

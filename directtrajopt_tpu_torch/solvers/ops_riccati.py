@@ -19,13 +19,20 @@ certificate of the δ_w retry ladder. On top of that core:
   rows get an augmented-Lagrangian curvature shift ρ·cᵀc on the owning
   knot; border inequalities carry the exact −1/D slack diagonal in place
   of −δ_c, rhs 0, and a discarded multiplier;
+* **global variables** are an **arrowhead** border: n_g extra core solves
+  against the −H_zg cross-Hessian columns ride the same fused sweep, then a
+  2×2 block Schur solve over (λ_border, δg). The global block's Cholesky
+  (of H_gg − H_zgᵀK⁻¹H_zg, with the border's W₁ᵀM⁻¹W₁) is part of the
+  per-lane δ_w certificate, so with globals the border Schur factors are
+  formed inside the retry. Global-coupled and pure-global nonlinear
+  inequalities, and linear inequality rows with global columns, ride the
+  border as border inequalities;
 * **per-stage regularization** (``hessian_regularization``): "stagewise"
   (an estimated λ_min shift per stage) and "project" / "flip" (per-stage
   spectral modification).
 
-Not ported yet: global variables, the arrowhead border (ROADMAP Queue 1
-"Left for later": global variables), the "floor" mode (item 8) and L-BFGS
-(item 13).
+Not ported: the "floor" mode (ROADMAP Queue 1 item 3 records why) and
+L-BFGS (item 5).
 
 All tensors carry a leading lane axis B.
 """
@@ -70,22 +77,29 @@ def _chol(M: torch.Tensor) -> torch.Tensor:
 
 
 def _chosolve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``(L Lᵀ)⁻¹ b`` for vectors b (..., n), unrolled (``_chosolve``)."""
+    """``(L Lᵀ)⁻¹ b`` for vectors b (..., n) or matrices b (..., n, m),
+    unrolled (``_chosolve``)."""
     n = L.shape[-1]
+    vec = b.ndim == L.ndim - 1
+    rows = [b[..., i] for i in range(n)] if vec else [b[..., i, :] for i in range(n)]
+
+    def lij(i, k):
+        return L[..., i, k] if vec else L[..., i, k][..., None]
+
     inv = [1.0 / L[..., i, i] for i in range(n)]
     y = [None] * n
     for i in range(n):
-        s = b[..., i]
+        s = rows[i]
         for k in range(i):
-            s = s - L[..., i, k] * y[k]
-        y[i] = s * inv[i]
+            s = s - lij(i, k) * y[k]
+        y[i] = s * inv[i] if vec else s * inv[i][..., None]
     x = [None] * n
     for i in range(n - 1, -1, -1):
         s = y[i]
         for k in range(i + 1, n):
-            s = s - L[..., k, i] * x[k]
-        x[i] = s * inv[i]
-    return torch.stack(x, dim=-1)
+            s = s - lij(k, i) * x[k]
+        x[i] = s * inv[i] if vec else s * inv[i][..., None]
+    return torch.stack(x, dim=-1 if vec else -2)
 
 
 def _stage_min_shift(Q: torch.Tensor, n_iter: int = 12, margin_rel: float = 1e-5):
@@ -137,27 +151,35 @@ class OCPStructure:
     promo_jr: np.ndarray  # (N-1, n_promo, d) normalized Jacobians α/β
     core_beta: np.ndarray  # (N-1, n_s) β per core row (1 for real dynamics)
     lin_border_rows: np.ndarray  # A_eq row indices not promoted (border)
+    n_g: int  # global-variable count (the arrowhead's width)
+    g_free: np.ndarray  # (n_g,) 1 where the global coordinate is free
     # inequality row → (knot, slot) maps (fast rows; border rows masked out)
     in_knot: np.ndarray  # (n_in,)
     in_slot: np.ndarray  # (n_in,)
     m_in: int
     lin_in_nnz: tuple  # (knot, slot, col_local) of the fast linear COO entries
-    # (n_ib,) flat c_in index of each border inequality; only linear rows
-    # ride the border here, so these are also their A_in row indices
-    ib_flat: np.ndarray
+    # border inequalities (multi-knot or global-coupled rows): the flat c_in
+    # index of each, in border order (linear rows, then the nonlinear border
+    # constraints in constraint order), and the A_in rows of the linear ones
+    ib_flat: np.ndarray  # (n_ib,)
+    ib_lin_rows: np.ndarray  # (n_ib_lin,)
     in_fast_mask: np.ndarray  # (n_in,) 1.0 on fast rows
     lin_nnz_keep: np.ndarray  # (nnz,) per-COO-entry fast-row mask
     nl_eq_offsets: list  # flat c_eq offset of each nonlinear equality
     nl_in_offsets: list  # flat c_in offset of each nonlinear inequality
 
 
+def _in_con_border(con) -> bool:
+    """True when a nonlinear inequality rides the Schur border (global-coupled
+    or pure-global) instead of the per-knot fast path."""
+    return not hasattr(con, "knot_residual") or getattr(con, "uses_global", False)
+
+
 def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
     """Check Riccati eligibility and build the static structure."""
     layout = nlp.layout
     N, d = layout.N, layout.dim
-    if layout.global_dim:
-        raise NotImplementedError("global variables are not ported yet (ROADMAP Queue 1 "
-                                  "'Left for later': global variables)")
+    n_g = layout.global_dim
     if not nlp.integrators:
         return None
     s_list, s_pos = [], []
@@ -216,29 +238,35 @@ def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
     v_idx = np.asarray([i for i in range(d) if i not in taken], dtype=np.int64)
     n_s = len(s_idx)
 
+    # nonlinear constraints: knot-local (optionally global-coupled) or pure
+    # global; global coupling goes through the arrowhead border
     for con in nlp.eq_cons + nlp.in_cons:
-        if not hasattr(con, "knot_residual"):
+        if not (hasattr(con, "knot_residual") or hasattr(con, "global_residual")):
             return None
 
-    # linear inequality rows: knot-local → fast path; multi-knot → border
+    # linear inequality rows: knot-local, global-free → fast path;
+    # multi-knot or global-coupled → border
     ib_lin_rows = []
     row_off0 = 0
     for rows, cols, _, _, n in nlp.in_entries:
         knots = cols // d
         for r in range(n):
             sel = rows == r
-            if np.any(sel) and not np.all(knots[sel] == knots[sel][0]):
+            if np.any(sel) and (np.any(cols[sel] >= N * d)
+                                or not np.all(knots[sel] == knots[sel][0])):
                 ib_lin_rows.append(row_off0 + r)
         row_off0 += n
     ib_lin_set = set(ib_lin_rows)
 
-    free = np.ones(N * d)
+    free = np.ones(N * d + n_g)
     free[nlp.fix_idx] = 0.0
-    free_blk = free.reshape(N, d)
-    # dynamics rows whose target coordinate is pinned go to the border
+    free_blk = free[: N * d].reshape(N, d)
+    g_free = free[N * d :].copy()
+    # dynamics rows whose target coordinate is pinned go to the border; pins
+    # of global coordinates (indices ≥ N·d) are g_free's
     target_flat = (np.arange(1, N)[:, None] * d) + s_idx[None, :]
     pinned = np.zeros(N * d, dtype=bool)
-    pinned[nlp.fix_idx] = True
+    pinned[nlp.fix_idx[nlp.fix_idx < N * d]] = True
     bp = pinned[target_flat]
     core_mask = (~bp).astype(np.float64)
     bp_steps, bp_rows = np.nonzero(bp)
@@ -287,9 +315,15 @@ def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
             lin_nnz_slot.append(sl)
             lin_nnz_col.append(cc % d)
         row_off += n
-    nl_in_offsets = []
+    nl_in_offsets, ib_nl_flat = [], []
     for con in nlp.in_cons:
         nl_in_offsets.append(row_off)
+        if _in_con_border(con):
+            n_rows = con.constraint_dim(layout)
+            ib_nl_flat.extend(range(row_off, row_off + n_rows))
+            in_fast_mask[row_off : row_off + n_rows] = 0.0
+            row_off += n_rows
+            continue
         for t in con.times:
             for _ in range(con.g_dim):
                 in_knot[row_off] = t
@@ -309,11 +343,13 @@ def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
         core_mask=core_mask, bp_steps=bp_steps, bp_rows=bp_rows,
         bp_flat=dyn_flat[bp_steps, bp_rows], dyn_flat_of_stack=dyn_flat,
         s0_mask=free_blk[0, s_idx].copy(), promo_jr=promo_jr, core_beta=core_beta,
-        lin_border_rows=lin_border_rows, in_knot=in_knot, in_slot=in_slot, m_in=m_in,
+        lin_border_rows=lin_border_rows, n_g=n_g, g_free=g_free, in_knot=in_knot,
+        in_slot=in_slot, m_in=m_in,
         lin_in_nnz=(np.asarray(lin_nnz_knot, dtype=np.int64),
                     np.asarray(lin_nnz_slot, dtype=np.int64),
                     np.asarray(lin_nnz_col, dtype=np.int64)),
-        ib_flat=np.asarray(ib_lin_rows, dtype=np.int64), in_fast_mask=in_fast_mask,
+        ib_flat=np.asarray(ib_lin_rows + ib_nl_flat, dtype=np.int64),
+        ib_lin_rows=np.asarray(ib_lin_rows, dtype=np.int64), in_fast_mask=in_fast_mask,
         lin_nnz_keep=np.asarray(lin_nnz_keep, dtype=bool),
         nl_eq_offsets=nl_eq_offsets, nl_in_offsets=nl_in_offsets,
     )
@@ -327,15 +363,37 @@ def _lane_scatter_add(base: torch.Tensor, idx: list, vals: torch.Tensor) -> torc
     return base.index_put((lane, *(i[None] for i in idx)), vals, accumulate=True)
 
 
-def _knot_hessians(obj, layout, zmat: torch.Tensor) -> torch.Tensor:
-    """Per-knot Hessians (B, N, d, d) of a knot-separable objective, by
-    forward-over-reverse AD: one tangent per coordinate, applied to every
-    knot of every lane at once."""
-    g = grad(lambda z: obj.cost_at_knot(layout, z).sum())
+def _knot_hessians(obj, layout, zmat: torch.Tensor, gvec=None) -> torch.Tensor:
+    """Per-knot Hessians (B, N, d, d) of a knot-separable objective (the
+    global block ``gvec`` held fixed), by forward-over-reverse AD: one
+    tangent per coordinate, applied to every knot of every lane at once."""
+    g = grad(lambda z: obj.cost_at_knot(layout, z, gvec).sum())
     eye = torch.eye(layout.dim, dtype=zmat.dtype, device=zmat.device)
     # out_dims=0: a Hessian that does not depend on the tangent (a linear
     # cost) comes back unbatched, which vmap cannot place on the last axis
     return vmap(lambda e: jvp(g, (zmat,), (e.expand_as(zmat),))[1])(eye).movedim(0, -1)
+
+
+def _global_hessians(obj, layout, zmat: torch.Tensor, gvec: torch.Tensor):
+    """The objective's arrowhead blocks: H_zg (B, N, d, n_g), each knot's
+    ∂²cost_k/∂z_k∂g, and H_gg (B, n_g, n_g), ∂²/∂g² of the knot costs
+    (when they read g) plus the global cost. Forward over reverse, one
+    tangent per global coordinate applied to every lane at once."""
+
+    def total(z, g):
+        t = obj.cost_global(layout, g)
+        if obj.uses_global:
+            t = t + obj.cost_at_knot(layout, z, g).sum(-1)
+        return t.sum()
+
+    grads = grad(total, argnums=(0, 1))
+    eye = torch.eye(gvec.shape[-1], dtype=gvec.dtype, device=gvec.device)
+
+    def col(e):
+        return jvp(lambda g: grads(zmat, g), (gvec,), (e.expand_as(gvec),))[1]
+
+    Hz, Hg = vmap(col)(eye)
+    return Hz.movedim(0, -1), Hg.movedim(0, -1)
 
 
 class _RiccatiCtx:
@@ -344,11 +402,13 @@ class _RiccatiCtx:
         self.nlp = nlp
         self.S = S
         layout = nlp.layout
-        N, d = S.N, S.d
+        N, d, n_g = S.N, S.d, S.n_g
         B = Z.shape[0]
         dtype, dev = Z.dtype, Z.device
         self.dtype = dtype
-        zmat = Z.reshape(B, N, d)
+        # the knots and the global block, views of Z
+        zmat = Z[:, : N * d].reshape(B, N, d)
+        gvec = Z[:, N * d :]
         self.grad_f = gradient(nlp, Z)
         if cache is not None:
             # residuals at Z carried over from the line search that accepted it
@@ -373,18 +433,57 @@ class _RiccatiCtx:
         def zsel(con):
             return zmat[:, list(con.times)]
 
+        def gsel(con):
+            # a copy: a forward-mode primal may not repeat a memory location
+            return gvec[:, None, :].expand(B, len(con.times), n_g).contiguous()
+
+        def coupled(con):
+            return bool(n_g) and getattr(con, "uses_global", False)
+
+        # torch.func's forward mode can promote the tangent of a 0-d float32
+        # op with a Python float (u[0] − 0.1) to float64: the Jacobians are
+        # cast back to the iterate's dtype
+
         def nl_jac(con):
-            """Per-knot Jacobian blocks (B, T, g_dim, d)."""
+            """Per-knot Jacobian blocks (B, T, g_dim, d); None for a
+            pure-global constraint."""
+            if not hasattr(con, "knot_residual"):
+                return None
+            if coupled(con):
+                return con.map_knots(
+                    lambda z, p, g: jacfwd(lambda zz: con.knot_residual(layout, zz, p, g))(z),
+                    zsel(con), gsel(con)).to(dtype)
             return con.map_knots(
-                lambda z, p: jacfwd(lambda zz: con.knot_residual(layout, zz, p))(z), zsel(con))
+                lambda z, p: jacfwd(lambda zz: con.knot_residual(layout, zz, p))(z),
+                zsel(con)).to(dtype)
+
+        def nl_jac_g(con):
+            """Global-column Jacobian blocks: (B, T, g_dim, n_g) for a
+            global-coupled knot constraint, (B, g_dim, n_g) for a pure-global
+            one, None otherwise."""
+            if not n_g:
+                return None
+            if hasattr(con, "knot_residual"):
+                if not coupled(con):
+                    return None
+                return con.map_knots(
+                    lambda z, p, g: jacfwd(lambda gg: con.knot_residual(layout, z, p, gg))(g),
+                    zsel(con), gsel(con)).to(dtype)
+            return vmap(jacfwd(lambda g: con.global_residual(layout, g)))(gvec).to(dtype)
 
         self.nl_eq_jacs = [nl_jac(c) for c in nlp.eq_cons]
         self.nl_in_jacs = [nl_jac(c) for c in nlp.in_cons]
+        self.nl_eq_jacs_g = [nl_jac_g(c) for c in nlp.eq_cons]
+        self.nl_in_jacs_g = [nl_jac_g(c) for c in nlp.in_cons]
 
         # Lagrangian Hessian blocks (B, N, d, d): objective, then (exact
         # Hessian only) the λ-weighted dynamics and the λ/ν-weighted
-        # nonlinear-constraint curvature
-        QW = _knot_hessians(nlp.objective_obj, layout, zmat)
+        # nonlinear-constraint curvature; with globals, the arrowhead blocks
+        # H_zg (B, N, d, n_g) and H_gg (B, n_g, n_g) from the same terms
+        obj = nlp.objective_obj
+        QW = _knot_hessians(obj, layout, zmat, gvec)
+        if n_g:
+            Hzg, Hgg = _global_hessians(obj, layout, zmat, gvec)
         if not gauss_newton:
             off = 0
             for integ, (_, r) in zip(nlp.integrators, S.s_pos):
@@ -395,15 +494,39 @@ class _RiccatiCtx:
             for cons, offsets, mults in ((nlp.eq_cons, S.nl_eq_offsets, lam),
                                          (nlp.in_cons, S.nl_in_offsets, nu)):
                 for con, o in zip(cons, offsets):
-                    T, gd = len(con.times), con.g_dim
+                    gd = con.g_dim
+                    if not hasattr(con, "knot_residual"):
+                        # pure-global: its curvature is all in H_gg
+                        mu_g = mults[:, o : o + gd]
+                        Hgg = Hgg + vmap(hessian(
+                            lambda g, m, con=con: (m * con.global_residual(layout, g)).sum()))(
+                            gvec, mu_g)
+                        continue
+                    T = len(con.times)
                     mu = mults[:, o : o + T * gd].reshape(B, T, gd)
+                    tt = torch.as_tensor(con.times, device=dev)
+                    if coupled(con):
+                        # one Hessian over [z_k; g] per knot, split into blocks
+                        def hess_w(z, p, m, g, con=con):
+                            def lagr(w):
+                                return (m * con.knot_residual(layout, w[:d], p, w[d:])).sum()
+
+                            return hessian(lagr)(torch.cat([z, g]))
+
+                        Hw = con.map_knots(hess_w, zsel(con), mu, gsel(con))
+                        QW = QW.index_add(1, tt, Hw[..., :d, :d])
+                        Hzg = Hzg.index_add(1, tt, Hw[..., :d, d:])
+                        Hgg = Hgg + Hw[..., d:, d:].sum(1)
+                        continue
 
                     def hess(z, p, m, con=con):
                         return hessian(lambda zz: (m * con.knot_residual(layout, zz, p)).sum())(z)
 
                     blocks = con.map_knots(hess, zsel(con), mu)
-                    QW = QW.index_add(1, torch.as_tensor(con.times, device=dev), blocks)
+                    QW = QW.index_add(1, tt, blocks)
         self.QW = QW
+        if n_g:
+            self.Hzg, self.Hgg = Hzg, Hgg
         # "stagewise" | "project" | "flip" or False (Gauss-Newton is PSD)
         self.stagewise = False if gauss_newton else stagewise
 
@@ -427,6 +550,9 @@ class _RiccatiCtx:
                                         vals)
             row = nlp.n_lin_in
             for con, jac in zip(nlp.in_cons, self.nl_in_jacs):
+                if _in_con_border(con):
+                    row += con.constraint_dim(layout)
+                    continue
                 T, gd = len(con.times), con.g_dim
                 kn = torch.as_tensor(S.in_knot[row : row + T * gd].reshape(T, gd), device=dev)
                 sl = torch.as_tensor(S.in_slot[row : row + T * gd].reshape(T, gd), device=dev)
@@ -435,31 +561,62 @@ class _RiccatiCtx:
         self.Jin_raw = Jin
         self.Jin = Jin * f_blk[:, None, :]
 
-        # border-inequality Jacobians (B, n_ib, N, d), raw (unmasked)
+        # border-inequality Jacobians, raw (unmasked), in border order: the
+        # knot part (B, n_ib, N, d) and the global columns (B, n_ib, n_g)
         n_ib = len(S.ib_flat)
         self.n_ib = n_ib
-        if n_ib:
-            self.Jib_z = nlp.A_in.select_rows(S.ib_flat)[..., : N * d].reshape(B, n_ib, N, d)
-        else:
-            self.Jib_z = torch.zeros((B, 0, N, d), dtype=dtype, device=dev)
+        n_ibl = len(S.ib_lin_rows)
+        Jib_z = torch.zeros((B, n_ib, N, d), dtype=dtype, device=dev)
+        Jib_g = torch.zeros((B, n_ib, n_g), dtype=dtype, device=dev)
+        if n_ibl:
+            rows = nlp.A_in.select_rows(S.ib_lin_rows)
+            Jib_z[:, :n_ibl] = rows[..., : N * d].reshape(B, n_ibl, N, d)
+            Jib_g[:, :n_ibl] = rows[..., N * d :]
+        pos = n_ibl
+        for con, jac, jac_g in zip(nlp.in_cons, self.nl_in_jacs, self.nl_in_jacs_g):
+            if not _in_con_border(con):
+                continue
+            gd = con.g_dim
+            if hasattr(con, "knot_residual"):
+                T = len(con.times)
+                ri = torch.arange(pos, pos + T * gd, device=dev).reshape(T, gd)
+                tt = torch.as_tensor(con.times, device=dev)[:, None].expand(T, gd)
+                Jib_z[:, ri, tt, :] = jac
+                if jac_g is not None:
+                    Jib_g[:, pos : pos + T * gd] = jac_g.reshape(B, T * gd, n_g)
+                pos += T * gd
+            else:
+                Jib_g[:, pos : pos + gd] = jac_g
+                pos += gd
+        self.Jib_z, self.Jib_g = Jib_z, Jib_g
 
     # ---------------- matvecs ---------------------------------------------- #
 
     def JeT(self, v: torch.Tensor) -> torch.Tensor:
         """``J_eqᵀ v`` per lane: (B, n_eq) → (B, z_dim)."""
         nlp, S = self.nlp, self.S
-        N, d, n_s = S.N, S.d, len(S.s_idx)
+        N, d, n_s, n_g = S.N, S.d, len(S.s_idx), S.n_g
         B = v.shape[0]
         # promoted-chain slots hold the normalized row: Jᵀv = J_normᵀ(β∘v)
         vd = v[:, self._dyn].reshape(B, N - 1, n_s) * self.core_beta
         out = torch.zeros((B, N, d), dtype=v.dtype, device=v.device)
         out[:, : N - 1] += torch.einsum("bkrd,bkr->bkd", self.Jr, vd)
         out[:, 1:, self._s_ix] += vd
-        for con, jac, o in zip(nlp.eq_cons, self.nl_eq_jacs, S.nl_eq_offsets):
+        out_g = v.new_zeros((B, n_g)) if n_g else None
+        for con, jac, jac_g, o in zip(nlp.eq_cons, self.nl_eq_jacs, self.nl_eq_jacs_g,
+                                      S.nl_eq_offsets):
+            if jac is None:  # pure-global
+                out_g = out_g + torch.einsum("bgn,bg->bn", jac_g, v[:, o : o + con.g_dim])
+                continue
             T, gd = len(con.times), con.g_dim
-            contr = torch.einsum("btgd,btg->btd", jac, v[:, o : o + T * gd].reshape(B, T, gd))
+            vr = v[:, o : o + T * gd].reshape(B, T, gd)
+            contr = torch.einsum("btgd,btg->btd", jac, vr)
             out = out.index_add(1, torch.as_tensor(con.times, device=v.device), contr)
+            if jac_g is not None:
+                out_g = out_g + torch.einsum("btgn,btg->bn", jac_g, vr)
         full = out.reshape(B, -1)
+        if n_g:
+            full = torch.cat([full, out_g], dim=1)
         if nlp.n_lin_eq:
             # promoted rows were consumed above: mask them out of A_eqᵀ
             full = full + nlp.A_eq.rmatvec(v[:, nlp.n_dyn : nlp.n_dyn + nlp.n_lin_eq]
@@ -471,15 +628,20 @@ class _RiccatiCtx:
         S = self.S
         B = v.shape[0]
         out = torch.zeros((B, S.N, S.d), dtype=v.dtype, device=v.device)
-        if self.nlp.n_in == 0:
-            return out.reshape(B, -1)
-        if S.m_in:
-            vb = _lane_scatter_add(torch.zeros((B, S.N, S.m_in), dtype=v.dtype, device=v.device),
-                                   [self._in_knot, self._in_slot], v * self._fast)
-            out = torch.einsum("bnmd,bnm->bnd", self.Jin_raw, vb)
-        if self.n_ib:
-            out = out + torch.einsum("bjnd,bj->bnd", self.Jib_z, v[:, self._ib])
-        return out.reshape(B, -1)
+        out_g = v.new_zeros((B, S.n_g)) if S.n_g else None
+        if self.nlp.n_in:
+            if S.m_in:
+                vb = _lane_scatter_add(
+                    torch.zeros((B, S.N, S.m_in), dtype=v.dtype, device=v.device),
+                    [self._in_knot, self._in_slot], v * self._fast)
+                out = torch.einsum("bnmd,bnm->bnd", self.Jin_raw, vb)
+            if self.n_ib:
+                v_ib = v[:, self._ib]
+                out = out + torch.einsum("bjnd,bj->bnd", self.Jib_z, v_ib)
+                if S.n_g:
+                    out_g = out_g + torch.einsum("bjn,bj->bn", self.Jib_g, v_ib)
+        full = out.reshape(B, -1)
+        return torch.cat([full, out_g], dim=1) if S.n_g else full
 
     def Ji(self, v: torch.Tensor) -> torch.Tensor:
         """``J_in v`` per lane on the free coordinates: (B, z_dim) → (B, n_in)."""
@@ -487,7 +649,8 @@ class _RiccatiCtx:
         B = v.shape[0]
         if nlp.n_in == 0:
             return v.new_zeros((B, 0))
-        vm = (v * nlp.free_mask).reshape(B, S.N, S.d)
+        vfull = v * nlp.free_mask
+        vm = vfull[:, : S.N * S.d].reshape(B, S.N, S.d)
         if S.m_in:
             prod = torch.einsum("bnmd,bnd->bnm", self.Jin, vm)
             out = prod[:, self._in_knot, self._in_slot]
@@ -495,14 +658,17 @@ class _RiccatiCtx:
             out = v.new_zeros((B, nlp.n_in))
         if self.n_ib:
             out = out * self._fast
-            out = out.index_copy(1, self._ib, torch.einsum("bjnd,bnd->bj", self.Jib_z, vm))
+            ib_vals = torch.einsum("bjnd,bnd->bj", self.Jib_z, vm)
+            if S.n_g:
+                ib_vals = ib_vals + torch.einsum("bjn,bn->bj", self.Jib_g, vfull[:, S.N * S.d :])
+            out = out.index_copy(1, self._ib, ib_vals)
         return out
 
     # ---------------- KKT solve -------------------------------------------- #
 
     def kkt_step(self, Sig, D, g_hat, rhs_c, delta_last, opt, active=None):
         nlp, S = self.nlp, self.S
-        N, d = S.N, S.d
+        N, d, n_g = S.N, S.d, S.n_g
         n_s = len(S.s_idx)
         B = Sig.shape[0]
         dtype, dev = self.dtype, Sig.device
@@ -512,12 +678,19 @@ class _RiccatiCtx:
         # ---- condensed per-knot Hessian blocks: pins → identity rows ----- #
         Q = self.QW * f_blk[:, :, None] * f_blk[:, None, :]
         Q = Q + torch.diag_embed(1.0 - f_blk)
-        Q = Q + torch.diag_embed(Sig.reshape(B, N, d))
+        Q = Q + torch.diag_embed(Sig[:, : N * d].reshape(B, N, d))
         if nlp.n_in and S.m_in:
             # fast inequality rows: the D-scaled Gram JᵀDJ per knot
             Db = _lane_scatter_add(torch.zeros((B, N, S.m_in), dtype=dtype, device=dev),
                                    [self._in_knot, self._in_slot], D * self._fast)
             Q = Q + torch.einsum("bnmd,bnm,bnme->bnde", self.Jin, Db, self.Jin)
+
+        # ---- arrowhead blocks (masked; the δ-independent parts) ----------- #
+        if n_g:
+            gf = torch.as_tensor(S.g_free, dtype=dtype, device=dev)
+            Hzg_m = self.Hzg * f_blk[:, :, None] * gf
+            Hgg_m = (self.Hgg * gf[:, None] * gf + torch.diag(1.0 - gf)
+                     + torch.diag_embed(Sig[:, N * d :] * gf))
 
         # ---- dynamics blocks ---------------------------------------------- #
         Jr_m = self.Jr * f_blk[: N - 1, None, :]
@@ -530,19 +703,25 @@ class _RiccatiCtx:
         binv = self.core_beta_inv
 
         # ---- border rows: [pinned-target dynamics ; linear equalities not
-        # promoted ; nonlinear equalities ; border inequalities] ------------ #
+        # promoted ; nonlinear equalities ; border inequalities], each with a
+        # knot part C and, with globals, a global-column part Cg. Knot-local
+        # global-free rows get the ρ curvature shift; global-coupled rows are
+        # certified through the arrowhead's Schur block instead ------------ #
         n_bp = len(S.bp_steps)
         n_lb = len(S.lin_border_rows)
         n_ib = self.n_ib
         bp_steps = torch.as_tensor(S.bp_steps, device=dev)
         bp_binv = torch.as_tensor(S.core_beta[S.bp_steps, S.bp_rows] ** -1.0, dtype=dtype,
                                   device=dev)
-        C_rows, loc_knots, loc_flat, loc_scale, loc_vecs, loc_mask = [], [], [], [], [], []
+        C_rows, Cg_rows = [], []
+        loc_knots, loc_flat, loc_scale, loc_vecs, loc_mask = [], [], [], [], []
         if n_bp:
             C_bp = torch.zeros((B, n_bp, N, d), dtype=dtype, device=dev)
             C_bp[:, torch.arange(n_bp, device=dev), bp_steps, :] = \
                 Jr_m[:, bp_steps, torch.as_tensor(S.bp_rows, device=dev), :]
             C_rows.append(C_bp)
+            if n_g:
+                Cg_rows.append(torch.zeros((B, n_bp, n_g), dtype=dtype, device=dev))
             loc_knots.append(S.bp_steps)
             loc_flat.append(S.bp_flat)
             loc_scale.append(S.core_beta[S.bp_steps, S.bp_rows] ** -1.0)
@@ -551,8 +730,16 @@ class _RiccatiCtx:
         if n_lb:
             A_lb = nlp.A_eq.select_rows(S.lin_border_rows) * nlp.free_mask
             C_rows.append(A_lb[..., : N * d].reshape(B, n_lb, N, d))
+            if n_g:
+                Cg_rows.append(A_lb[..., N * d :])
             loc_mask.append(np.zeros(n_lb))
-        for con, jac, o in zip(nlp.eq_cons, self.nl_eq_jacs, S.nl_eq_offsets):
+        for con, jac, jac_g, o in zip(nlp.eq_cons, self.nl_eq_jacs, self.nl_eq_jacs_g,
+                                      S.nl_eq_offsets):
+            if jac is None:  # pure-global: no knot part
+                C_rows.append(torch.zeros((B, con.g_dim, N, d), dtype=dtype, device=dev))
+                Cg_rows.append(jac_g * gf)
+                loc_mask.append(np.zeros(con.g_dim))
+                continue
             times = np.asarray(con.times)
             T, gd = len(times), con.g_dim
             Cc = torch.zeros((B, T, gd, N, d), dtype=dtype, device=dev)
@@ -561,17 +748,29 @@ class _RiccatiCtx:
                                                           ).transpose(0, 1)
             Cc = Cc.reshape(B, T * gd, N, d)
             C_rows.append(Cc)
-            loc_knots.append(np.repeat(times, gd))
-            loc_flat.append(np.arange(o, o + T * gd))
-            loc_scale.append(np.ones(T * gd))
-            loc_vecs.append(Cc)
-            loc_mask.append(np.ones(T * gd))
+            if jac_g is None:
+                if n_g:
+                    Cg_rows.append(torch.zeros((B, T * gd, n_g), dtype=dtype, device=dev))
+                loc_knots.append(np.repeat(times, gd))
+                loc_flat.append(np.arange(o, o + T * gd))
+                loc_scale.append(np.ones(T * gd))
+                loc_vecs.append(Cc)
+                loc_mask.append(np.ones(T * gd))
+            else:
+                Cg_rows.append((jac_g * gf).reshape(B, T * gd, n_g))
+                loc_mask.append(np.zeros(T * gd))
         if n_ib:
             C_rows.append(self.Jib_z * f_blk)
+            if n_g:
+                Cg_rows.append(self.Jib_g * gf)
             loc_mask.append(np.zeros(n_ib))
             e_ib = 1.0 / torch.clamp(D[:, self._ib], min=1e-30)
         m_c = sum(c.shape[1] for c in C_rows)
         C = torch.cat(C_rows, dim=1) if m_c else torch.zeros((B, 0, N, d), dtype=dtype, device=dev)
+        Cg = None
+        if n_g:
+            Cg = torch.cat(Cg_rows, dim=1) if m_c else torch.zeros((B, 0, n_g), dtype=dtype,
+                                                                 device=dev)
         # per-row (2,2) diagonal: δ_c on equality rows, the exact 1/D on
         # inequality rows (refine_e keeps it in the refinement residual)
         delta_c = torch.full((B, m_c - n_ib), opt.delta_c, dtype=dtype, device=dev)
@@ -640,75 +839,11 @@ class _RiccatiCtx:
                 parts.append(rhs_c_flat.new_zeros((L, n_ib)))
             return torch.cat(parts, dim=1) if parts else rhs_c_flat.new_zeros((L, 0))
 
-        rhs_main = rho_adjust((-g_hat).reshape(B, N, d), rhs_c)
-        q_all = torch.cat([-C, -rhs_main[:, None]], dim=1)  # (B, m_c+1, N, d)
-        b_all = torch.cat(
-            [torch.zeros((B, m_c, N, n_s), dtype=dtype, device=dev), b_dyn_pad(rhs_c)[:, None]],
-            dim=1,
-        )
-        qs_all = q_all[..., s_ix]
-        qv_all = q_all[..., v_ix]
-        s0m = S.s0_mask
-
-        def factor(delta):
-            dsh = delta[:, None] if sw_shift is None else delta[:, None] + sw_shift
-            dsh = dsh.expand(B, N)[:, :, None, None]
-            P, Lv, Kg, Mvs, L0, okf, dzs, dzv, lamS = riccati_kernel.factor_solve(
-                s0m, Qss + dsh * fS, Qsv, Qvv + dsh * fV, Abar_p, Bbar_p,
-                qs_all, qv_all, b_all,
-            )
-            return P, Lv, Kg, Mvs, L0, dzs, dzv, lamS, okf
-
-        delta, P_all, Lv_all, Kg_all, Mvs_all, L0, dzs, dzv, lamS, ok = _reg_retry(
-            factor, delta_last, opt, active
-        )
-        lamS = lamS * cm
-
         def scatter_dz(dzs_, dzv_):
             out = torch.zeros(dzs_.shape[:-1] + (d,), dtype=dtype, device=dev)
             out[..., s_ix] = dzs_
             out[..., v_ix] = dzv_
             return out
-
-        dz_all = scatter_dz(dzs, dzv)  # (B, m_c+1, N, d)
-        Xz, Xlam = dz_all[:, :m_c], lamS[:, :m_c]
-        if m_c:
-            Smat = torch.einsum("bjnd,bknd->bjk", C, Xz) + torch.diag_embed(diag_e)
-            Ls = _chol(Smat)
-            fin = torch.isfinite(Ls)
-            ok_s = fin.all(-1).all(-1)
-            Ls = torch.where(fin, Ls, torch.eye(m_c, dtype=dtype, device=dev))
-        else:
-            ok_s = torch.ones((B,), dtype=torch.bool, device=dev)
-
-        def combine(dz0, lam0, rhs_c_flat):
-            """Schur-combine core solutions (L, N, d) with the border columns:
-            3 Newton passes on the border multipliers (the later two remove
-            the δ_c perturbation), then correct dz and the core λ."""
-            if m_c == 0:
-                return dz0, lam0, dz0.new_zeros((dz0.shape[0], 0))
-            rep = dz0.shape[0] // B
-
-            def r(t):
-                return t.repeat_interleave(rep, 0) if rep > 1 else t
-
-            C_r, Xz_r, Xlam_r, Ls_r = r(C), r(Xz), r(Xlam), r(Ls)
-            rf_r = r(refine_e) if n_ib else None
-            rcc = border_rhs(rhs_c_flat)
-            lam_c = dz0.new_zeros((dz0.shape[0], m_c))
-            dz = dz0
-            for _ in range(3):
-                R1 = torch.einsum("jmnd,jnd->jm", C_r, dz) - rcc
-                if n_ib:
-                    R1 = R1 - rf_r * lam_c
-                lam_c = lam_c + _chosolve(Ls_r, R1)
-                dz = dz0 - torch.einsum("jmnd,jm->jnd", Xz_r, lam_c)
-            lam_stack = lam0 - torch.einsum("jmkr,jm->jkr", Xlam_r, lam_c)
-            # undo the augmented-Lagrangian shift in the penalized rows'
-            # multipliers: λc = λ̃c + ρ(C dz − r) there
-            r_b = torch.einsum("jmnd,jnd->jm", C_r, dz) - rcc
-            lam_c = lam_c + rho * loc_border_mask * r_b
-            return dz, lam_stack, lam_c
 
         def pack_lam(lam_stack, lam_c):
             """Flat λ (L, n_eq); core rows are normalized, so λ = λ_norm/β.
@@ -730,11 +865,153 @@ class _RiccatiCtx:
                 pos += cd
             return lam_flat
 
+        # right-hand sides of the fused sweep: m_c border columns (−C, zero
+        # dynamics rhs), n_g arrowhead columns (−H_zg, zero dynamics rhs),
+        # then the main system
+        rhs_main = rho_adjust((-g_hat[:, : N * d]).reshape(B, N, d), rhs_c)
+        cols = [-C]
+        if n_g:
+            cols.append(-Hzg_m.permute(0, 3, 1, 2))
+        q_all = torch.cat(cols + [-rhs_main[:, None]], dim=1)  # (B, m_c+n_g+1, N, d)
+        b_all = torch.cat(
+            [torch.zeros((B, m_c + n_g, N, n_s), dtype=dtype, device=dev),
+             b_dyn_pad(rhs_c)[:, None]],
+            dim=1,
+        )
+        qs_all = q_all[..., s_ix]
+        qv_all = q_all[..., v_ix]
+        s0m = S.s0_mask
+
+        def chol_or_eye(M):
+            """Cholesky factor and its per-lane certificate; a failed lane
+            gets the identity."""
+            Lc = _chol(M)
+            fin = torch.isfinite(Lc)
+            return (torch.where(fin, Lc, torch.eye(M.shape[-1], dtype=dtype, device=dev)),
+                    fin.all(-1).all(-1))
+
+        if n_g:
+            diag_gf = torch.diag(gf)
+
+        def factor(delta):
+            dsh = delta[:, None] if sw_shift is None else delta[:, None] + sw_shift
+            dsh = dsh.expand(B, N)[:, :, None, None]
+            P, Lv, Kg, Mvs, L0, okf, dzs, dzv, lamS = riccati_kernel.factor_solve(
+                s0m, Qss + dsh * fS, Qsv, Qvv + dsh * fV, Abar_p, Bbar_p,
+                qs_all, qv_all, b_all,
+            )
+            if not n_g:
+                return P, Lv, Kg, Mvs, L0, dzs, dzv, lamS, None, None, okf
+            # the arrowhead's Schur block inside the retry: δ_w certifies the
+            # stage factors, the border's Schur block M and the reduced global
+            # Hessian T = H_gg' − H_zgᵀK⁻¹H_zg (+ W₁ᵀM⁻¹W₁) together
+            dz_ = scatter_dz(dzs, dzv)
+            Y_ = dz_[:, m_c : m_c + n_g]
+            HzgTY = torch.einsum("bndg,bjnd->bgj", Hzg_m, Y_)
+            Tm = (Hgg_m + delta[:, None, None] * diag_gf
+                  - 0.5 * (HzgTY + HzgTY.transpose(-1, -2)))
+            if m_c:
+                Ls_, ok_s = chol_or_eye(torch.einsum("bjnd,bknd->bjk", C, dz_[:, :m_c])
+                                        + torch.diag_embed(diag_e))
+                W1_ = torch.einsum("bjnd,bind->bji", C, Y_) - Cg
+                Tm = Tm + W1_.transpose(-1, -2) @ _chosolve(Ls_, W1_)
+            else:
+                Ls_ = W1_ = None
+                ok_s = okf
+            Lg_, ok_g = chol_or_eye(Tm)
+            return P, Lv, Kg, Mvs, L0, dzs, dzv, lamS, (Ls_, W1_), Lg_, okf & ok_s & ok_g
+
+        (delta, P_all, Lv_all, Kg_all, Mvs_all, L0, dzs, dzv, lamS, schur_mc, Lg,
+         ok) = _reg_retry(factor, delta_last, opt, active)
+        lamS = lamS * cm
+
+        dz_all = scatter_dz(dzs, dzv)  # (B, m_c+n_g+1, N, d)
+        Xz, Xlam = dz_all[:, :m_c], lamS[:, :m_c]
+        Y, Ylam = dz_all[:, m_c : m_c + n_g], lamS[:, m_c : m_c + n_g]
+        Ls = W1 = None
+        if n_g:
+            # M and T were factored and certified inside the retry
+            Ls, W1 = schur_mc
+            Hgg_d = Hgg_m + delta[:, None, None] * diag_gf
+        elif m_c:
+            Ls, ok_s = chol_or_eye(torch.einsum("bjnd,bknd->bjk", C, Xz)
+                                   + torch.diag_embed(diag_e))
+            ok = ok & ok_s
+
+        def combine(dz0, lam0, rhs_c_flat, rg):
+            """Schur-combine core solutions (L, N, d) with the border columns
+            and, with globals, the arrowhead columns: 3 Newton passes of the
+            factored block solve over (λc, δg) (the later two remove the δ_c
+            perturbation), then correct dz and the core λ."""
+            L = dz0.shape[0]
+            if m_c == 0 and n_g == 0:
+                return dz0, lam0, dz0.new_zeros((L, 0)), dz0.new_zeros((L, 0))
+            rep = L // B
+
+            def r(t):
+                return t.repeat_interleave(rep, 0) if rep > 1 and t is not None else t
+
+            C_r, Cg_r, Xz_r, Xlam_r, Ls_r, W1_r = map(r, (C, Cg, Xz, Xlam, Ls, W1))
+            if n_g:
+                Y_r, Ylam_r, Hzg_r, Hgg_r, Lg_r = map(r, (Y, Ylam, Hzg_m, Hgg_d, Lg))
+            rf_r = r(refine_e) if n_ib else None
+            rcc = border_rhs(rhs_c_flat)
+
+            def block_solve(r1, r2):
+                """[M W₁; −W₁ᵀ T](λc, δg) = (r1, r2) with the stored factors."""
+                if not n_g:
+                    return _chosolve(Ls_r, r1), None
+                if not m_c:
+                    return None, _chosolve(Lg_r, r2)
+                t = r2 + torch.einsum("jmg,jm->jg", W1_r, _chosolve(Ls_r, r1))
+                dg_ = _chosolve(Lg_r, t)
+                return _chosolve(Ls_r, r1 - torch.einsum("jmg,jg->jm", W1_r, dg_)), dg_
+
+            lam_c = dz0.new_zeros((L, m_c))
+            dg = dz0.new_zeros((L, n_g))
+            dz = dz0
+            for _ in range(3):
+                R1 = R2 = None
+                if m_c:
+                    R1 = torch.einsum("jmnd,jnd->jm", C_r, dz)
+                    if n_g:
+                        R1 = R1 + torch.einsum("jmg,jg->jm", Cg_r, dg)
+                    R1 = R1 - rcc
+                    if n_ib:
+                        R1 = R1 - rf_r * lam_c
+                if n_g:
+                    R2 = (torch.einsum("jndg,jnd->jg", Hzg_r, dz)
+                          + torch.einsum("jgh,jh->jg", Hgg_r, dg))
+                    if m_c:
+                        R2 = R2 + torch.einsum("jmg,jm->jg", Cg_r, lam_c)
+                    R2 = -(R2 - rg)
+                dlam, ddg = block_solve(R1, R2)
+                dz = dz0
+                if m_c:
+                    lam_c = lam_c + dlam
+                    dz = dz - torch.einsum("jmnd,jm->jnd", Xz_r, lam_c)
+                if n_g:
+                    dg = dg + ddg
+                    dz = dz - torch.einsum("jgnd,jg->jnd", Y_r, dg)
+            lam_stack = lam0
+            if m_c:
+                lam_stack = lam_stack - torch.einsum("jmkr,jm->jkr", Xlam_r, lam_c)
+            if n_g:
+                lam_stack = lam_stack - torch.einsum("jgkr,jg->jkr", Ylam_r, dg)
+            if m_c:
+                # undo the augmented-Lagrangian shift in the penalized rows'
+                # multipliers: λc = λ̃c + ρ(C dz − r) there (penalized rows are
+                # global-free, so the Cg·δg term is zero on them)
+                r_b = torch.einsum("jmnd,jnd->jm", C_r, dz) - rcc
+                lam_c = lam_c + rho * loc_border_mask * r_b
+            return dz, lam_stack, lam_c, dg
+
         def resolve_many(rhs_z_stack, rhs_c_stack):
             """Solve R extra systems (B, R, ·) against the stored factors in
             one fused resolve sweep (SOC + restoration share one pass)."""
             R = rhs_z_stack.shape[1]
-            rz = rho_adjust(rhs_z_stack.reshape(B * R, N, d), rhs_c_stack.reshape(B * R, -1))
+            rz = rho_adjust(rhs_z_stack[..., : N * d].reshape(B * R, N, d),
+                            rhs_c_stack.reshape(B * R, -1))
             q1 = -rz.reshape(B, R, N, d)
             b1 = b_dyn_pad(rhs_c_stack.reshape(B * R, -1)).reshape(B, R, N, n_s)
             dzs1, dzv1, lam1 = riccati_kernel.resolve(
@@ -743,8 +1020,13 @@ class _RiccatiCtx:
             )
             lam0 = (lam1 * cm).reshape(B * R, N - 1, n_s)
             dz0 = scatter_dz(dzs1, dzv1).reshape(B * R, N, d)
-            dz, lam_stack, lam_c = combine(dz0, lam0, rhs_c_stack.reshape(B * R, -1))
-            return dz.reshape(B, R, -1), pack_lam(lam_stack, lam_c).reshape(B, R, -1)
+            dz, lam_stack, lam_c, dg = combine(
+                dz0, lam0, rhs_c_stack.reshape(B * R, -1),
+                rhs_z_stack[..., N * d :].reshape(B * R, n_g))
+            dZ = dz.reshape(B, R, -1)
+            if n_g:
+                dZ = torch.cat([dZ, dg.reshape(B, R, n_g)], dim=-1)
+            return dZ, pack_lam(lam_stack, lam_c).reshape(B, R, -1)
 
         def resolve(rhs_z, rhs_c_flat):
             dZ, lam = resolve_many(rhs_z[:, None], rhs_c_flat[:, None])
@@ -752,10 +1034,13 @@ class _RiccatiCtx:
 
         resolve.many = resolve_many
 
-        dz, lam_stack, lam_c = combine(dz_all[:, m_c], lamS[:, m_c], rhs_c)
+        dz, lam_stack, lam_c, dg = combine(dz_all[:, m_c + n_g], lamS[:, m_c + n_g], rhs_c,
+                                           -g_hat[:, N * d :] if n_g else None)
         dZ = dz.reshape(B, -1)
+        if n_g:
+            dZ = torch.cat([dZ, dg], dim=1)
         lam_plus = pack_lam(lam_stack, lam_c)
-        ok = ok & ok_s & torch.isfinite(dZ).all(-1) & torch.isfinite(lam_plus).all(-1)
+        ok = ok & torch.isfinite(dZ).all(-1) & torch.isfinite(lam_plus).all(-1)
         return dZ, lam_plus, ok, delta, resolve
 
 

@@ -100,18 +100,19 @@ class IPMOptions:
             )
 
         if self.mu_strategy != "monotone":
-            no("mu_strategy", self.mu_strategy, "Queue 1 item 6 follow-up")
+            no("mu_strategy", self.mu_strategy, "Queue 1 item 3")
         if self.hessian_approximation not in ("exact", "gauss_newton"):
-            no("hessian_approximation", self.hessian_approximation, "Queue 1 item 13")
+            no("hessian_approximation", self.hessian_approximation, "Queue 1 item 5")
         if self.hessian_regularization not in ("inertia", "auto", "stagewise", "project", "flip"):
-            no("hessian_regularization", self.hessian_regularization, "Queue 1 item 8")
+            no("hessian_regularization", self.hessian_regularization,
+               "Queue 1 item 3, which records why 'floor' stays out")
         if self.refine_residuals:
-            no("refine_residuals", True, "Queue 1 item 6 follow-up")
+            no("refine_residuals", True, "Queue 1 item 3")
         if self.ls_memory > 1:
-            no("ls_memory", self.ls_memory, "Queue 1 item 6 follow-up")
+            no("ls_memory", self.ls_memory, "Queue 1 item 3")
         if self.dual_init != "zero":
-            no("dual_init", self.dual_init, "Queue 1 item 6 follow-up")
+            no("dual_init", self.dual_init, "Queue 1 item 3")
         if self.max_wall_time > 0.0:
-            no("max_wall_time", self.max_wall_time, "Queue 1 item 14")
+            no("max_wall_time", self.max_wall_time, "Queue 1 item 4")
         if self.print_level > 0:
-            no("print_level", self.print_level, "Queue 1 item 14")
+            no("print_level", self.print_level, "Queue 1 item 4")

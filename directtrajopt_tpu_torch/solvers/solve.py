@@ -6,8 +6,8 @@ same batched solve; ``solve_batch_compact`` is the multi-phase
 straggler-compacted scheduler of the certified benchmark pipeline.
 
 Not ported yet: ``solve_batch_scheduled``, ``solve_polished`` /
-``solve_batch_polished``, callbacks (ROADMAP Queue 1 item 14) and the dense
-backend (item 11).
+``solve_batch_polished``, callbacks (ROADMAP Queue 1 item 4) and the dense
+backend (item 6).
 """
 
 from __future__ import annotations
@@ -69,11 +69,11 @@ def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str
                 warm: WarmStart | None) -> SolveResult:
     if backend not in ("auto", "riccati"):
         raise NotImplementedError(f"backend={backend!r}: the dense backend is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
+                                  "(ROADMAP Queue 1 item 6)")
     nlp = make_nlp(problem)
     if analyze(nlp) is None:
         raise NotImplementedError("problem is not Riccati-eligible and the dense backend is "
-                                  "not ported yet (ROADMAP Queue 1 item 11)")
+                                  "not ported yet (ROADMAP Queue 1 item 6)")
     ops = RiccatiOps(nlp)
     if options.hessian_regularization == "auto":
         # resolved to "inertia", as in the JAX package (see its rationale)

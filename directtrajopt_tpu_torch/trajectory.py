@@ -5,14 +5,18 @@ a ``(B, N, dim)`` tensor (one lane per scenario, knot axis next), and the
 per-problem metadata (initial / final / goal values, bounds) are ``(B, dim)``
 tensors. The static index map of one knot vector is the :class:`Layout`.
 
+Global (time-invariant) components live beside the knot components:
+``global_data[name] → (B, dim)``, with bounds of their own.
+
 Flat-vector interop uses the same layout as the JAX package:
 ``Z = [z_1; …; z_N; g]`` with each knot stacking its components in
-declaration order, so ``to_zvec`` gives ``(B, N·dim)``.
+declaration order and the global block g after the last knot, so
+``to_zvec`` gives ``(B, N·dim + global_dim)``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Mapping, Sequence
 
@@ -22,7 +26,21 @@ import torch
 from .module import module
 from .precision import check_device
 
-__all__ = ["Layout", "Trajectory", "normalize_bound"]
+__all__ = ["Layout", "Trajectory", "normalize_bound", "traj_slice", "traj_index"]
+
+
+def traj_slice(k: int, dim: int, comps: slice | None = None) -> slice:
+    """Flat-Z indices of knot ``k`` (0-based): ``slice(k·dim, (k+1)·dim)``,
+    or its sub-slice ``comps`` within the knot."""
+    base = k * dim
+    if comps is None:
+        return slice(base, base + dim)
+    return slice(base + comps.start, base + comps.stop)
+
+
+def traj_index(k: int, comp: int, dim: int) -> int:
+    """Flat-Z index of coordinate ``comp`` of knot ``k`` (0-based)."""
+    return k * dim + comp
 
 
 @dataclass(frozen=True)
@@ -57,13 +75,39 @@ class Layout:
             o += d
         return out
 
+    @cached_property
+    def global_offsets(self) -> dict[str, int]:
+        out, o = {}, 0
+        for name, d in zip(self.global_names, self.global_dims):
+            out[name] = o
+            o += d
+        return out
+
     def dim_of(self, name: str) -> int:
-        return self.dims[self.names.index(name)]
+        if name in self.offsets:
+            return self.dims[self.names.index(name)]
+        return self.global_dims[self.global_names.index(name)]
 
     def comp_slice(self, name: str) -> slice:
         """Index range of component ``name`` within one knot vector."""
         o = self.offsets[name]
         return slice(o, o + self.dim_of(name))
+
+    def global_slice(self, name: str) -> slice:
+        """Index range of global component ``name`` within the global block."""
+        o = self.global_offsets[name]
+        return slice(o, o + self.dim_of(name))
+
+    def global_z_slice(self, name: str) -> slice:
+        """Index range of global ``name`` in flat Z (after all knots)."""
+        gs = self.global_slice(name)
+        base = self.N * self.dim
+        return slice(base + gs.start, base + gs.stop)
+
+    def global_extract(self, g: torch.Tensor, names) -> torch.Tensor:
+        """The named global components of global blocks ``g`` (..., global_dim),
+        concatenated in the given order."""
+        return torch.cat([g[..., self.global_slice(n)] for n in names], dim=-1)
 
     @property
     def has_free_time(self) -> bool:
@@ -110,11 +154,13 @@ def _lanes(value, B: int, shape_tail: tuple, device, dtype) -> torch.Tensor:
 
 @module
 class Trajectory:
-    """Named per-knot variables with problem metadata, one lane per scenario.
+    """Named per-knot variables and a global block, with problem metadata,
+    one lane per scenario.
 
-    ``data[name] → (B, N, dim)``; ``initial/final/goal[name] → (B, dim)``;
-    ``bounds[name] → (lb, ub)`` each ``(B, dim)``. Static: names order,
-    timestep spec, controls.
+    ``data[name] → (B, N, dim)``; ``global_data[name] → (B, dim)``;
+    ``initial/final/goal[name] → (B, dim)``; ``bounds[name] → (lb, ub)``
+    each ``(B, dim)``, for knot and global components alike. Static: names
+    order, global names order, timestep spec, controls.
     """
 
     data: dict
@@ -122,7 +168,9 @@ class Trajectory:
     final: dict
     goal: dict
     bounds: dict
+    global_data: dict = field(default_factory=dict)
     names: tuple = ()
+    global_names: tuple = ()
     timestep: str | float = 1.0
     controls: tuple = ()
 
@@ -131,16 +179,19 @@ class Trajectory:
         data: Mapping[str, np.ndarray],
         *,
         timestep: str | float,
-        device,
+        device=None,
         dtype=torch.float64,
         controls: str | Sequence[str] = (),
         initial: Mapping | None = None,
         final: Mapping | None = None,
         goal: Mapping | None = None,
         bounds: Mapping | None = None,
+        global_data: Mapping | None = None,
     ) -> "Trajectory":
         """Build from host arrays. Components are ``(B, N, dim)`` (or
-        ``(N, dim)`` / ``(N,)`` for one lane); metadata broadcast over lanes."""
+        ``(N, dim)`` / ``(N,)`` for one lane); global components ``(B, dim)``
+        or ``(dim,)``; metadata broadcast over lanes. ``device`` None means
+        the card (``precision.check_device``)."""
         device = check_device(device)
         names = tuple(data.keys())
         arrs = {}
@@ -160,6 +211,13 @@ class Trajectory:
         if isinstance(controls, str):
             controls = (controls,)
         dims = {n: a.shape[-1] for n, a in arrs.items()}
+        gdata = {}
+        for k, v in (global_data or {}).items():
+            if k in names:
+                raise ValueError(f"global component {k!r} shares its name with a knot component")
+            a = np.atleast_1d(np.asarray(v, dtype=np.float64))
+            gdata[k] = _lanes(a, B, (a.shape[-1],), device, dtype)
+            dims[k] = a.shape[-1]
 
         def meta(m):
             out = {}
@@ -171,11 +229,8 @@ class Trajectory:
 
         bnds = {}
         for k, v in (bounds or {}).items():
-            if k not in names:
-                raise NotImplementedError(
-                    f"bounds on {k!r}: global variables are not ported yet "
-                    "(ROADMAP Queue 1 'Left for later': global variables)"
-                )
+            if k not in dims:
+                raise ValueError(f"bounds reference unknown component {k!r}")
             lb, ub = normalize_bound(v, dims[k])
             bnds[k] = (_lanes(lb, B, (dims[k],), device, dtype),
                        _lanes(ub, B, (dims[k],), device, dtype))
@@ -185,7 +240,9 @@ class Trajectory:
             final=meta(final),
             goal=meta(goal),
             bounds=bnds,
+            global_data=gdata,
             names=names,
+            global_names=tuple(gdata.keys()),
             timestep=timestep,
             controls=tuple(controls),
         )
@@ -200,11 +257,19 @@ class Trajectory:
 
     @property
     def dims(self) -> dict[str, int]:
-        return {name: self.data[name].shape[-1] for name in self.names}
+        """Width of every component, knot and global."""
+        d = {name: self.data[name].shape[-1] for name in self.names}
+        d.update({name: self.global_data[name].shape[-1] for name in self.global_names})
+        return d
 
     @property
     def dim(self) -> int:
-        return sum(self.dims.values())
+        """Width of one knot vector."""
+        return sum(self.data[name].shape[-1] for name in self.names)
+
+    @property
+    def global_dim(self) -> int:
+        return sum(self.global_data[name].shape[-1] for name in self.global_names)
 
     @property
     def layout(self) -> Layout:
@@ -214,23 +279,39 @@ class Trajectory:
             N=self.N,
             timestep=self.timestep,
             controls=self.controls,
+            global_names=self.global_names,
+            global_dims=tuple(self.global_data[name].shape[-1] for name in self.global_names),
         )
 
     def knot_matrix(self) -> torch.Tensor:
-        """All components stacked per knot: ``(B, N, dim)``."""
+        """All knot components stacked per knot: ``(B, N, dim)``."""
         return torch.cat([self.data[name] for name in self.names], dim=-1)
 
+    def global_vec(self) -> torch.Tensor:
+        """The global block ``(B, global_dim)`` (width 0 without globals)."""
+        if not self.global_names:
+            ref = self.data[self.names[0]]
+            return ref.new_zeros((ref.shape[0], 0))
+        return torch.cat([self.global_data[name] for name in self.global_names], dim=-1)
+
     def to_zvec(self) -> torch.Tensor:
-        """Flat decision vectors ``(B, N·dim)``."""
+        """Flat decision vectors ``(B, N·dim + global_dim)``."""
         zm = self.knot_matrix()
-        return zm.reshape(zm.shape[0], -1)
+        z = zm.reshape(zm.shape[0], -1)
+        if self.global_names:
+            z = torch.cat([z, self.global_vec()], dim=-1)
+        return z
 
     def from_zvec(self, z: torch.Tensor) -> "Trajectory":
-        """A trajectory with its data taken from flat decision vectors."""
+        """A trajectory with its data (and global block) taken from flat
+        decision vectors."""
         layout = self.layout
-        zmat = z[..., : layout.N * layout.dim].reshape(*z.shape[:-1], layout.N, layout.dim)
+        nd = layout.N * layout.dim
+        zmat = z[..., :nd].reshape(*z.shape[:-1], layout.N, layout.dim)
+        g = z[..., nd:]
         return self.replace(
-            data={name: zmat[..., layout.comp_slice(name)] for name in self.names}
+            data={name: zmat[..., layout.comp_slice(name)] for name in self.names},
+            global_data={name: g[..., layout.global_slice(name)] for name in self.global_names},
         )
 
     def timesteps(self) -> torch.Tensor:
@@ -252,6 +333,8 @@ class Trajectory:
 
         return self.replace(
             data=keep(self.data), names=tuple(n for n in self.names if n not in drop),
+            global_data=keep(self.global_data),
+            global_names=tuple(n for n in self.global_names if n not in drop),
             bounds=keep(self.bounds), initial=keep(self.initial), final=keep(self.final),
             goal=keep(self.goal), controls=tuple(c for c in self.controls if c not in drop),
         )

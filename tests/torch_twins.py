@@ -7,7 +7,11 @@ bilinear integrator's Taylor method (the port's integrator; the Padé method
 is not ported), plus two that exercise what those leave out: a duration
 range whose lower bound is active (a border inequality) and a problem with a
 nonlinear equality, a multi-variable nonlinear inequality with per-time
-parameters, and terminal and parametrized knot objectives.
+parameters, and terminal and parametrized knot objectives. The global
+problems are the JAX package's arrowhead fixtures: ``make_problem(with_globals=True)``
+of ``tests/test_riccati.py`` (with and without border inequalities) and its
+end-to-end global-phase problem (``tests/test_riccati.py:434``, the same as
+``tests/test_gauss_newton.py:44``), one lane per start.
 """
 
 from __future__ import annotations
@@ -51,11 +55,13 @@ def feasible_bilinear_traj(N=20, dt=0.15, seed=0, u_scale=0.3):
     return traj, integ
 
 
-def state_constrained(B=1, N=20):
+def state_constrained(B=1, N=20, cap=None):
     """``test_nonlinear_inequality_e2e``: ‖x_k‖² ≤ cap, one lane per seed
-    (lane ℓ from seed ℓ), the cap from lane 0's guess. Batched when B > 1."""
+    (lane ℓ from seed ℓ), the cap from lane 0's guess (its max ‖x_k‖² plus
+    0.2) unless given. Batched when B > 1."""
     lanes = [feasible_bilinear_traj(N=N, seed=lane) for lane in range(B)]
-    cap = float(np.max(np.sum(np.asarray(lanes[0][0].data["x"]) ** 2, axis=1))) + 0.2
+    if cap is None:
+        cap = float(np.max(np.sum(np.asarray(lanes[0][0].data["x"]) ** 2, axis=1))) + 0.2
 
     def g(x):
         return jnp.array([jnp.sum(x**2) - cap])
@@ -191,6 +197,87 @@ def nonlinear_mixed():
         ("constraint", 1): lambda x, u, p: torch.stack([x[0] * u[0] - p[0], u[0] ** 2 - p[1]]),
         ("objective", 1): lambda x: ((x - goal_t) ** 2).sum(),
         ("objective", 2): lambda z, p: p[0] * ((z - p[1]) ** 2).sum(),
+    }
+
+
+def _taylor(prob):
+    """``prob`` with its bilinear integrators on the Taylor method."""
+    return prob.replace(integrators=tuple(
+        i.replace(method="taylor") if type(i).__name__ == "BilinearIntegrator" else i
+        for i in prob.integrators))
+
+
+def riccati_globals(with_border_ineq=False):
+    """``tests/test_riccati.py::make_problem(with_globals=True)`` (every
+    constraint of its zoo, a global objective, a global knot objective, a
+    pure-global and a global-coupled nonlinear equality, a global linear
+    row), with ``with_border_ineq`` its duration range, global-coupled and
+    pure-global nonlinear inequalities and a global linear range."""
+    from test_riccati import make_problem
+
+    prob = _taylor(make_problem(with_globals=True, with_border_ineq=with_border_ineq))
+    fns = {
+        ("constraint", 1): lambda x: ((x**2).sum() - 2.5).reshape(1),
+        ("constraint", 2): lambda u: (u[0] ** 3 - 0.001).reshape(1),
+        ("constraint", 5): lambda th: ((th**2).sum() - 0.5).reshape(1),
+        ("constraint", 6): lambda v: (v[0] + 0.2 * v[-1] ** 2 - 0.1).reshape(1),
+        ("objective", 3): lambda th: (th**2).sum() + 0.1 * (th**4).sum(),
+        ("objective", 4): lambda v: 0.05 * (v[0] * v[-1]) ** 2,
+    }
+    if with_border_ineq:
+        fns[("constraint", 9)] = lambda v: (v[0] ** 2 + 0.3 * v[-1] - 1.2).reshape(1)
+        fns[("constraint", 10)] = lambda th: ((th**2).sum() - 1.8).reshape(1)
+    return prob, fns
+
+
+def global_phase(B=1, N=12, seed0=0, fix_theta=None):
+    """The global-phase family: the 2-D transfer with Δt = 0.12, |u| ≤ 0.8,
+    x_1 = (1, 0) and x_N the final state of the rollout of
+    u = 0.3·sin(linspace(0, 4, N)); a global θ ∈ ℝ² with |θ| ≤ 3; objective
+    ½Σ‖Δt u_k‖² + Σ(θ − 0.3)² + Σ_k 0.02·(x_k[1] − θ[1])²; constraints
+    u_3 − 0.5·θ[0] − 0.1 = 0 and θ[0] + θ[1] = 0.2. Lane ℓ starts from the
+    rollout plus 0.02·N(0,1) on x and from θ = (0.4, −0.2) plus 0.2·N(0,1),
+    both from ``np.random.default_rng(seed0 + ℓ)``. ``fix_theta``: pin θ
+    there instead (``fix_global_variable``). Batched when B > 1."""
+    dt = 0.12
+    u = 0.3 * np.sin(np.linspace(0, 4, N))[:, None]
+    xs = rollout([1.0, 0.0], u, dt)
+
+    def g_obj(th):
+        return jnp.sum((th - 0.3) ** 2)
+
+    def gk_obj(v):
+        return 0.02 * (v[1] - v[-1]) ** 2
+
+    def g_con(v):
+        return jnp.array([v[0] - 0.5 * v[-2] - 0.1])
+
+    probs = []
+    for lane in range(B):
+        rng = np.random.default_rng(seed0 + lane)
+        x = xs + 0.02 * rng.normal(size=(N, 2))
+        theta = np.array([0.4, -0.2]) + 0.2 * rng.normal(size=2)
+        traj = dtx.Trajectory.create(
+            {"x": x, "u": u}, timestep=dt, controls="u", initial={"x": [1.0, 0.0]},
+            final={"x": xs[-1]}, bounds={"u": 0.8, "theta": 3.0}, global_data={"theta": theta})
+        obj = (dtx.QuadraticRegularizer.create("u", traj, 1.0)
+               + dtx.GlobalObjective.create(g_obj, "theta", traj)
+               + dtx.GlobalKnotPointObjective.create(gk_obj, "x", "theta", traj))
+        cons = [dtx.NonlinearGlobalKnotPointConstraint.create(g_con, "u", "theta", traj,
+                                                              times=[3])]
+        if fix_theta is None:
+            cons.append(dtx.GlobalLinearConstraint.create("theta", np.array([[1.0, 1.0]]),
+                                                          lb=[0.2], ub=[0.2]))
+        else:
+            traj, pin = dtx.fix_global_variable(traj, "theta", np.asarray(fix_theta))
+            cons.append(pin)
+        probs.append(dtx.DirectTrajOptProblem.create(traj, obj, bilinear_integrator(),
+                                                     constraints=cons))
+    prob = jax.tree.map(lambda *xs: jnp.stack(xs), *probs) if B > 1 else probs[0]
+    return prob, {
+        ("constraint", 0): lambda v: (v[0] - 0.5 * v[-2] - 0.1).reshape(1),
+        ("objective", 1): lambda th: ((th - 0.3) ** 2).sum(),
+        ("objective", 2): lambda v: 0.02 * (v[1] - v[-1]) ** 2,
     }
 
 
