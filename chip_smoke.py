@@ -36,6 +36,22 @@ Phases, each printing its own lines:
    residuals, and the device copies per iteration beside path 2's. Phase 2
    holds K1 (2,1,R3) and K2 (2,1,R′) on path 3's captured calls, and K3/K4
    on its knot matrix, whose lane stride is N·d + n_g, with no copy.
+6. Path 4, the solver's scheduled and polished entry points on path 1's
+   family (float32, N=51). First K1-K4 against their plain versions at the
+   shapes path 4 adds: K4 on 8192 lanes × 9 slots (4a's first phase runs
+   the whole batch in one lockstep), and K1-K4 on 1024 lanes (4b's float32
+   phase). 4a: ``solve_batch_scheduled`` at B=8192 (``scheduled_config()``:
+   the seek's options, 24 + 112 iterations, chunks of 256, a 32-row
+   telemetry ring on the card) with each phase's seconds, iterations and
+   launches, the straggler count, the converged share, the KKT error,
+   max |u, du, ddu − ref| on lanes 0-63 against
+   ``tests/golden/torch/scheduled_n51.npz`` and the ring's soundness. 4b:
+   ``solve_batch_polished`` on lanes 0-1023 (``polished_config()``): each
+   phase's seconds, iterations and launches (the float64 polish runs the
+   kernels' plain versions: 0 launches), the converged share, the KKT
+   error, RMS(u) against the golden optimum, and the float64 polish's
+   seconds per lockstep iteration beside path 1's float32 polish's. The
+   launch check covers 4a and 4b's float32 phase together.
 
 Exits non-zero if there is no CUDA device, if any kernel fails to build,
 launch or agree, if a kernel of a path was never launched during it, or if
@@ -45,6 +61,7 @@ a path's result does not meet its certificate. The last line is
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import re
@@ -69,6 +86,11 @@ GOLDEN_THETA = 1e-4
 EQ_CERT = 1e-6
 GOLDEN_REF3 = 1e-4
 GOLDEN_U3 = 1e-2
+# path 4a, on lanes 0-63: |u, du, ddu − ref| against the JAX package's f64
+# scheduled solve at the cell's options; path 4b: the KKT error after the
+# float64 polish (the bars of tests/test_golden.py)
+GOLDEN_REF4 = 1e-4
+KKT_POLISH = 1e-7
 MIN_CONVERGED = 0.99  # share of lanes that must converge
 DEVICE = "cuda:0"
 
@@ -327,6 +349,44 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
+class Timed:
+    """Record each call of a solve phase, ``module.name`` (``_solve_impl``):
+    its wall seconds (ending in a device sync), lanes, dtype, lockstep
+    passes, unconverged lanes and kernel launches."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls: list = []
+
+    def __enter__(self):
+        from directtrajopt_tpu_torch.ops import _build
+
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(problem, options, *args):
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            r = self.orig(problem, options, *args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            st = r.ipm.state
+            # a lane that stopped on convergence ran one pass more than its count
+            stop = st.converged | (st.acc_count >= options.acceptable_iter)
+            self.calls.append(dict(
+                seconds=sec, lanes=int(r.converged.shape[0]), dtype=str(r.ipm.Z.dtype),
+                passes=int((r.ipm.iterations + stop.int()).max()),
+                unconverged=int((~r.converged).sum()),
+                gauss_newton=options.hessian_approximation == "gauss_newton",
+                launches={k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}))
+            return r
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
     """(kernel, registers, stack frame and spills, shared memory) per kernel
     from ``nvcc -Xptxas -v`` output."""
@@ -358,8 +418,17 @@ def main() -> None:
     from directtrajopt_tpu_torch.solvers.canonical import make_nlp
     from directtrajopt_tpu_torch.solvers.ops_riccati import analyze
     from directtrajopt_tpu_torch.solvers.options import IPMOptions
-    from directtrajopt_tpu_torch.solvers.solve import cast_problem, solve, solve_batch_compact
+    from directtrajopt_tpu_torch.module import tree_take
+    from directtrajopt_tpu_torch.solvers.solve import (
+        cast_problem,
+        solve,
+        solve_batch_compact,
+        solve_batch_polished,
+        solve_batch_scheduled,
+    )
 
+    # the module (the package re-exports its function ``solve`` under that name)
+    solve_mod = importlib.import_module("directtrajopt_tpu_torch.solvers.solve")
     dev = torch.device(DEVICE)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -755,7 +824,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     times = {}
-    res2, res1 = benchmarks.run_headline(prob_big, cfg, times)
+    with Timed(solve_mod, "_solve_impl") as tm1:  # for path 4's polish comparison
+        res2, res1 = benchmarks.run_headline(prob_big, cfg, times)
     launches = dict(_build.LAUNCHES)
     t_seek, t_polish = times["seek"], times["polish"]
 
@@ -884,6 +954,171 @@ def main() -> None:
     print(f"[path3] device copies (aten::copy_, host-to-device included) per iteration: "
           f"path 3 {per_it['path 3']}, path 2 {per_it['path 2']}", flush=True)
 
+    # ---------------- 6. path 4: scheduled and polished entry points -------- #
+    del res_g
+    sch_cfg, pol_cfg = benchmarks.scheduled_config(), benchmarks.polished_config()
+    B4a, B4b = sch_cfg["batch"], pol_cfg["batch"]
+    if B4a != B:
+        fail(f"path 4a runs path 1's batch ({B}), got {B4a}")
+    # K4 on 4a's first phase: all lanes in one lockstep, the seek's 9 slots
+    Zb = prob_big.trajectory.to_zvec()
+    dZb = torch.as_tensor(1e-3 * rng.standard_normal(Zb.shape), dtype=torch.float32, device=dev)
+    Ztb = (Zb[:, None] + alphas[None, :, None] * dZb[:, None]).reshape(
+        B, n_slots, layout.N, layout.dim)
+    tb_args = prob_big.integrators[0]._trial_views(layout, Ztb)
+    ops4b = horner_ops(B * n_slots, layout.N - 1, xd4, tb_args[1].shape[1], order, False)
+    check("residual_l1_big", f"K4 residual (L1 form) on Zt {tuple(Ztb.shape)}",
+          lambda: expv_kernel.residual_l1(order, *tb_args),
+          lambda: expv_kernel.residual_l1_plain(order, *tb_args), 2e-6, False, tb_args, ops4b,
+          prof="residual_grid_kernel")
+    check("residual_big", f"K4 residual (vector form) on Zt {tuple(Ztb.shape)}",
+          lambda: expv_kernel.residual_action(order, *tb_args),
+          lambda: expv_kernel.residual_action_plain(order, *tb_args), 2e-6, False, tb_args, ops4b,
+          prof="residual_grid_kernel")
+    del Ztb, tb_args
+    # K1-K4 on 4b's float32 phase: B4b lanes in one lockstep, exact Hessian
+    # with SOC and restoration (K2 at R' = 2), the default 12 trial slots
+    s0, st = riccati_inputs(2, B4b, 8, 3, 3)
+    check(f"factor_solve_{B4b}", f"K1 factor_solve (grouped) B={B4b} (n_s,n_v,R)=(8, 3, 3)",
+          lambda: riccati_kernel.factor_solve(s0, *st),
+          lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
+          riccati_ops(B4b, N, 8, 3, 3, factor=True), ok_equal, prof="factor_solve_grouped")
+    s0r, str_ = riccati_inputs(3, B4b, 8, 3, 2)
+    fac = riccati_kernel.factor_solve_plain(s0r, *str_)
+    check(f"resolve_{B4b}", f"K2 resolve (grouped) B={B4b} (n_s,n_v,R')=(8, 3, 2)",
+          lambda: riccati_kernel.resolve(s0r, *fac[:5], *str_[3:]),
+          lambda: riccati_kernel.resolve_plain(s0r, *fac[:5], *str_[3:]), 5e-6, True,
+          list(fac[:5]) + str_[3:], riccati_ops(B4b, N, 8, 3, 2, factor=False),
+          prof="resolve_grouped")
+    del s0, st, s0r, str_, fac
+    prob4b = tree_take(prob_big, torch.arange(B4b, device=dev))
+    check_k3(f"window_jac_{B4b}", "<4,2> free dt", prob4b)
+    n_slots4 = IPMOptions().max_ls + 2
+    Z4 = prob4b.trajectory.to_zvec()
+    al4 = torch.as_tensor(0.5 ** np.arange(n_slots4), dtype=torch.float32, device=dev)
+    Zt4 = (Z4[:, None] + al4[None, :, None] * dZb[:B4b, None]).reshape(
+        B4b, n_slots4, layout.N, layout.dim)
+    t4 = prob4b.integrators[0]._trial_views(layout, Zt4)
+    ops44 = horner_ops(B4b * n_slots4, layout.N - 1, xd4, t4[1].shape[1], order, False)
+    check(f"residual_l1_{B4b}", f"K4 residual (L1 form) on Zt {tuple(Zt4.shape)}",
+          lambda: expv_kernel.residual_l1(order, *t4),
+          lambda: expv_kernel.residual_l1_plain(order, *t4), 2e-6, False, t4, ops44,
+          prof="residual_grid_kernel")
+    check(f"residual_{B4b}", f"K4 residual (vector form) on Zt {tuple(Zt4.shape)}",
+          lambda: expv_kernel.residual_action(order, *t4),
+          lambda: expv_kernel.residual_action_plain(order, *t4), 2e-6, False, t4, ops44,
+          prof="residual_grid_kernel")
+    del Zt4, t4, dZb
+
+    def phase_line(tag, what, c):
+        print(f"[{tag}] {what}: {c['seconds']:.2f} s, {c['lanes']} lanes ({c['dtype']}), "
+              f"{c['passes']} lockstep passes, {c['unconverged']} unconverged after it; "
+              f"kernel launches {json.dumps(c['launches'])}", flush=True)
+
+    # ---- 4a: solve_batch_scheduled at B=8192 ------------------------------ #
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with Timed(solve_mod, "_solve_impl") as tm4a:
+        res4a = solve_batch_scheduled(prob_big, **sch_cfg["solve_kw"])
+    torch.cuda.synchronize()
+    t_4a = time.perf_counter() - t0
+    launches4a = dict(_build.LAUNCHES)
+    conv4a = res4a.converged.cpu().numpy()
+    kkt4a = res4a.kkt_error.cpu().numpy()
+    it_all = res4a.iterations.cpu().numpy()
+    it_last = res4a.ipm.iterations.cpu().numpy()  # of the phase that produced the lane
+    strag = it_all > it_last
+    lanes4a = np.nonzero(conv4a)[0]
+    err_det, err_full = benchmarks.scheduled_certificate(res4a)
+    n_ref4 = min(B4a, len(np.load(benchmarks.GOLDEN_SCHEDULED)["Z_ref"]))
+    sound = benchmarks.telemetry_sound(res4a)
+    rms4a = benchmarks.rms_u_vs_golden(res4a, lanes4a)
+    kkt4a_max = float(kkt4a[lanes4a].max()) if len(lanes4a) else float("nan")
+    p1_its = np.where(strag, it_all - it_last, it_all)
+    print(f"[path4a] solve_batch_scheduled B={B4a} N={N} float32: {t_4a:.2f} s; converged "
+          f"{len(lanes4a)}/{B4a}; phase 1 iterations median {np.median(p1_its):g} max "
+          f"{p1_its.max()}; {tm4a.calls[0]['unconverged']} stragglers into phase 2 "
+          f"({len(tm4a.calls) - 1} chunks of {sch_cfg['solve_kw']['chunk']}), their phase-2 "
+          f"iterations median {np.median(it_last[strag]) if strag.any() else 0:g} max "
+          f"{it_last[strag].max() if strag.any() else 0}", flush=True)
+    phase_line("path4a", "phase 1", tm4a.calls[0])
+    if len(tm4a.calls) > 1:
+        p2 = dict(seconds=sum(c["seconds"] for c in tm4a.calls[1:]),
+                  lanes=sum(c["lanes"] for c in tm4a.calls[1:]), dtype=tm4a.calls[1]["dtype"],
+                  passes=sum(c["passes"] for c in tm4a.calls[1:]),
+                  unconverged=sum(c["unconverged"] for c in tm4a.calls[1:]),
+                  launches={k: sum(c["launches"].get(k, 0) for c in tm4a.calls[1:])
+                            for k in launches4a})
+        phase_line("path4a", "phase 2 (all chunks, padding included)", p2)
+    print(f"[path4a] over converged lanes: max kkt {kkt4a_max:.3e} (bound {KKT_CERT:g}); "
+          f"lanes 0-{n_ref4 - 1}: max |u, du, ddu - ref| {err_det:.3e} (bound {GOLDEN_REF4:g}), "
+          f"max |Z - Z_ref| {err_full:.3e} (not certified: the optimum u = 0 leaves dt and x "
+          f"free); RMS(u) vs golden max {float(rms4a.max()) if len(lanes4a) else float('nan'):.3e} "
+          f"(printed, not certified)")
+    print(f"[path4a] telemetry ring {tuple(res4a.ipm.history_stats.shape)}: sound on "
+          f"{int(sound.sum())}/{B4a} lanes; kernel launches {json.dumps(launches4a)}; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    st4a = res4a.status.cpu().numpy()
+    for i in np.nonzero(~conv4a)[0][:16]:
+        print(f"[path4a] unconverged lane {i}: {it_all[i]} iterations, kkt {kkt4a[i]:.3e}, "
+              f"status {st4a[i]}")
+    del res4a
+
+    # ---- 4b: solve_batch_polished on lanes 0-(B4b - 1) -------------------- #
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with Timed(solve_mod, "_solve_impl") as tm4b:
+        res4b = solve_batch_polished(prob4b, **pol_cfg["solve_kw"])
+    torch.cuda.synchronize()
+    t_4b = time.perf_counter() - t0
+    launches4b = dict(_build.LAUNCHES)
+    c32, c64 = tm4b.calls
+    conv4b = res4b.converged.cpu().numpy()
+    kkt4b = res4b.kkt_error.cpu().numpy()
+    lanes4b = np.nonzero(conv4b)[0]
+    rms4b = benchmarks.rms_u_vs_golden(res4b, lanes4b)
+    it4b = res4b.iterations.cpu().numpy()
+    kkt4b_max = float(kkt4b[lanes4b].max()) if len(lanes4b) else float("nan")
+    rms4b_max = float(rms4b.max()) if len(lanes4b) else float("nan")
+    z64 = res4b.problem.trajectory.to_zvec().dtype == torch.float64
+    print(f"[path4b] solve_batch_polished B={B4b} N={N}: {t_4b:.2f} s; converged "
+          f"{len(lanes4b)}/{B4b}; polish iterations median {np.median(it4b):g} max {it4b.max()}",
+          flush=True)
+    phase_line("path4b", "float32 phase", c32)
+    phase_line("path4b", "float64 polish (the kernels serve float32 only: the plain "
+                         "versions run, 0 launches expected)", c64)
+    pol1 = [c for c in tm1.calls if not c["gauss_newton"]]
+    s_p1 = sum(c["seconds"] for c in pol1) / max(1, sum(c["passes"] for c in pol1))
+    print(f"[path4b] float64 polish: {c64['seconds'] / max(1, c64['passes']):.4f} s per lockstep "
+          f"iteration at {c64['lanes']} lanes; path 1's compensated-float32 polish in this run: "
+          f"{s_p1:.4f} s per lockstep iteration at {pol1[0]['lanes'] if pol1 else 0} lanes "
+          f"({sum(c['passes'] for c in pol1)} passes in {sum(c['seconds'] for c in pol1):.2f} s)")
+    print(f"[path4b] over converged lanes: Z float64 {z64}; max kkt {kkt4b_max:.3e} (bound "
+          f"{KKT_POLISH:g}), max RMS(u) vs golden {rms4b_max:.3e} (bound {GOLDEN_RMS:g}); "
+          f"kernel launches {json.dumps(launches4b)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    st4b = res4b.status.cpu().numpy()
+    for i in np.nonzero(~conv4b)[0][:16]:
+        print(f"[path4b] unconverged lane {i}: {it4b[i]} polish iterations, kkt {kkt4b[i]:.3e}, "
+              f"status {st4b[i]}")
+    launches4 = {k: launches4a[k] + c32["launches"].get(k, 0) for k in launches4a}
+    if any(v == 0 for v in launches4.values()):
+        fail(f"a kernel of path 4 (4a and 4b's float32 phase) was never launched: {launches4}")
+    if len(lanes4a) < MIN_CONVERGED * B4a:
+        fail(f"path 4a: only {len(lanes4a)}/{B4a} lanes converged")
+    if not (kkt4a_max <= KKT_CERT and err_det <= GOLDEN_REF4):
+        fail("path 4a: a converged lane is not certified")
+    if not sound.all():
+        fail(f"path 4a: the telemetry ring is unsound on lanes {np.nonzero(~sound)[0][:16]}")
+    if len(lanes4b) < MIN_CONVERGED * B4b:
+        fail(f"path 4b: only {len(lanes4b)}/{B4b} lanes converged")
+    if not (z64 and kkt4b_max <= KKT_POLISH and rms4b_max < GOLDEN_RMS):
+        fail("path 4b: a converged lane is not certified in float64")
+
     table = []
     for name, (route, src, replaces) in KERNELS.items():
         r = results[name]
@@ -903,6 +1138,22 @@ def main() -> None:
         r = results[name]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches3[key], max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
+    # path 4's rows: K1/K3/K4 at 8192 lanes (4a's first phase), path 1's
+    # shapes at 256 lanes (4a's straggler chunks; no K2: SOC and restoration
+    # are off), and K1-K4 at B4b lanes (4b's float32 phase)
+    p2_launch = {k: sum(c["launches"].get(k, 0) for c in tm4a.calls[1:]) for k in KERNELS}
+    path4 = ([(f"{k}_big", k, tm4a.calls[0]["launches"]) for k in
+              ("factor_solve", "window_jac", "residual", "residual_l1")]
+             + [(f"{k}_sched", k, p2_launch) for k in
+                ("factor_solve", "window_jac", "residual", "residual_l1")]
+             + [(f"{k}_{B4b}", k, c32["launches"]) for k in KERNELS])
+    for name, key, counts in path4:
+        route, src, replaces = KERNELS[key]
+        r = results[name if name in results else key]
+        table.append(dict(name=name, route=route, source=src, replaces=replaces,
+                          launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     print(json.dumps({"kernels": table}))

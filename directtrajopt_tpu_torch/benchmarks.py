@@ -13,7 +13,9 @@ lane per initial guess. ``make_batched_global_problems`` builds the third:
 the same transfer with a global phase parameter θ ∈ ℝ² coupled to the
 trajectory through a knot equality, a knot objective and a global objective
 (the arrowhead end-to-end problem of the JAX package's tests), one lane per
-start.
+start. ``scheduled_config`` and ``polished_config`` run the first family
+through ``solve_batch_scheduled`` and ``solve_batch_polished`` (path 4 of
+``chip_smoke.py``), with ``scheduled_certificate`` and ``telemetry_sound``.
 
 Problems are built on the host in numpy from a seed (the same draws as the
 JAX package, so both packages pose the same problems) and put on
@@ -55,11 +57,16 @@ __all__ = [
     "global_config",
     "global_certificate",
     "headline_config",
+    "scheduled_config",
+    "polished_config",
+    "scheduled_certificate",
+    "telemetry_sound",
     "run_headline",
     "rms_u_vs_golden",
     "GOLDEN_N51",
     "GOLDEN_STATE_CONSTRAINED",
     "GOLDEN_GLOBAL_PHASE",
+    "GOLDEN_SCHEDULED",
 ]
 
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -67,6 +74,7 @@ _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 GOLDEN_N51 = os.path.join(_GOLDEN_DIR, "bilinear_n51_seed42.npz")
 GOLDEN_STATE_CONSTRAINED = os.path.join(_GOLDEN_DIR, "torch", "state_constrained_n51.npz")
 GOLDEN_GLOBAL_PHASE = os.path.join(_GOLDEN_DIR, "torch", "global_phase_n51.npz")
+GOLDEN_SCHEDULED = os.path.join(_GOLDEN_DIR, "torch", "scheduled_n51.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):
@@ -375,6 +383,78 @@ def headline_config(batch: int | None = None) -> dict:
         compensated_residuals=True,
     )
     return dict(N=51, batch=B, taylor_order=6, phase1_kw=phase1_kw, polish_kw=polish_kw)
+
+
+def scheduled_config() -> dict:
+    """Path 4a: ``solve_batch_scheduled`` on path 1's family (float32,
+    Taylor order 6, B=8192) with the seek's options; ``phase1_iter`` 24 (the
+    scheduler's default), ``phase2_iter`` 112 (a lane's budget is the
+    seek's 20 + 20 + 96 = 136), the barrier restarted at the seek's 1e-2,
+    path 1's chunk of 256, and a 32-row telemetry ring. Returns ``{"N",
+    "batch", "taylor_order", "solve_kw"}``."""
+    from .solvers.callbacks import telemetry
+
+    kw = {k: v for k, v in headline_config()["phase1_kw"].items() if k not in ("phases", "chunk")}
+    kw.update(phase1_iter=24, phase2_iter=112, mu_init_phase2=1e-2, chunk=256,
+              callbacks=telemetry(32))
+    return dict(N=51, batch=8192, taylor_order=6, solve_kw=kw)
+
+
+def polished_config() -> dict:
+    """Path 4b: ``solve_batch_polished`` on lanes 0-1023 of path 1's family
+    with the options of the JAX package's N=51 polish test (exact Hessian,
+    tol = acceptable_tol = 1e-6, acceptable_iter 100, mu_init 3e-2;
+    polish_tol 1e-8, polish_mu_init 1e-5), the float32 phase's budget
+    raised from the test's 150 to 300 iterations and the polish capped at
+    40. The test poses one problem; from this family's starts the exact
+    Hessian is slower: at 150 iterations 5 of lanes 0-63 are still running
+    in either package (f32, CPU), and the polish, a lockstep batch on the
+    kernels' plain float64 versions, cannot finish them. At 300 all 64
+    converge (the slowest in 160) and the polish takes at most 2
+    iterations. Returns ``{"N", "batch", "taylor_order", "solve_kw"}``."""
+    kw = dict(tol=1e-6, acceptable_tol=1e-6, acceptable_iter=100, max_iter=300, mu_init=3e-2,
+              polish_max_iter=40)
+    return dict(N=51, batch=1024, taylor_order=6, solve_kw=kw)
+
+
+def scheduled_certificate(res, path: str = GOLDEN_SCHEDULED):
+    """Against the JAX package's float64 ``solve_batch_scheduled`` of lanes
+    0-63 (as many as the golden holds) at :func:`scheduled_config`'s
+    options: max |z − z_ref| over the components the optimum determines
+    (u, du, ddu), and over all of Z. The optimum is u ≡ 0, at which every
+    Δt is optimal: Δt and the rolled-out x are not determined (Z_ref's Δt
+    spans 0.253-0.270 over the lanes), and a float32 solve at tol 1e-6
+    stops elsewhere along that valley than a float64 one, in the JAX package
+    too (1.4e-2 in Δt on lanes 0-7). Two floats."""
+    Z_ref = np.asarray(np.load(path)["Z_ref"], dtype=np.float64)
+    n = min(res.converged.shape[0], len(Z_ref))
+    layout = res.problem.trajectory.layout
+    Z = res.problem.trajectory.to_zvec()[:n].detach().to("cpu", torch.float64).numpy()
+    diff = np.abs(Z - Z_ref[:n]).reshape(n, layout.N, layout.dim)
+    det = np.concatenate([diff[..., layout.comp_slice(c)] for c in ("u", "du", "ddu")], axis=-1)
+    return float(det.max()), float(diff.max())
+
+
+def telemetry_sound(res) -> np.ndarray:
+    """Per lane, whether its telemetry ring (``res.ipm.history_stats``, T
+    rows) is sound. With n the iterations of the phase that produced the
+    lane's result (``res.ipm.iterations``): the rows of iterations
+    max(0, n − T + 1) … n − 1 (each written by a step) are finite and their
+    μ column never increases, in iteration order; row n (the final iterate,
+    written when the lane stopped on convergence) is finite or zero; the
+    rows after it are zero."""
+    ring = res.ipm.history_stats.detach().to("cpu", torch.float64).numpy()
+    its = res.ipm.iterations.cpu().numpy()
+    T = ring.shape[1]
+    mu_col = 3  # TELEMETRY_COLUMNS.index("mu")
+    ok = np.zeros(len(its), dtype=bool)
+    for lane, n in enumerate(its):
+        steps = ring[lane, [i % T for i in range(max(0, n - T + 1), n)]]
+        good = np.isfinite(steps).all() and bool((np.diff(steps[:, mu_col]) <= 0).all())
+        if n < T:
+            good = good and np.isfinite(ring[lane, n]).all() and not ring[lane, n + 1:].any()
+        ok[lane] = good
+    return ok
 
 
 def run_headline(batch_problems, cfg, times: dict | None = None):

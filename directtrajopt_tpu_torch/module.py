@@ -67,9 +67,13 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_where(mask: torch.Tensor, new, old):
-    """Per-lane select: ``new`` where ``mask`` (shape (B,)) holds, else ``old``."""
+    """Per-lane select: ``new`` where ``mask`` (shape (B,)) holds, else ``old``.
+    A leaf that ``new`` shares with ``old`` is returned as it is, with no
+    device operation."""
 
     def sel(a, b):
+        if a is b:
+            return a
         m = mask.reshape(mask.shape + (1,) * (a.ndim - 1))
         return torch.where(m, a, b)
 

@@ -16,22 +16,29 @@ body runs on all lanes, and ``torch.where`` keeps each lane whose loop
 predicate is false frozen — exactly the semantics of a vmapped while loop,
 so per-lane iteration counts match the JAX solve.
 
+Callbacks (``solvers/callbacks.py``) hook into each lockstep iteration:
+host monitoring, stop predicates per lane, a host-interactive stop, the
+iterate and telemetry rings and best-score tracking. A hook that is not set
+runs no device operation.
+
 Not ported yet (``IPMOptions.check_supported`` raises): the Mehrotra and
 adaptive μ strategies, residual refinement, the non-monotone line search,
-L-BFGS, least-squares dual initialization, callbacks and telemetry.
+L-BFGS and least-squares dual initialization.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
 
 from ..module import tree_where
+from .callbacks import IPMCallbacks, _wall_stop_cached
 from .canonical import CanonicalNLP
 from .options import IPMOptions
 
-__all__ = ["IPMState", "IPMResult", "WarmStart", "ipm_solve"]
+__all__ = ["IPMState", "IPMResult", "WarmStart", "TELEMETRY_COLUMNS", "ipm_solve"]
 
 _BIG = 1e20
 _FILTER_SIZE = 64
@@ -75,6 +82,7 @@ class IPMState(NamedTuple):
     iter: torch.Tensor
     converged: torch.Tensor
     acc_count: torch.Tensor
+    stopped: torch.Tensor  # a callback asked the lane to stop
     err: torch.Tensor
     obj: torch.Tensor
     best_kkt: torch.Tensor
@@ -85,6 +93,14 @@ class IPMState(NamedTuple):
     obj_prev: torch.Tensor
     osc_count: torch.Tensor
     delta_w_boost: torch.Tensor
+    history_Z: torch.Tensor  # (B, K, z_dim) iterate ring (K may be 0)
+    hist_n: torch.Tensor
+    history_stats: torch.Tensor  # (B, T, 8) telemetry ring (T may be 0)
+    best_score: torch.Tensor
+    best_Z: torch.Tensor
+    # (B, K) / (B, K, z_dim) top-K score retention (score_top_k > 1 only)
+    topk_scores: torch.Tensor | None = None
+    topk_Z: torch.Tensor | None = None
 
 
 class IPMResult(NamedTuple):
@@ -93,9 +109,31 @@ class IPMResult(NamedTuple):
     iterations: torch.Tensor
     converged: torch.Tensor
     status: torch.Tensor  # 0 optimal, 1 acceptable, 2 iteration limit,
-    # 4 locally infeasible, 5 restoration failed, 6 diverging iterates
+    # 3 stopped by a callback, 4 locally infeasible, 5 restoration failed,
+    # 6 diverging iterates
     kkt_error: torch.Tensor
     objective: torch.Tensor
+    history_Z: torch.Tensor
+    best_Z: torch.Tensor
+    best_score: torch.Tensor
+    history_stats: torch.Tensor  # (B, T, 8) telemetry ring, columns TELEMETRY_COLUMNS
+    topk_scores: torch.Tensor | None = None
+    topk_Z: torch.Tensor | None = None
+
+
+# columns of IPMResult.history_stats: one row per iteration (a ring of
+# IPMCallbacks.telemetry_size rows), written before the step, so row i
+# describes iterate i
+TELEMETRY_COLUMNS = (
+    "objective",
+    "inf_pr",
+    "inf_du",
+    "mu",
+    "kkt_error",
+    "alpha",
+    "delta_w",
+    "theta",
+)
 
 
 # ---- error-free transforms (options.compensated_residuals) ---------------- #
@@ -153,10 +191,37 @@ def _lane(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[:1] + (1,) * (like.ndim - t.ndim) + t.shape[1:])
 
 
+def _print_iteration(**fields) -> None:
+    """The ``print_level >= 5`` line: one per lockstep iteration, each field
+    a (B,) tensor printed over the lanes."""
+
+    def fmt(t, spec):
+        return "[" + " ".join(format(v, spec) for v in t.tolist()) + "]"
+
+    print(" ".join(f"{k}={fmt(t, spec)}" for k, (t, spec) in fields.items()), flush=True)
+
+
+def _ring_set(ring: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """``ring`` (B, K, ·) with row ``slot`` (B,) of each lane set to ``row`` (B, ·)."""
+    idx = slot.long()[:, None, None].expand(-1, 1, ring.shape[-1])
+    return ring.scatter(1, idx, row[:, None].to(ring.dtype))
+
+
 def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
+              callbacks: IPMCallbacks | None = None,
               warm: WarmStart | None = None) -> IPMResult:
-    """Run the interior-point method from ``Z0`` (B, z_dim) on every lane."""
+    """Run the interior-point method from ``Z0`` (B, z_dim) on every lane.
+
+    ``callbacks``: an optional :class:`IPMCallbacks` (host monitoring, stop
+    predicates, rings, best-score tracking). ``options.max_wall_time`` > 0
+    adds a wall-clock stop anchored at this solve's start."""
     options.check_supported()
+    cb = callbacks
+    if options.max_wall_time > 0.0:
+        cb = _wall_stop_cached(float(options.max_wall_time)).merged_with(cb)
+    hist_k = cb.history_size if cb else 0
+    tele_k = cb.telemetry_size if cb else 0
+    top_k = cb.score_top_k if cb is not None and cb.score_fn is not None else 1
     dtype, dev = Z0.dtype, Z0.device
     B = Z0.shape[0]
     comp = bool(options.compensated_residuals) and dtype == torch.float32
@@ -225,6 +290,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         iter=full(0, i32),
         converged=full(False, torch.bool),
         acc_count=full(0, i32),
+        stopped=full(False, torch.bool),
         err=full(_BIG),
         obj=obj0,
         best_kkt=full(_BIG),
@@ -235,6 +301,14 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         obj_prev=full(inf),
         osc_count=full(0, i32),
         delta_w_boost=full(1.0),
+        history_Z=Z_init.new_zeros((B, hist_k, z_dim)),
+        hist_n=full(0, i32),
+        history_stats=Z_init.new_zeros((B, tele_k, 8)),
+        best_score=full(-inf),
+        best_Z=Z_init,
+        topk_scores=(torch.full((B, top_k), -inf, dtype=dtype, device=dev)
+                     if top_k > 1 else None),
+        topk_Z=Z_init.new_zeros((B, top_k, z_dim)) if top_k > 1 else None,
     )
     s_max = 100.0
 
@@ -623,6 +697,53 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             (stall_count >= 2 * options.infeasibility_iter) & theta_big & far_from_opt
         )
 
+        if options.print_level >= 5:
+            _print_iteration(it=(st.iter, "d"), mu=(mu, ".1e"), obj=(st.obj, ".6f"),
+                             th=(theta0, ".2e"), e0=(e_0, ".2e"), emu=(e_mu, ".2e"),
+                             a=(alpha, ".2e"), amax=(a_pri, ".2e"), soc=(use_soc, ""),
+                             dw=(delta_fin, ".1e"), ok=(ok, ""))
+
+        # ---- user callbacks ---------------------------------------------- #
+        obj_new = torch.where(took_step, f_sel, st.obj)
+        stopped = st.stopped
+        if cb is not None and (cb.host_fn is not None or cb.host_stop_fn is not None):
+            info = {"iteration": st.iter, "mu": mu, "objective": obj_new, "kkt_error": e_0,
+                    "theta": theta0}
+            if cb.host_fn is not None:
+                cb.host_fn(dict(info, Z=Z_new) if cb.include_primal else info)
+            # a host poll halts every active lane, the iterate in flight kept
+            if cb.host_stop_fn is not None and bool(
+                    (active & (st.iter % cb.host_stop_every == 0)).any()):
+                if cb.host_stop_fn(dict(info, start_time=t_start)):
+                    stopped = torch.ones_like(stopped)
+        if cb is not None and cb.stop_fn is not None:
+            due = (st.iter % cb.stop_every) == 0
+            stopped = stopped | (due & cb.stop_fn(Z_new, st.iter))
+        history_Z, hist_n = st.history_Z, st.hist_n
+        if hist_k:
+            history_Z = _ring_set(st.history_Z, st.iter % hist_k, Z_new)
+            hist_n = (st.hist_n + 1).to(i32)
+        history_stats = st.history_stats
+        if tele_k:
+            # the current iterate and the step taken from it (TELEMETRY_COLUMNS)
+            row = torch.stack([st.obj, inf_pr, inf_du, mu, e_0, alpha, delta_fin.to(dtype),
+                               theta0], dim=-1)
+            history_stats = _ring_set(st.history_stats, st.iter % tele_k, row)
+        best_score, best_Z = st.best_score, st.best_Z
+        topk_scores, topk_Z = st.topk_scores, st.topk_Z
+        if cb is not None and cb.score_fn is not None:
+            sc = cb.score_fn(Z_new).to(dtype)
+            better = sc > st.best_score
+            best_score = torch.where(better, sc, st.best_score)
+            best_Z = torch.where(better[:, None], Z_new, st.best_Z)
+            if top_k > 1:
+                # replace the worst retained snapshot when beaten
+                worst = st.topk_scores.argmin(-1)
+                beat = sc > st.topk_scores.gather(1, worst[:, None])[:, 0]
+                hit_k = beat[:, None] & (torch.arange(top_k, device=dev) == worst[:, None])
+                topk_scores = torch.where(hit_k, sc[:, None], st.topk_scores)
+                topk_Z = torch.where(hit_k[..., None], Z_new[:, None], st.topk_Z)
+
         return IPMState(
             Z=Z_new, s=s_new, lam=lam_new, nu=nu_new, zL=zL_new, zU=zU_new, mu=mu,
             theta_max=st.theta_max, theta_min=st.theta_min,
@@ -632,19 +753,24 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             stall_count=stall_count, infeasible=infeasible, rest_failed=rest_failed,
             diverged=diverged,
             iter=(st.iter + (~stop_now).to(i32)).to(i32),
-            converged=conv_now, acc_count=acc_count, err=e_0,
-            obj=torch.where(took_step, f_sel, st.obj),
+            converged=conv_now, acc_count=acc_count, stopped=stopped, err=e_0,
+            obj=obj_new,
             best_kkt=best_kkt, best_kkt_ok=best_kkt_ok, best_kkt_Z=best_kkt_Z,
             best_kkt_obj=best_kkt_obj, best_kkt_warm=best_kkt_warm,
             obj_prev=st.obj, osc_count=osc_count, delta_w_boost=delta_w_boost,
+            history_Z=history_Z, hist_n=hist_n, history_stats=history_stats,
+            best_score=best_score, best_Z=best_Z, topk_scores=topk_scores, topk_Z=topk_Z,
         )
 
     def cond(st: IPMState) -> torch.Tensor:
-        return (
+        go = (
             (~st.converged) & (~st.infeasible) & (~st.rest_failed) & (~st.diverged)
             & (st.acc_count < options.acceptable_iter) & (st.iter < options.max_iter)
         )
+        # without callbacks no lane can be stopped: skip the operation
+        return go & (~st.stopped) if cb is not None else go
 
+    t_start = time.monotonic()
     st = state0
     active = cond(st)
     while bool(active.any()):
@@ -654,8 +780,11 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     opt_hit = (st.best_kkt <= opt.tol) & st.best_kkt_ok
     acc_hit = st.best_kkt <= opt.acceptable_tol
     status = torch.where(opt_hit, 0, torch.where(acc_hit, 1, torch.where(
-        st.infeasible, 4, torch.where(st.rest_failed, 5, torch.where(st.diverged, 6, 2))))).to(i32)
+        st.infeasible, 4, torch.where(st.rest_failed, 5, torch.where(st.diverged, 6,
+            torch.where(st.stopped, 3, 2) if cb is not None else 2))))).to(i32)
     return IPMResult(
         Z=st.best_kkt_Z, state=st, iterations=st.iter, converged=opt_hit | acc_hit,
         status=status, kkt_error=st.best_kkt, objective=st.best_kkt_obj,
+        history_Z=st.history_Z, best_Z=st.best_Z, best_score=st.best_score,
+        history_stats=st.history_stats, topk_scores=st.topk_scores, topk_Z=st.topk_Z,
     )

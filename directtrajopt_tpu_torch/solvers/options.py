@@ -112,7 +112,3 @@ class IPMOptions:
             no("ls_memory", self.ls_memory, "Queue 1 item 3")
         if self.dual_init != "zero":
             no("dual_init", self.dual_init, "Queue 1 item 3")
-        if self.max_wall_time > 0.0:
-            no("max_wall_time", self.max_wall_time, "Queue 1 item 4")
-        if self.print_level > 0:
-            no("print_level", self.print_level, "Queue 1 item 4")

@@ -1,13 +1,16 @@
 """Public solve API.
 
 Counterpart of ``directtrajopt_tpu/solvers/solve.py``. Every problem of the
-port carries a leading lane axis, so ``solve`` and ``solve_batch`` are the
-same batched solve; ``solve_batch_compact`` is the multi-phase
-straggler-compacted scheduler of the certified benchmark pipeline.
+port carries a leading lane axis, so ``solve`` and ``solve_batch`` run the
+same batched solve; they differ as in the JAX package: ``solve`` honours a
+host-interactive stop (``host_stop_fn``, ``max_wall_time``) and the batch
+entry points drop it with a warning. ``solve_batch_scheduled`` is the
+host-driven two-phase straggler scheduler, ``solve_batch_compact`` the
+multi-phase one of the certified benchmark pipeline, and ``solve_polished``
+/ ``solve_batch_polished`` add a float64 polish to a solve in the
+problem's dtype.
 
-Not ported yet: ``solve_batch_scheduled``, ``solve_polished`` /
-``solve_batch_polished``, callbacks (ROADMAP Queue 1 item 4) and the dense
-backend (item 6).
+Not ported yet: the dense backend (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from .. import precision
 from ..constraints import L1SlackConstraint
 from ..module import tree_map, tree_take
 from ..problem import DirectTrajOptProblem
+from .callbacks import IPMCallbacks
 from .canonical import make_nlp
 from .ipm import IPMResult, WarmStart, ipm_solve
 from .options import IPMOptions
@@ -28,8 +32,23 @@ from .ops_riccati import RiccatiOps, analyze
 
 precision.apply()
 
-__all__ = ["SolveResult", "solve", "solve_batch", "solve_batch_compact", "cast_problem",
-           "remove_slack_variables"]
+__all__ = ["SolveResult", "solve", "solve_batch", "solve_batch_scheduled", "solve_batch_compact",
+           "solve_polished", "solve_batch_polished", "cast_problem", "remove_slack_variables",
+           "get_default_options", "set_default_options"]
+
+# process-global default solver options, used when a solve is called
+# without an options object
+_DEFAULT_OPTIONS: list = [None]
+
+
+def get_default_options() -> IPMOptions:
+    """Current process-global default solver options."""
+    return _DEFAULT_OPTIONS[0] or IPMOptions()
+
+
+def set_default_options(options: IPMOptions | None) -> None:
+    """Set (or with ``None`` reset) the process-global default options."""
+    _DEFAULT_OPTIONS[0] = options
 
 
 class SolveResult(NamedTuple):
@@ -55,7 +74,7 @@ def remove_slack_variables(problem: DirectTrajOptProblem) -> DirectTrajOptProble
 
 
 def _merge_options(options: IPMOptions | None, kwargs: dict) -> IPMOptions:
-    options = options or IPMOptions()
+    options = options or get_default_options()
     if kwargs:
         unknown = [k for k in kwargs if not hasattr(options, k)]
         if unknown:
@@ -65,8 +84,25 @@ def _merge_options(options: IPMOptions | None, kwargs: dict) -> IPMOptions:
     return options
 
 
+def _drop_host_stop(options: IPMOptions, callbacks: IPMCallbacks | None, entry: str):
+    """The batch entry points run no host-interactive stop: drop
+    ``host_stop_fn`` and ``max_wall_time`` with a warning."""
+    if (callbacks is not None and callbacks.host_stop_fn is not None) or (
+            options.max_wall_time > 0.0):
+        warnings.warn(
+            f"host-interactive stop (host_stop_fn / max_wall_time) is not supported by "
+            f"{entry}; dropping it. Use solve for a host-interactive stop, or "
+            f"solve_batch_scheduled for host control between phases.",
+            stacklevel=3,
+        )
+        options = options.replace(max_wall_time=0.0)
+        if callbacks is not None:
+            callbacks = callbacks.replace(host_stop_fn=None)
+    return options, callbacks
+
+
 def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str,
-                warm: WarmStart | None) -> SolveResult:
+                callbacks: IPMCallbacks | None, warm: WarmStart | None) -> SolveResult:
     if backend not in ("auto", "riccati"):
         raise NotImplementedError(f"backend={backend!r}: the dense backend is not ported yet "
                                   "(ROADMAP Queue 1 item 6)")
@@ -78,7 +114,8 @@ def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str
     if options.hessian_regularization == "auto":
         # resolved to "inertia", as in the JAX package (see its rationale)
         options = options.replace(hessian_regularization="inertia")
-    res = ipm_solve(nlp, problem.trajectory.to_zvec(), options, ops=ops, warm=warm)
+    res = ipm_solve(nlp, problem.trajectory.to_zvec(), options, ops=ops, callbacks=callbacks,
+                    warm=warm)
     new_prob = problem.replace(trajectory=problem.trajectory.from_zvec(res.Z))
     return SolveResult(
         problem=new_prob, iterations=res.iterations, converged=res.converged,
@@ -87,14 +124,77 @@ def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str
 
 
 def solve(problem: DirectTrajOptProblem, options: IPMOptions | None = None, *,
-          backend: str = "auto", warm: WarmStart | None = None, **kwargs: Any) -> SolveResult:
+          backend: str = "auto", callbacks: IPMCallbacks | None = None,
+          warm: WarmStart | None = None, **kwargs: Any) -> SolveResult:
     """Solve every lane of ``problem``. Keyword args override option fields.
+    ``callbacks``: an :class:`IPMCallbacks` bundle (host monitoring, early
+    stop, rings, best tracking; a host-interactive stop halts every lane).
     ``warm``: a :class:`WarmStart` of per-lane slacks/duals from a previous
     solve (the primal warm start is the trajectory itself)."""
-    return _solve_impl(problem, _merge_options(options, kwargs), backend, warm)
+    return _solve_impl(problem, _merge_options(options, kwargs), backend, callbacks, warm)
 
 
-solve_batch = solve
+def solve_batch(problems: DirectTrajOptProblem, options: IPMOptions | None = None, *,
+                backend: str = "auto", callbacks: IPMCallbacks | None = None,
+                warm: WarmStart | None = None, **kwargs: Any) -> SolveResult:
+    """Solve a batch of problems (all lanes share the static structure and
+    may differ in any numeric data). As :func:`solve`, except that a
+    host-interactive stop (``host_stop_fn`` / ``max_wall_time``) is dropped
+    with a warning, as in the JAX package, whose batch solver cannot run it."""
+    options = _merge_options(options, kwargs)
+    options, callbacks = _drop_host_stop(options, callbacks, "solve_batch")
+    return _solve_impl(problems, options, backend, callbacks, warm)
+
+
+def solve_batch_scheduled(
+    problems: DirectTrajOptProblem,
+    options: IPMOptions | None = None,
+    *,
+    phase1_iter: int = 24,
+    phase2_iter: int = 64,
+    mu_init_phase2: float | None = 1e-3,
+    chunk: int = 128,
+    backend: str = "auto",
+    **kwargs: Any,
+) -> SolveResult:
+    """Two-phase straggler-compacted batch solve (the throughput scheduler).
+
+    Phase 1 runs the whole batch up to ``phase1_iter`` iterations. The
+    unconverged lanes (the converged mask crosses to the host once) are
+    then packed into ``chunk``-lane batches, the last padded with repeats
+    of the first straggler, and continue from their phase-1 iterate for up
+    to ``phase2_iter`` iterations, primal-only: the barrier restarts at
+    ``mu_init_phase2`` (``None`` keeps the option value) and a user ``warm``
+    start applies to phase 1 only. Results are scattered back; a phase-2
+    lane reports its own phase-1 count plus its phase-2 count.
+
+    ``callbacks`` and ``warm`` pass through ``kwargs`` to both phases (warm:
+    phase 1); a host-interactive stop is dropped, as by :func:`solve_batch`.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    callbacks = kwargs.pop("callbacks", None)
+    warm = kwargs.pop("warm", None)
+    options = _merge_options(options, kwargs)
+    options, callbacks = _drop_host_stop(options, callbacks, "solve_batch_scheduled")
+    res = _solve_impl(problems, options.replace(max_iter=phase1_iter), backend, callbacks, warm)
+    bad = torch.nonzero(~res.converged.cpu())[:, 0]
+    if len(bad) == 0:
+        return res
+    opts2 = options.replace(max_iter=phase2_iter)
+    if mu_init_phase2 is not None:
+        opts2 = opts2.replace(mu_init=mu_init_phase2)
+    ch = min(chunk, res.converged.shape[0])
+    pad = (-len(bad)) % ch
+    idx_all = torch.cat([bad, bad[:1].expand(pad)]).to(res.converged.device)
+    out = res
+    for c0 in range(0, len(idx_all), ch):
+        idx = idx_all[c0:c0 + ch]
+        n = min(ch, len(bad) - c0)  # the chunk's lanes before the padding
+        r = _solve_impl(tree_take(res.problem, idx), opts2, backend, callbacks, None)
+        r = r._replace(iterations=r.iterations + res.iterations[idx])
+        out = tree_map(lambda f, p: f.index_copy(0, idx[:n], p[:n]), out, r)
+    return out
 
 
 def _scatter(full, part, idx: torch.Tensor, upd: torch.Tensor):
@@ -128,9 +228,11 @@ def solve_batch_compact(
     ``warm`` start applies to phase 1; with ``carry_duals=True`` later
     phases warm-start every lane from its own best-KKT slacks and duals.
     Each lane reports the phase that last updated it, with combined
-    iteration counts. Per-lane results do not depend on ``chunk``.
+    iteration counts. Per-lane results do not depend on ``chunk``. A
+    ``max_wall_time`` is dropped with a warning, as by :func:`solve_batch`.
     """
     options = _merge_options(options, kwargs)
+    options, _ = _drop_host_stop(options, None, "solve_batch_compact")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     B = problems.B
@@ -161,7 +263,7 @@ def solve_batch_compact(
                 wi = tree_take(w_phase, idx)
             else:
                 wi = None
-            r = _solve_impl(tree_take(cur, idx), opts_p, backend, wi)
+            r = _solve_impl(tree_take(cur, idx), opts_p, backend, None, wi)
             if out is None:
                 out = tree_map(lambda x: x.new_zeros((B,) + x.shape[1:]), r)
             out = _scatter(out, r, idx, todo)
@@ -174,3 +276,56 @@ def solve_batch_compact(
 def cast_problem(problem: DirectTrajOptProblem, dtype: torch.dtype) -> DirectTrajOptProblem:
     """Cast every floating-point tensor of a problem to ``dtype``."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, problem)
+
+
+def _polish_options(options: IPMOptions | None, kwargs: dict, polish_tol: float,
+                    polish_max_iter: int, polish_mu_init: float) -> IPMOptions:
+    """The float64 polish's options: the first phase's, with the polish's
+    tolerance, budget and barrier; the warm primal kept (no bound push);
+    plain inertia regularization for the in-basin Newton tail."""
+    opts = {k: v for k, v in kwargs.items() if k not in ("callbacks", "warm")}
+    return _merge_options(options, opts).replace(
+        tol=polish_tol, acceptable_tol=polish_tol, max_iter=polish_max_iter,
+        mu_init=polish_mu_init, bound_push=1e-9, bound_frac=1e-9,
+        hessian_regularization="inertia")
+
+
+def _to_f64(first: SolveResult):
+    """The first phase's solution as a float64 problem, and the slacks and
+    duals of its best-KKT iterate (the point the trajectory holds) as the
+    polish's warm start."""
+    warm = tree_map(lambda x: x.to(torch.float64), first.ipm.state.best_kkt_warm)
+    return cast_problem(first.problem, torch.float64), warm
+
+
+def solve_polished(problem: DirectTrajOptProblem, options: IPMOptions | None = None, *,
+                   polish_tol: float = 1e-8, polish_max_iter: int = 450,
+                   polish_mu_init: float = 1e-5, backend: str = "auto",
+                   callbacks: IPMCallbacks | None = None, **kwargs: Any) -> SolveResult:
+    """Mixed-precision solve: a solve in the problem's dtype, then a float64
+    polish warm-started from each lane's best-KKT iterate with its slacks
+    and duals (restarting the duals would wander off the warm point).
+
+    The card has native float64, so there is no flag to check. The float64
+    phase runs the kernels' plain PyTorch versions: the CUDA kernels serve
+    float32 only, as the JAX package's Pallas kernels do, whose float64 goes
+    to the XLA path."""
+    first = solve(problem, options, backend=backend, callbacks=callbacks, **kwargs)
+    prob64, warm = _to_f64(first)
+    opts64 = _polish_options(options, kwargs, polish_tol, polish_max_iter, polish_mu_init)
+    return solve(prob64, opts64, backend=backend, callbacks=callbacks, warm=warm)
+
+
+def solve_batch_polished(problems: DirectTrajOptProblem, options: IPMOptions | None = None, *,
+                         polish_tol: float = 1e-8, polish_max_iter: int = 450,
+                         polish_mu_init: float = 1e-5, backend: str = "auto",
+                         **kwargs: Any) -> SolveResult:
+    """Batched mixed-precision solve (see :func:`solve_polished`): the
+    first phase through :func:`solve_batch` on the whole batch, then the
+    float64 polish of the same lockstep batch, on the kernels' plain
+    versions. ``callbacks`` (through ``kwargs``) reach the first phase
+    only, as in the JAX package."""
+    first = solve_batch(problems, options, backend=backend, **kwargs)
+    prob64, warm = _to_f64(first)
+    opts64 = _polish_options(options, kwargs, polish_tol, polish_max_iter, polish_mu_init)
+    return solve_batch(prob64, opts64, backend=backend, warm=warm)

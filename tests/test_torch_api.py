@@ -17,10 +17,6 @@ LEFT_OUT = {"module", "static_field", "HashableArray", "solve_jit", "say_hello"}
 
 # name -> the ROADMAP Queue 1 item that ports it
 NOT_YET = {
-    "IPMCallbacks": 4, "TELEMETRY_COLUMNS": 4, "best_fidelity_tracker": 4, "fidelity_stop": 4,
-    "stop_iteration": 4, "telemetry": 4, "get_default_options": 4, "set_default_options": 4,
-    "solve_polished": 4, "solve_batch_polished": 4, "solve_batch_scheduled": 4,
-    "mpc_step": 4, "shift_trajectory": 4,
     "GeneralIntegrator": 7, "TimeDependentBilinearIntegrator": 7, "td_integration_error": 7,
     "tune_n_steps": 7,
 }
