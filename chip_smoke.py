@@ -52,6 +52,25 @@ Phases, each printing its own lines:
    error, RMS(u) against the golden optimum, and the float64 polish's
    seconds per lockstep iteration beside path 1's float32 polish's. The
    launch check covers 4a and 4b's float32 phase together.
+7. Path 5, the cartpole family (general RK4 dynamics through
+   ``GeneralIntegrator``, N=40, x 4, u 1, fixed Δt, lane i from seed i) at
+   B=8192 in float32 in one lockstep chunk. 5a: the exact Hessian
+   (``cartpole_config()``: ``torch.func`` Jacobians and Hessians of the RK4
+   step at full width, K1 generic (4,1,1), K2 generic (4,1,2)); 5b: L-BFGS
+   with m = 20 (``cartpole_lbfgs_config()``: no AD Hessian, σI in the stage
+   blocks and the SMW correction through K2 at (4,1,40) once an
+   iteration). Each with its seconds, lockstep passes and launches, the
+   converged share and, over the converged lanes, the KKT error,
+   |obj/obj* − 1| and RMS(u − u*) against ``tests/golden/cartpole_n40_
+   seed0.npz``. 5c: lanes 0-255 of path 1's batch with the seek's options,
+   five times, each with one option changed (Mehrotra μ, adaptive μ,
+   ``ls_memory=4``, least-squares initial duals, float64 residual
+   refinement), each with its seconds, converged count, iterations and K1 /
+   K2 launches; every lane must end finite. Phase 2 holds K1 (4,1,1) and K2
+   (4,1,2) on 5a's captured calls and K2 (4,1,40) on 5b's (the SMW columns
+   of a later iteration), and on stage data at 256 lanes the K1 split at
+   R = 9 (K1 on 8 columns, K2 on the ninth) and K2 at R = 40 (bitwise the
+   same as five launches of 8 columns; R = 41 raises).
 
 Exits non-zero if there is no CUDA device, if any kernel fails to build,
 launch or agree, if a kernel of a path was never launched during it, or if
@@ -91,6 +110,16 @@ GOLDEN_U3 = 1e-2
 # float64 polish (the bars of tests/test_golden.py)
 GOLDEN_REF4 = 1e-4
 KKT_POLISH = 1e-7
+# path 5, per converged lane, against the float64 optimum of the cartpole
+# family: 5a (exact Hessian, tol 1e-5) and 5b (L-BFGS, tol 1e-4; the JAX
+# package's float32 L-BFGS of the same 8192 lanes reaches 3.253e-2 on the
+# objective and stops along the flat u-valley, so u is not certified;
+# tools/torch_cartpole_ref.py --lbfgs). 5a's RMS(u) bar is
+# 2e-3: the JAX package's own float32 solve of the same 8192 lanes at the
+# same options stops up to 1.464e-3 from u* (174 lanes above 1e-3; median
+# 2.5e-4; tools/torch_cartpole_ref.py, PERF.md §6)
+KKT_5A, OBJ_5A, RMS_5A = 1e-5, 1e-4, 2e-3
+KKT_5B, OBJ_5B = 1e-4, 5e-2
 MIN_CONVERGED = 0.99  # share of lanes that must converge
 DEVICE = "cuda:0"
 
@@ -116,6 +145,21 @@ PATH2 = [("factor_solve_sc", "factor_solve"), ("resolve_sc", "resolve"),
 PATH3 = [("factor_solve_gp", "factor_solve"), ("resolve_gp", "resolve"),
          ("window_jac_gp", "window_jac"), ("residual_gp", "residual"),
          ("residual_l1_gp", "residual_l1")]
+# path 5c: lanes 0-255 of path 1's batch with the seek's options and one
+# option changed: (name, the option, the least share of lanes that must
+# converge). Each bar is the JAX package's converged share on lanes 0-63 at
+# the same options (float32, CPU: 41, 59, 64, 64 and 64 of 64;
+# tools/torch_option_bars.py, PERF.md §6) less 0.1, for the other
+# lanes of the 256. The seek's budget of 136 iterations is short for the
+# Mehrotra and adaptive rules on this family.
+PATH5C = [
+    ("mehrotra", dict(mu_strategy="mehrotra"), 0.54),
+    ("adaptive", dict(mu_strategy="adaptive"), 0.82),
+    ("ls_memory=4", dict(ls_memory=4), 0.9),
+    ("least_squares", dict(dual_init="least_squares"), 0.9),
+    ("refine_residuals", dict(refine_residuals=True, compensated_residuals=False), 0.9),
+]
+LANES_5C = 256
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and float32
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -692,7 +736,29 @@ def main() -> None:
           lambda: expv_kernel.residual_action(order_sc, *t_sc),
           lambda: expv_kernel.residual_action_plain(order_sc, *t_sc), 2e-6, False, t_sc,
           ops4_sc, prof="residual_grid_kernel")
-    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots):
+    def plain_f32_error(plain, args, mask):
+        """Worst per-lane relative deviation (to max(max |ref|, 1)) of the plain
+        float32 version from a float64 evaluation over the lanes in ``mask``."""
+        p32 = plain(*args)
+        p64 = plain(args[0], *(t.double() for t in args[1:]))
+        return max(lane_rel(x, y, mask) for x, y in zip(p32, p64) if x.dtype != torch.bool)
+
+    def compare_lanes(plain, args, f32_floor):
+        """Lanes and bound for a captured call's kernel-vs-plain row. Where
+        plain float32 reproduces float64 to 1e-6 (the paths' usual case), the
+        5e-6 bound on those lanes. With ``f32_floor`` (path 5, whose RK4
+        Jacobians and terminal cost leave every lane's plain float32 K1 2e-6
+        to 5e-5 from float64): the lanes within 1e-3 of float64, and the
+        bound max(5e-6, 4δ), δ the plain float32 version's own worst
+        deviation from float64 there (two float32 evaluations each within δ
+        differ by up to 2δ, and pipeline_calls allows the kernel 3δ)."""
+        if not f32_floor:
+            return well_conditioned(plain, args, tol=1e-6), 5e-6, ""
+        mask = well_conditioned(plain, args)
+        delta = plain_f32_error(plain, args, mask)
+        return mask, max(5e-6, 4 * delta), f"; plain float32 within {delta:.2e} of float64"
+
+    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False):
         """K1 and K2 on the first calls captured from a path's own solve
         (rows ``factor_solve_<tag>``, ``resolve_<tag>``), one certified lane
         made indefinite at stage 20; then every captured call."""
@@ -721,25 +787,26 @@ def main() -> None:
         def ok_equal_lanes(p, k):
             return bool((p[5] == k[5])[well_c].all())
 
-        well_f = well_conditioned(riccati_kernel.factor_solve_plain, f_args, tol=1e-6)
+        well_f, tol_f, note_f = compare_lanes(riccati_kernel.factor_solve_plain, f_args,
+                                              f32_floor)
         check(f"factor_solve_{tag}",
               f"K1 factor_solve ({instantiation('factor_solve', shape_f)}) on {what} inputs "
               f"B={lanes} (n_s,n_v,R)={shape_f}, lane {bad_lane} indefinite; certificate "
               f"equal on it and the {int(well_c.sum()) - 1} lanes where plain float32 is within "
               f"1e-3 of float64 (differs on {n_diff} others); factors compared on "
-              f"{int(well_f.sum())} lanes",
+              f"{int(well_f.sum())} lanes{note_f}",
               lambda: riccati_kernel.factor_solve(*f_args),
-              lambda: riccati_kernel.factor_solve_plain(*f_args), 5e-6, True, f_args[1:],
+              lambda: riccati_kernel.factor_solve_plain(*f_args), tol_f, True, f_args[1:],
               riccati_ops(lanes, n_knots, *shape_f, factor=True), ok_equal_lanes, lanes=well_f,
               prof=f"factor_solve_{instantiation('factor_solve', shape_f)}")
         r_args = cap_r.calls[0]
         shape_r = (r_args[1].shape[-1], r_args[2].shape[-1], r_args[8].shape[1])
-        well_r = well_conditioned(riccati_kernel.resolve_plain, r_args, tol=1e-6)
+        well_r, tol_r, note_r = compare_lanes(riccati_kernel.resolve_plain, r_args, f32_floor)
         check(f"resolve_{tag}", f"K2 resolve ({instantiation('resolve', shape_r)}) on {what} "
                                 f"inputs B={lanes} (n_s,n_v,R')={shape_r} "
-                                f"(compared on {int(well_r.sum())} lanes)",
+                                f"(compared on {int(well_r.sum())} lanes{note_r})",
               lambda: riccati_kernel.resolve(*r_args),
-              lambda: riccati_kernel.resolve_plain(*r_args), 5e-6, True, r_args[1:],
+              lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
               riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
               prof=f"resolve_{instantiation('resolve', shape_r)}")
         pipeline_calls(what, cap_f, cap_r, well_only=True)
@@ -814,6 +881,75 @@ def main() -> None:
         fail(f"path 3's K1 calls have shape {shape_f3}, analyze gives {shape3}")
     R3p = shape_r3[2]
     del cap_f3, cap_r3
+
+    # ---- at the cartpole family's shapes (path 5) ------------------------ #
+    # K1 beyond 8 right-hand sides: K1 on the first 8 columns, K2 on the
+    # others (two launches), at the symmetry problem's width R = 9
+    s0, st = riccati_inputs(4, 256, 1, 1, 9, bad_lane=5)
+    check("factor_solve_split", "K1 factor_solve (split: generic K1 on 8 columns, then K2 on "
+                                "1) B=256 (n_s,n_v,R)=(1, 1, 9), lane 5 indefinite; device time "
+                                "of the K1 launch only",
+          lambda: riccati_kernel.factor_solve(s0, *st),
+          lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
+          riccati_ops(256, N, 1, 1, 9, factor=True), ok_equal, prof="factor_solve_generic")
+    # K2 at the Pallas resolve's bound, R = 40, in one launch
+    s0, st = riccati_inputs(5, 256, 4, 1, 40)
+    fac = riccati_kernel.factor_solve_plain(s0, *st)
+    r_in = (s0, *fac[:5], st[3], st[4])
+    check("resolve_r40", "K2 resolve (generic, 5 tiles of 8 in one launch) B=256 "
+                         "(n_s,n_v,R')=(4, 1, 40)",
+          lambda: riccati_kernel.resolve(*r_in, *st[5:]),
+          lambda: riccati_kernel.resolve_plain(*r_in, *st[5:]), 5e-6, True,
+          list(fac[:5]) + st[3:], riccati_ops(256, N, 4, 1, 40, factor=False),
+          prof="resolve_generic")
+    whole = riccati_kernel.resolve(*r_in, *st[5:])
+    tiles = [riccati_kernel.resolve(*r_in, *(x[:, i:i + 8] for x in st[5:]))
+             for i in range(0, 40, 8)]
+    same = all(torch.equal(w, torch.cat([t[j] for t in tiles], 1)) for j, w in enumerate(whole))
+    try:
+        riccati_kernel.resolve(*r_in, *(torch.cat([x, x[:, :1]], 1) for x in st[5:]))
+        raised = False
+    except NotImplementedError:
+        raised = True
+    print(f"[kernel] K2 at R'=40: bitwise equal to five launches of 8 columns: {same}; "
+          f"R'=41 raises: {raised}", flush=True)
+    if not (same and raised):
+        fail("K2 at 40 right-hand sides differs from its tiles, or R'=41 did not raise")
+    del s0, st, fac, r_in, whole, tiles
+    # K1 (4,1,1) and K2 (4,1,2) on calls captured from 5a's own solve (its
+    # problem, all B5 lanes in one chunk, its options, 3 iterations), and K2
+    # (4,1,40) on 5b's SMW columns of a later iteration (nonzero pairs)
+    cp_cfg, lb_cfg = benchmarks.cartpole_config(), benchmarks.cartpole_lbfgs_config()
+    B5, N5 = cp_cfg["batch"], cp_cfg["N"]
+    if lb_cfg["batch"] != B5:
+        fail("5a and 5b run one batch")
+    prob_cp = cast_problem(benchmarks.make_batched_cartpole_problems(B5, N=N5, device=dev),
+                           torch.float32)
+    kw5a = {k: v for k, v in cp_cfg["solve_kw"].items() if k not in ("phases", "chunk")}
+    kw5b = {k: v for k, v in lb_cfg["solve_kw"].items() if k not in ("phases", "chunk")}
+    with Capture(riccati_kernel, "factor_solve", 16) as cap_f5, \
+            Capture(riccati_kernel, "resolve", 16) as cap_r5:
+        solve(prob_cp, max_iter=3, **kw5a)
+    shape_f5, shape_r5 = captured_rows("cp", "path-5a", cap_f5, cap_r5, B5, N5, f32_floor=True)
+    del cap_f5, cap_r5
+    with Capture(riccati_kernel, "resolve", 8) as cap_r5b:
+        solve(prob_cp, max_iter=4, **kw5b)
+    smw_calls = [a for a in cap_r5b.calls if a[8].shape[1] == 40]
+    if len(smw_calls) < 2:
+        fail(f"5b's first iterations made {len(smw_calls)} K2 calls at R'=40")
+    r5b = smw_calls[-1]
+    if not bool(r5b[8].abs().amax() > 0):
+        fail("5b's captured SMW columns are zero")
+    shape_r5b = (r5b[1].shape[-1], r5b[2].shape[-1], r5b[8].shape[1])
+    well5b, tol5b, note5b = compare_lanes(riccati_kernel.resolve_plain, r5b, True)
+    check("resolve_lbfgs", f"K2 resolve ({instantiation('resolve', shape_r5b)}) on path-5b "
+                           f"inputs B={B5} (n_s,n_v,R')={shape_r5b}: the SMW columns of "
+                           f"iteration {len(smw_calls) - 1} (compared on {int(well5b.sum())} "
+                           f"lanes{note5b})",
+          lambda: riccati_kernel.resolve(*r5b), lambda: riccati_kernel.resolve_plain(*r5b),
+          tol5b, True, r5b[1:], riccati_ops(B5, N5, *shape_r5b, factor=False), lanes=well5b,
+          prof="resolve_generic")
+    del cap_r5b, smw_calls, r5b
 
     # the captured calls (≈ 1.5 GiB at B=8192) go before the paths' peak
     # device memory is measured
@@ -1118,6 +1254,82 @@ def main() -> None:
         fail(f"path 4b: only {len(lanes4b)}/{B4b} lanes converged")
     if not (z64 and kkt4b_max <= KKT_POLISH and rms4b_max < GOLDEN_RMS):
         fail("path 4b: a converged lane is not certified in float64")
+    del res4b
+
+    # ---------------- 7. path 5: the cartpole family ------------------------ #
+    def riccati_launches(counts):
+        return {k: counts.get(k, 0) for k in ("factor_solve", "resolve")}
+
+    def run5(tag, what, cfg5, kkt_bar, obj_bar, rms_bar):
+        """Solve path 5's batch with ``cfg5`` in one chunk; print and
+        certify. Returns the launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        with Timed(solve_mod, "_solve_impl") as tm:
+            res = solve_batch_compact(prob_cp, **cfg5["solve_kw"])
+        counts = dict(_build.LAUNCHES)
+        conv5 = res.converged.cpu().numpy()
+        kkt5 = res.kkt_error.cpu().numpy()
+        it5 = res.iterations.cpu().numpy()
+        ln5 = np.nonzero(conv5)[0]
+        obj_err, rms5 = benchmarks.cartpole_certificate(res)
+
+        def worst(x):
+            return float(x[ln5].max()) if len(ln5) else float("nan")
+
+        phase_line(tag, what, tm.calls[0])
+        print(f"[{tag}] converged {len(ln5)}/{B5}; iterations median {np.median(it5):g} max "
+              f"{it5.max()}; over converged lanes: max kkt {worst(kkt5):.3e} (bound {kkt_bar:g}), "
+              f"max |obj/obj* - 1| {worst(obj_err):.3e} (bound {obj_bar:g}), RMS(u - u*) median "
+              f"{np.median(rms5[ln5]) if len(ln5) else float('nan'):.3e} max {worst(rms5):.3e} "
+              f"(bound {rms_bar:g}; {int((rms5[ln5] > 1e-3).sum())} lanes above 1e-3); peak "
+              f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+        st5 = res.status.cpu().numpy()
+        for i in np.nonzero(~conv5)[0][:16]:
+            print(f"[{tag}] unconverged lane {i}: {it5[i]} iterations, kkt {kkt5[i]:.3e}, "
+                  f"status {st5[i]}")
+        if any(v == 0 for v in riccati_launches(counts).values()):
+            fail(f"{tag}: a kernel of the path was never launched: {counts}")
+        if len(ln5) < MIN_CONVERGED * B5:
+            fail(f"{tag}: only {len(ln5)}/{B5} lanes converged")
+        if not (worst(kkt5) <= kkt_bar and worst(obj_err) <= obj_bar and worst(rms5) <= rms_bar):
+            fail(f"{tag}: a converged lane is not certified")
+        return counts
+
+    launches5a = run5("path5a", f"cartpole B={B5} N={N5} float32, exact Hessian", cp_cfg,
+                      KKT_5A, OBJ_5A, RMS_5A)
+    launches5b = run5("path5b", f"cartpole B={B5} N={N5} float32, L-BFGS m="
+                                f"{lb_cfg['solve_kw']['limited_memory_max_history']}", lb_cfg,
+                      KKT_5B, OBJ_5B, float("inf"))
+    del prob_cp
+
+    # ---- 5c: the other IPM options on lanes 0-255 of path 1's batch -------- #
+    prob5c = tree_take(prob_big, torch.arange(LANES_5C, device=dev))
+    launches5c = {}
+    for name, extra, bar in PATH5C:
+        _build.reset_launches()
+        with Timed(solve_mod, "_solve_impl") as tm5c:
+            res5c = solve_batch_compact(prob5c, **dict(cfg["phase1_kw"], **extra))
+        for k, v in _build.LAUNCHES.items():
+            launches5c[k] = launches5c.get(k, 0) + v
+        n_conv = int(res5c.converged.sum())
+        it5c = res5c.iterations.cpu().numpy()
+        finite = torch.isfinite(res5c.problem.trajectory.to_zvec()).all(-1)
+        passes = sum(c["passes"] for c in tm5c.calls)
+        secs = sum(c["seconds"] for c in tm5c.calls)
+        k12 = riccati_launches(_build.LAUNCHES)
+        print(f"[path5c] {name}: {secs:.2f} s, {passes} lockstep passes over "
+              f"{len(tm5c.calls)} phases; converged {n_conv}/{LANES_5C} (bar {bar:.0%}); "
+              f"iterations median {np.median(it5c):g} max {it5c.max()}; finite on "
+              f"{int(finite.sum())}/{LANES_5C} lanes; K1 / K2 launches {k12['factor_solve']} / "
+              f"{k12['resolve']}; all launches {json.dumps(dict(_build.LAUNCHES))}", flush=True)
+        if not bool(finite.all()):
+            fail(f"path 5c ({name}): an iterate is not finite")
+        if k12["factor_solve"] == 0 or n_conv < bar * LANES_5C:
+            fail(f"path 5c ({name}): no K1 launch, or {n_conv}/{LANES_5C} converged is below "
+                 f"its bar")
+        del res5c
 
     table = []
     for name, (route, src, replaces) in KERNELS.items():
@@ -1152,6 +1364,23 @@ def main() -> None:
     for name, key, counts in path4:
         route, src, replaces = KERNELS[key]
         r = results[name if name in results else key]
+        table.append(dict(name=name, route=route, source=src, replaces=replaces,
+                          launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
+    # path 5's rows: K1 (4,1,1) and K2 (4,1,2) in 5a and 5b, K2 (4,1,40) in
+    # 5b (its count is all of 5b's K2 launches: the SMW columns once an
+    # iteration, and SOC + restoration); 5c's runs at path 1's shapes (K2 at
+    # (8,3,1): Mehrotra's main step by resolve)
+    path5 = [("factor_solve_cp", "factor_solve", launches5a, "factor_solve_cp"),
+             ("resolve_cp", "resolve", launches5a, "resolve_cp"),
+             ("factor_solve_lbfgs", "factor_solve", launches5b, "factor_solve_cp"),
+             ("resolve_lbfgs", "resolve", launches5b, "resolve_lbfgs")]
+    path5 += [(f"{k}_options", k, launches5c, "resolve_generic" if k == "resolve" else k)
+              for k in KERNELS]
+    for name, key, counts, res_key in path5:
+        route, src, replaces = KERNELS[key]
+        r = results[res_key]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

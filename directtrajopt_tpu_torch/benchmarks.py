@@ -16,6 +16,11 @@ trajectory through a knot equality, a knot objective and a global objective
 start. ``scheduled_config`` and ``polished_config`` run the first family
 through ``solve_batch_scheduled`` and ``solve_batch_polished`` (path 4 of
 ``chip_smoke.py``), with ``scheduled_certificate`` and ``telemetry_sound``.
+``make_batched_cartpole_problems`` builds the fifth family, the JAX
+package's cartpole cart-move (general RK4 dynamics through
+``GeneralIntegrator``), one lane per seed; ``cartpole_config`` and
+``cartpole_lbfgs_config`` solve it with the exact Hessian and with L-BFGS
+(path 5 of ``chip_smoke.py``), certified by ``cartpole_certificate``.
 
 Problems are built on the host in numpy from a seed (the same draws as the
 JAX package, so both packages pose the same problems) and put on
@@ -35,7 +40,7 @@ from .constraints import (
     NonlinearGlobalKnotPointConstraint,
     NonlinearKnotPointConstraint,
 )
-from .integrators import BilinearIntegrator, DerivativeIntegrator
+from .integrators import BilinearIntegrator, DerivativeIntegrator, GeneralIntegrator
 from .objectives import (
     GlobalKnotPointObjective,
     GlobalObjective,
@@ -67,6 +72,13 @@ __all__ = [
     "GOLDEN_STATE_CONSTRAINED",
     "GOLDEN_GLOBAL_PHASE",
     "GOLDEN_SCHEDULED",
+    "cartpole_dynamics",
+    "make_cartpole_problem",
+    "make_batched_cartpole_problems",
+    "cartpole_config",
+    "cartpole_lbfgs_config",
+    "cartpole_certificate",
+    "GOLDEN_CARTPOLE",
 ]
 
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -75,6 +87,7 @@ GOLDEN_N51 = os.path.join(_GOLDEN_DIR, "bilinear_n51_seed42.npz")
 GOLDEN_STATE_CONSTRAINED = os.path.join(_GOLDEN_DIR, "torch", "state_constrained_n51.npz")
 GOLDEN_GLOBAL_PHASE = os.path.join(_GOLDEN_DIR, "torch", "global_phase_n51.npz")
 GOLDEN_SCHEDULED = os.path.join(_GOLDEN_DIR, "torch", "scheduled_n51.npz")
+GOLDEN_CARTPOLE = os.path.join(_GOLDEN_DIR, "cartpole_n40_seed0.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):
@@ -493,3 +506,113 @@ def rms_u_vs_golden(res, lanes=None, path: str = GOLDEN_N51) -> np.ndarray:
     if lanes is not None:
         u = u[np.asarray(lanes)]
     return np.sqrt(np.mean((u - u_g[None]) ** 2, axis=(1, 2)))
+
+
+def cartpole_dynamics(mc: float = 1.0, mp: float = 0.2, length: float = 0.5,
+                      grav: float = 9.81):
+    """Continuous cartpole dynamics ẋ = f(x, u), x = [p, ṗ, θ, θ̇], θ = 0
+    upright: a torch function of one knot's x (4,) and u (1,), in their
+    dtype (the JAX package's ``cartpole_dynamics``, in the same order of
+    operations)."""
+
+    def f(x, u):
+        dp, th, dth = x[1], x[2], x[3]
+        F = u[0]
+        sin, cos = torch.sin(th), torch.cos(th)
+        denom = mc + mp * sin**2
+        ddp = (F + mp * sin * (length * dth**2 + grav * cos)) / denom
+        ddth = (-F * cos - mp * length * dth**2 * cos * sin - (mc + mp) * grav * sin) / (
+            length * denom)
+        return torch.stack([dp, ddp, dth, ddth])
+
+    return f
+
+
+def _cartpole_guess(N: int, seed: int, goal_p: float):
+    """The JAX package's cartpole guess for ``seed``: the same draws in the
+    same order (x then u), so a seed gives its guess bit for bit at f64."""
+    rng = np.random.default_rng(seed)
+    x0, goal = np.zeros(4), np.array([goal_p, 0.0, 0.0, 0.0])
+    x = np.linspace(x0, goal, N) + 0.01 * rng.standard_normal((N, 4))
+    u = 0.1 * rng.standard_normal((N, 1))
+    return x, u
+
+
+def make_batched_cartpole_problems(batch: int, N: int = 40, seed0: int = 0, *, device=None,
+                                   dtype=torch.float64, dt: float = 0.05, goal_p: float = 1.0,
+                                   u_bound: float = 10.0) -> DirectTrajOptProblem:
+    """The cartpole cart-move family, lane i from seed ``seed0 + i``.
+
+    Start balanced upright at p = 0 (x_1 pinned), end near p = ``goal_p``
+    through a terminal cost 100·‖x_N − goal‖² plus the regularizer
+    ½·0.1·Σ‖Δt u_k‖², |u| ≤ ``u_bound``, fixed Δt, one RK4 step per window
+    (the JAX package's ``make_cartpole_problem``; a seed perturbs only the
+    guess, so every lane poses the same problem). Its terminal cost computes
+    in the iterate's dtype. Built on the host in float64, then put on
+    ``device`` once."""
+    guesses = [_cartpole_guess(N, seed0 + i, goal_p) for i in range(batch)]
+    goal = np.array([goal_p, 0.0, 0.0, 0.0])
+    traj = Trajectory.create(
+        {"x": np.stack([g[0] for g in guesses]), "u": np.stack([g[1] for g in guesses])},
+        timestep=dt, controls="u", initial={"x": np.zeros(4)}, bounds={"u": u_bound},
+        device=device, dtype=dtype)
+    integ = GeneralIntegrator.create(cartpole_dynamics(), "x", "u", scheme="rk4")
+
+    def ell(x):
+        return ((x - torch.as_tensor(goal, dtype=x.dtype, device=x.device)) ** 2).sum()
+
+    obj = QuadraticRegularizer.create("u", traj, 0.1) + TerminalObjective(ell, "x", traj, Q=100.0)
+    return DirectTrajOptProblem.create(traj, obj, integ)
+
+
+def make_cartpole_problem(N: int = 40, seed: int = 0, *, device=None, dtype=torch.float64,
+                          dt: float = 0.05, goal_p: float = 1.0,
+                          u_bound: float = 10.0) -> DirectTrajOptProblem:
+    """The cartpole cart-move problem from ``seed``'s guess, as one lane."""
+    return make_batched_cartpole_problems(1, N, seed, device=device, dtype=dtype, dt=dt,
+                                          goal_p=goal_p, u_bound=u_bound)
+
+
+def cartpole_config() -> dict:
+    """Path 5a: the cartpole family on the card, exact Hessian: float32,
+    tol = acceptable_tol = 1e-5, 100 iterations, one chunk of ``batch``
+    lanes (lane i from seed i). The JAX package's float32 solve of lanes
+    0-15 converges every lane in 8 iterations. Returns ``{"N", "batch",
+    "solve_kw"}`` with full kwargs for ``solve_batch_compact``."""
+    B = 8192
+    return dict(N=40, batch=B, solve_kw=dict(
+        phases=((100, None),), chunk=B, tol=1e-5, acceptable_tol=1e-5))
+
+
+def cartpole_lbfgs_config() -> dict:
+    """Path 5b: the same family with L-BFGS (``limited_memory_max_history``
+    20, the options of the JAX package's batched L-BFGS test): float32, tol
+    = acceptable_tol = 1e-4, 300 iterations, one chunk. The Riccati backend
+    applies the quasi-Newton model's low-rank part by an SMW correction
+    through K2 at 2m = 40 right-hand sides. At float32 this is the setting
+    that converges: the JAX package converges 16/16 lanes in 25-64
+    iterations (at m = 6 or tol 1e-5 it does not)."""
+    B = 8192
+    return dict(N=40, batch=B, solve_kw=dict(
+        phases=((300, None),), chunk=B, tol=1e-4, acceptable_tol=1e-4,
+        hessian_approximation="lbfgs", limited_memory_max_history=20))
+
+
+def cartpole_certificate(res, path: str = GOLDEN_CARTPOLE):
+    """Per lane, |obj/obj* − 1| and RMS(u − u*) against the float64 optimum
+    of the family (``tests/golden/cartpole_n40_seed0.npz``; the three seeds'
+    goldens agree on obj* to 1e-12). The objective is re-evaluated in
+    float64 at the lane's solution. Two arrays over the lanes."""
+    from .solvers.canonical import make_nlp
+    from .solvers.solve import cast_problem
+
+    data = np.load(path)
+    layout = res.problem.trajectory.layout
+    N, d = int(data["N"]), layout.dim
+    u_star = np.asarray(data["Z_star"], dtype=np.float64)[: N * d].reshape(N, d)[
+        :, layout.comp_slice("u")]
+    p64 = cast_problem(res.problem, torch.float64)
+    obj = make_nlp(p64).objective(p64.trajectory.to_zvec()).cpu().numpy()
+    u = p64.trajectory.data["u"].cpu().numpy()
+    rms = np.sqrt(np.mean((u - u_star[None]) ** 2, axis=(1, 2)))
+    return np.abs(obj / float(data["obj"]) - 1.0), rms

@@ -7,10 +7,12 @@ metadata (names, dims, timestep name, orders, knot indices) is read off the
 objects' attributes. This module never imports ``jax``.
 
 A user function (a nonlinear constraint's ``g``, a knot or global
-objective's ℓ, a custom HVP apply) is JAX code and cannot cross:
-``functions`` maps ``("constraint", i)`` (index into
-``problem.constraints``), ``("objective", j)`` (index into the flattened
-objective terms) or ``("hvp", j)`` to its torch counterpart. The global
+objective's ℓ, a custom HVP apply, a ``GeneralIntegrator``'s dynamics
+``f``) is JAX code and cannot cross: ``functions`` maps
+``("constraint", i)`` (index into ``problem.constraints``),
+``("objective", j)`` (index into the flattened objective terms),
+``("hvp", j)`` or ``("integrator", i)`` (index into
+``problem.integrators``) to its torch counterpart. The global
 block (``global_data`` and its bounds) crosses with the trajectory.
 
 A JAX problem built unbatched becomes a port problem with one lane; a
@@ -25,7 +27,7 @@ import torch
 
 from . import constraints as C
 from . import objectives as O
-from .integrators import BilinearIntegrator, DerivativeIntegrator
+from .integrators import BilinearIntegrator, DerivativeIntegrator, GeneralIntegrator
 from .precision import check_device
 from .problem import DirectTrajOptProblem
 from .solvers.ipm import WarmStart
@@ -104,7 +106,7 @@ def _objective(obj, B, batched, device, dtype, functions, j=0):
     raise TypeError(f"unknown objective {kind}")
 
 
-def _integrator(integ, B, batched, device, dtype):
+def _integrator(integ, B, batched, device, dtype, functions, i):
     kind = type(integ).__name__
     if kind == "BilinearIntegrator":
         if integ.G_fn is not None or integ.method != "taylor":
@@ -118,7 +120,12 @@ def _integrator(integ, B, batched, device, dtype):
         )
     if kind == "DerivativeIntegrator":
         return DerivativeIntegrator(x_name=integ.x_name, xdot_name=integ.xdot_name)
-    raise NotImplementedError(f"integrator {kind} is not ported yet (ROADMAP Queue 1 item 7)")
+    if kind == "GeneralIntegrator":
+        return GeneralIntegrator(f=_fn(functions, ("integrator", i), "a general integrator's f"),
+                                 x_name=integ.x_name, u_name=integ.u_name, scheme=integ.scheme)
+    raise NotImplementedError(f"integrator {kind} is not ported yet (ROADMAP Queue 1 item 7: "
+                              "TimeDependentBilinearIntegrator, the Padé method and callable "
+                              "generators)")
 
 
 def _constraint(con, B, batched, device, dtype, functions, i):
@@ -225,8 +232,8 @@ def from_numpy_problem(jax_problem, device=None, dtype=torch.float64, *,
     return DirectTrajOptProblem(
         trajectory=traj,
         objective=_objective(jax_problem.objective, B, batched, device, dtype, functions),
-        integrators=tuple(_integrator(i, B, batched, device, dtype)
-                          for i in jax_problem.integrators),
+        integrators=tuple(_integrator(integ, B, batched, device, dtype, functions, i)
+                          for i, integ in enumerate(jax_problem.integrators)),
         constraints=tuple(_constraint(c, B, batched, device, dtype, functions, i)
                           for i, c in enumerate(jax_problem.constraints)),
     )

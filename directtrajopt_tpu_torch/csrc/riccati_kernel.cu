@@ -59,10 +59,14 @@
 //   at (2,1,2), 8192 lanes; like K1 it waits on each knot's dependent
 //   chain, not on its loads.
 // * factor_solve_generic / resolve_generic — one thread per lane for any
-//   n_s ≤ 16, n_v ≤ 8, R ≤ 8, stage stacks lanes-minor ((N, rows, cols, L),
-//   the Pallas kernel's layout) so that neighbouring threads read
-//   neighbouring addresses, which the wrapper copies; the stage blocks sit
-//   in per-thread arrays of the maximum size (local memory).
+//   n_s ≤ 16, n_v ≤ 8, and R ≤ 8 (K1) or R ≤ 40 (K2, the Pallas resolve's
+//   bound), stage stacks lanes-minor ((N, rows, cols, L), the Pallas
+//   kernel's layout) so that neighbouring threads read neighbouring
+//   addresses, which the wrapper copies; the stage blocks sit in per-thread
+//   arrays of the maximum size (local memory). resolve_generic runs its
+//   right-hand sides in tiles of 8 inside one launch, one tile per grid
+//   row (blockIdx.y), each a full backward and forward sweep against the
+//   stored factors: a tile computes exactly as a launch of its 8 columns.
 //
 // Division and sqrt are IEEE (no fast math): correctly rounded.
 
@@ -186,11 +190,12 @@ __device__ __forceinline__ bool initial_factor(const float (&P0)[NS][NS], unsign
   return chol_or_identity<NS>(P0m, L0, ns);
 }
 
-// Shared tail of both kernels: the initial-state solve and the forward sweep.
+// Shared tail of both kernels: the initial-state solve and the forward sweep
+// for columns r0 … r0 + R − 1 of right-hand-side arrays that hold Rs columns.
 // On entry dzs/dzv hold the stashed p_k / kff_k of the backward sweep.
 template <int NS, int NV, int RM>
 __device__ __forceinline__ void forward_sweep(
-    int l, int L, int N, int ns, int nv, int R, unsigned s0mask,
+    int l, int L, int N, int ns, int nv, int R, int r0, int Rs, unsigned s0mask,
     const float (&L0)[NS][NS], const float (&p0)[RM][NS],
     const float* __restrict__ P, const float* __restrict__ Kg,
     const float* __restrict__ A, const float* __restrict__ B,
@@ -227,7 +232,7 @@ __device__ __forceinline__ void forward_sweep(
             if (j >= ns) break;
             acc += AT(P, k, i, j, ns, ns) * s[r][j];
           }
-          AT(lam, k - 1, r, i, R, ns) = -(acc + AT(dzs, k, r, i, R, ns));
+          AT(lam, k - 1, r0 + r, i, Rs, ns) = -(acc + AT(dzs, k, r0 + r, i, Rs, ns));
         }
       }
       float v[NV];
@@ -240,7 +245,7 @@ __device__ __forceinline__ void forward_sweep(
           if (j >= ns) break;
           acc += s[r][j] * AT(Kg, k, a, j, nv, ns);
         }
-        v[a] = acc + AT(dzv, k, r, a, R, nv);
+        v[a] = acc + AT(dzv, k, r0 + r, a, Rs, nv);
       }
       float sn[NS];
 #pragma unroll (Unroll<NS>::value)
@@ -258,18 +263,18 @@ __device__ __forceinline__ void forward_sweep(
           if (a >= nv) break;
           acc2 += v[a] * AT(B, k, i, a, ns, nv);
         }
-        sn[i] = acc + acc2 + AT(rb, k, r, i, R, ns);
+        sn[i] = acc + acc2 + AT(rb, k, r0 + r, i, Rs, ns);
       }
 #pragma unroll (Unroll<NS>::value)
       for (int i = 0; i < NS; ++i) {
         if (i >= ns) break;
-        AT(dzs, k, r, i, R, ns) = s[r][i];
+        AT(dzs, k, r0 + r, i, Rs, ns) = s[r][i];
         s[r][i] = sn[i];
       }
 #pragma unroll (Unroll<NS>::value)
       for (int a = 0; a < NV; ++a) {
         if (a >= nv) break;
-        AT(dzv, k, r, a, R, nv) = v[a];
+        AT(dzv, k, r0 + r, a, Rs, nv) = v[a];
       }
     }
   }
@@ -502,13 +507,13 @@ __device__ __forceinline__ void factor_solve_lane(
     }
   }
   okout[l] = ok ? 1.0f : 0.0f;
-  forward_sweep<NS, NV, RM>(l, L, N, ns, nv, R, s0mask, L0, p, Pout, Kgout, A, B, rb, dzs,
+  forward_sweep<NS, NV, RM>(l, L, N, ns, nv, R, 0, R, s0mask, L0, p, Pout, Kgout, A, B, rb, dzs,
                             dzv, lam);
 }
 
 template <int NS, int NV, int RM>
 __device__ __forceinline__ void resolve_lane(
-    int l, int L, int N, int ns, int nv, int R, unsigned s0mask,
+    int l, int L, int N, int ns, int nv, int R, int r0, int Rs, unsigned s0mask,
     const float* __restrict__ P, const float* __restrict__ Lvs, const float* __restrict__ Kg,
     const float* __restrict__ Mvs, const float* __restrict__ L0in,
     const float* __restrict__ A, const float* __restrict__ B, const float* __restrict__ qs,
@@ -542,7 +547,7 @@ __device__ __forceinline__ void resolve_lane(
 #pragma unroll (Unroll<NS>::value)
           for (int j = 0; j < NS; ++j) {
             if (j >= ns) break;
-            acc += AT(rb, k, r, j, R, ns) * AT(P, k + 1, i, j, ns, ns);
+            acc += AT(rb, k, r0 + r, j, Rs, ns) * AT(P, k + 1, i, j, ns, ns);
           }
         }
         w[i] = acc + p[r][i];
@@ -557,14 +562,14 @@ __device__ __forceinline__ void resolve_lane(
           if (i >= ns) break;
           acc += w[i] * AT(B, k, i, a, ns, nv);
         }
-        kff[a] = AT(qv, k, r, a, R, nv) + acc;
+        kff[a] = AT(qv, k, r0 + r, a, Rs, nv) + acc;
       }
       cho_solve<NV>(Lv, kff, nv);
 #pragma unroll (Unroll<NS>::value)
       for (int a = 0; a < NV; ++a) {
         if (a >= nv) break;
         kff[a] = -kff[a];
-        AT(dzv, k, r, a, R, nv) = kff[a];
+        AT(dzv, k, r0 + r, a, Rs, nv) = kff[a];
       }
 #pragma unroll (Unroll<NS>::value)
       for (int i = 0; i < NS; ++i) {
@@ -581,8 +586,8 @@ __device__ __forceinline__ void resolve_lane(
           if (a >= nv) break;
           acc2 += kff[a] * AT(Mvs, k, a, i, nv, ns);
         }
-        p[r][i] = (AT(qs, k, r, i, R, ns) + acc) + acc2;
-        AT(dzs, k, r, i, R, ns) = p[r][i];
+        p[r][i] = (AT(qs, k, r0 + r, i, Rs, ns) + acc) + acc2;
+        AT(dzs, k, r0 + r, i, Rs, ns) = p[r][i];
       }
     }
   }
@@ -596,7 +601,7 @@ __device__ __forceinline__ void resolve_lane(
       L0[i][j] = L0in[((long)i * ns + j) * L + l];
     }
   }
-  forward_sweep<NS, NV, RM>(l, L, N, ns, nv, R, s0mask, L0, p, P, Kg, A, B, rb, dzs, dzv,
+  forward_sweep<NS, NV, RM>(l, L, N, ns, nv, R, r0, Rs, s0mask, L0, p, P, Kg, A, B, rb, dzs, dzv,
                             lam);
 }
 
@@ -1143,6 +1148,9 @@ unsigned grouped_grid(int L) {
 }
 
 constexpr int kNsMax = 16, kNvMax = 8, kRMax = 8;
+// K2 takes up to the Pallas resolve's 40 right-hand sides (the L-BFGS SMW
+// correction sends 2m ≤ 40), in tiles of kRMax inside one launch.
+constexpr int kRResolveMax = 40;
 
 __global__ void __launch_bounds__(128) factor_solve_generic(
     int L, int N, int ns, int nv, int R, unsigned s0mask, const float* Qss,
@@ -1163,8 +1171,11 @@ __global__ void __launch_bounds__(128) resolve_generic(
     float* lam) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
-  resolve_lane<kNsMax, kNvMax, kRMax>(l, L, N, ns, nv, R, s0mask, P, Lv, Kg, Mvs, L0, A, B,
-                                      qs, qv, rb, dzs, dzv, lam);
+  // one tile of at most kRMax columns per grid row (the per-thread arrays
+  // hold kRMax): each tile's thread streams the stored factors on its own
+  const int r0 = blockIdx.y * kRMax;
+  resolve_lane<kNsMax, kNvMax, kRMax>(l, L, N, ns, nv, min(kRMax, R - r0), r0, R, s0mask, P, Lv,
+                                      Kg, Mvs, L0, A, B, qs, qv, rb, dzs, dzv, lam);
 }
 
 constexpr int kThreads = 128;
@@ -1222,10 +1233,10 @@ extern "C" int dto_resolve(int L, int N, int ns, int nv, int R, unsigned s0mask,
                            const void* L0, const void* A, const void* B, const void* qs,
                            const void* qv, const void* rb, void* dzs, void* dzv, void* lam,
                            void* stream) {
-  if (ns < 1 || ns > kNsMax || nv < 1 || nv > kNvMax || R < 1 || R > kRMax || N < 1)
+  if (ns < 1 || ns > kNsMax || nv < 1 || nv > kNvMax || R < 1 || R > kRResolveMax || N < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)((L + kThreads - 1) / kThreads);
+  const dim3 grid((unsigned)((L + kThreads - 1) / kThreads), (unsigned)((R + kRMax - 1) / kRMax));
 #define ARGS                                                                            \
   (const float*)P, (const float*)Lv, (const float*)Kg, (const float*)Mvs,              \
       (const float*)L0, (const float*)A, (const float*)B, (const float*)qs,            \

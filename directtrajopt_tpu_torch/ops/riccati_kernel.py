@@ -21,7 +21,10 @@ of the masked P0 is not positive (or non-finite); the identity is then
 substituted for that factor, as the JAX package's XLA scan does.
 
 Routing: CPU → plain version; CUDA float32 → the kernel
-(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. Each takes
+(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. K2 takes
+up to 40 right-hand sides in one launch; K1 up to 8, and 8 < R ≤ 40 as K1
+on the first 8 columns and K2 on the rest (:func:`split_factor_solve`, two
+launches); beyond 40 both raise. Each takes
 its shape's kernel: a shape in :data:`GROUPED_SHAPES` (K1) or
 :data:`RESOLVE_GROUPED_SHAPES` (K2) runs ``factor_solve_grouped`` /
 ``resolve_grouped`` (a thread group per lane, reading and writing the
@@ -38,11 +41,16 @@ import torch
 
 from . import _build
 
-__all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain", "MAX_SIZES",
-           "GROUPED_SHAPES", "RESOLVE_GROUPED_SHAPES"]
+__all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain",
+           "split_factor_solve", "MAX_SIZES", "RESOLVE_MAX_SIZES", "GROUPED_SHAPES",
+           "RESOLVE_GROUPED_SHAPES"]
 
-# kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, kRMax)
+# kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, and
+# kRMax for K1's R, kRResolveMax for K2's, the Pallas kernels' R ≤ 40). K1
+# takes 8 < R ≤ 40 through :func:`split_factor_solve`: its first 8 columns,
+# then the rest through K2 against the factors K1 returned.
 MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
+RESOLVE_MAX_SIZES = {"ns": 16, "nv": 8, "R": 40}
 # (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
 # gate problem, path 2's state-constrained family and path 3's global-phase
 # family (R = 4 border + 2 arrowhead columns + the main system)
@@ -196,7 +204,21 @@ def _resolve_grouped(s0m, ins, L, N, ns, nv, R):
     return _launch_grouped("dto_resolve_grouped", "resolve", s0m, ins, outs, L, N, ns, nv, R)
 
 
-def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
+def split_factor_solve(factor, resolve_fn, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
+    """``factor_solve`` for more right-hand sides than K1 takes: the first
+    ``MAX_SIZES["R"]`` columns through ``factor`` (K1), the others through
+    ``resolve_fn`` (K2) against the factors it returned; the columns'
+    solutions concatenated in their order."""
+    head = MAX_SIZES["R"]
+    sl = slice(0, head)
+    out = factor(s0m, Qss, Qsv, Qvv, A, B, qs[:, sl], qv[:, sl], b[:, sl])
+    tl = slice(head, None)
+    tail = resolve_fn(s0m, *out[:5], A, B, qs[:, tl], qv[:, tl], b[:, tl])
+    return (*out[:6], *(torch.cat([h, t], dim=1) for h, t in zip(out[6:], tail)))
+
+
+def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict,
+                bounds: dict = MAX_SIZES) -> bool:
     if x.device.type == "cpu" or x.dtype == torch.float64:
         return False
     if x.device.type != "cuda":
@@ -208,8 +230,8 @@ def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
     for k, v in sizes.items():
-        if not 1 <= v <= MAX_SIZES[k]:
-            raise NotImplementedError(f"{k}={v} exceeds the kernel's bound {MAX_SIZES[k]} "
+        if not 1 <= v <= bounds[k]:
+            raise NotImplementedError(f"{k}={v} exceeds the kernel's bound {bounds[k]} "
                                       "(ROADMAP Queue 2 item 3)")
     return True
 
@@ -231,8 +253,10 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
         "Qvv": (Qvv, (L, N, nv, nv)), "A": (A, (L, N, ns, ns)), "B": (B, (L, N, ns, nv)),
         "qs": (qs, (L, R, N, ns)), "qv": (qv, (L, R, N, nv)), "b": (b, (L, R, N, ns)),
     })
-    if not _use_kernel(Qss, ins, {"ns": ns, "nv": nv, "R": R}):
+    if not _use_kernel(Qss, ins, {"ns": ns, "nv": nv, "R": R}, RESOLVE_MAX_SIZES):
         return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+    if R > MAX_SIZES["R"]:
+        return split_factor_solve(factor_solve, resolve, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
     if (ns, nv, R) in GROUPED_SHAPES:
         return _factor_solve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
     dev = Qss.device
@@ -277,7 +301,7 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
         "B": (B, (L, N, ns, nv)), "qs": (qs, (L, R, N, ns)), "qv": (qv, (L, R, N, nv)),
         "b": (b, (L, R, N, ns)),
     })
-    if not _use_kernel(P, ins, {"ns": ns, "nv": nv, "R": R}):
+    if not _use_kernel(P, ins, {"ns": ns, "nv": nv, "R": R}, RESOLVE_MAX_SIZES):
         return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
     if (ns, nv, R) in RESOLVE_GROUPED_SHAPES:
         return _resolve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)

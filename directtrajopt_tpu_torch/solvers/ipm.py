@@ -8,7 +8,14 @@ search whose backtracking grid, second-order correction (SOC) and
 restoration slots are evaluated as one batched trial pass, the monotone
 barrier schedule, acceptable-level termination, the μ-tied proximal δ_w
 floor, the oscillation watchdog and the error-free transforms of
-``compensated_residuals``.
+``compensated_residuals``. The options of the JAX package's IPM are all
+here: the monotone, Mehrotra (affine-scaling probe) and adaptive (LOQO
+centrality) barrier rules, a non-monotone line search (``ls_memory``),
+least-squares initial equality duals, float64 residual refinement inside a
+float32 solve (``refine_residuals``: the residuals, the right-hand side and
+the accepting trial in float64, the multipliers by increments), and compact
+L-BFGS, whose (s, y) rings ride the state and whose model reaches the
+Riccati backend by ``set_lbfgs``.
 
 The JAX package ``vmap``s a per-problem ``while_loop``. Here the loop is
 written batch-first: every state field carries a leading lane axis, the
@@ -21,9 +28,8 @@ host monitoring, stop predicates per lane, a host-interactive stop, the
 iterate and telemetry rings and best-score tracking. A hook that is not set
 runs no device operation.
 
-Not ported yet (``IPMOptions.check_supported`` raises): the Mehrotra and
-adaptive μ strategies, residual refinement, the non-monotone line search,
-L-BFGS and least-squares dual initialization.
+Not ported (``IPMOptions.check_supported`` raises): the "floor"
+regularization, and L-BFGS on the dense backend (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ import time
 from typing import NamedTuple
 
 import torch
+from torch.func import vjp
 
-from ..module import tree_where
+from ..module import tree_map, tree_where
+from .assembly import gradient
 from .callbacks import IPMCallbacks, _wall_stop_cached
 from .canonical import CanonicalNLP
 from .options import IPMOptions
@@ -46,6 +54,35 @@ _GAMMA_THETA = 1e-5
 _GAMMA_PHI = 1e-8
 _S_THETA = 1.1
 _S_PHI = 2.3
+
+
+def _lbfgs_compact(S, Y, count, sigma_clip=(1e-6, 1e6)):
+    """Byrd–Nocedal–Schnabel compact L-BFGS factors ``(σ, U, M)`` per lane
+    with ``B = σI − Uᵀ M⁻¹ U``, ``U = [σS; Y]`` (B, 2m, z) and
+    ``M = [[σSᵀS, L], [Lᵀ, −D]]``, L the strictly lower part of SYᵀ and
+    D = diag(SYᵀ) (the JAX package's ``_lbfgs_compact``). ``S``, ``Y``
+    (B, m, z) are rings with the newest pair last and ``count`` (B,) live
+    pairs; the older slots are masked out and their diagonal of M padded
+    with 1, which leaves B unchanged. σ = yᵀy / sᵀy of the newest pair,
+    clipped; 1 with no pair."""
+    m = S.shape[1]
+    dtype = S.dtype
+    valid = (torch.arange(m, device=S.device) >= m - count[:, None]).to(dtype)
+    Sv = S * valid[..., None]
+    Yv = Y * valid[..., None]
+    sy_last = (S[:, -1] * Y[:, -1]).sum(-1)
+    yy_last = (Y[:, -1] * Y[:, -1]).sum(-1)
+    sigma = torch.where(count > 0, yy_last / torch.clamp(sy_last, min=1e-30), 1.0)
+    sigma = torch.clamp(sigma, *sigma_clip)
+    SS = Sv @ Sv.transpose(-1, -2)
+    SY = Sv @ Yv.transpose(-1, -2)
+    Lo = torch.tril(SY, -1)
+    M = torch.cat([torch.cat([sigma[:, None, None] * SS, Lo], dim=-1),
+                   torch.cat([Lo.transpose(-1, -2), -torch.diag_embed(torch.diagonal(
+                       SY, dim1=-2, dim2=-1))], dim=-1)], dim=-2)
+    M = M + torch.diag_embed(torch.cat([1.0 - valid, 1.0 - valid], dim=-1))
+    U = torch.cat([sigma[:, None, None] * Sv, Yv], dim=1)
+    return sigma, U, M
 
 
 class WarmStart(NamedTuple):
@@ -101,6 +138,17 @@ class IPMState(NamedTuple):
     # (B, K) / (B, K, z_dim) top-K score retention (score_top_k > 1 only)
     topk_scores: torch.Tensor | None = None
     topk_Z: torch.Tensor | None = None
+    # (B, ls_memory) recent φ ring of the non-monotone line search
+    # (ls_memory > 1 only)
+    phi_hist: torch.Tensor | None = None
+    # L-BFGS only: the (B, m, z_dim) curvature-pair rings (newest pair
+    # last), the live-pair count, and the previous iterate and Lagrangian
+    # gradient that complete the next pair
+    lbfgs_S: torch.Tensor | None = None
+    lbfgs_Y: torch.Tensor | None = None
+    lbfgs_n: torch.Tensor | None = None
+    lbfgs_g_prev: torch.Tensor | None = None
+    lbfgs_Z_prev: torch.Tensor | None = None
 
 
 class IPMResult(NamedTuple):
@@ -224,7 +272,15 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     top_k = cb.score_top_k if cb is not None and cb.score_fn is not None else 1
     dtype, dev = Z0.dtype, Z0.device
     B = Z0.shape[0]
-    comp = bool(options.compensated_residuals) and dtype == torch.float32
+    # float64 residual refinement inside a float32 solve; a no-op in float64
+    hi = bool(options.refine_residuals) and dtype == torch.float32
+    # compensated float32 arithmetic; refinement supersedes it
+    comp = bool(options.compensated_residuals) and dtype == torch.float32 and not hi
+    f64 = torch.float64
+    # the problem in float64 (its float32 data widened exactly), for the
+    # refined residuals
+    nlp64 = (tree_map(lambda x: x.to(f64) if x.is_floating_point() else x, nlp)
+             if hi else None)
     opt = options.astype(dtype)
     mu_floor = max(opt.mu_min, opt.tol / 10.0)
     z_dim, n_eq, n_in = nlp.z_dim, nlp.n_eq, nlp.n_in
@@ -270,8 +326,27 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     gn = options.hessian_approximation == "gauss_newton"
     sw = (options.hessian_regularization
           if options.hessian_regularization in ("stagewise", "project", "flip") else False)
+    lbfgs = options.hessian_approximation == "lbfgs"
+    m_l = options.limited_memory_max_history if lbfgs else 0
+    n_hist = options.ls_memory if options.ls_memory > 1 else 0
+    mehrotra = options.mu_strategy == "mehrotra"
     obj0 = nlp.objective(Z_init)
     i32 = torch.int32
+    if warm is None and options.dual_init == "least_squares" and n_eq:
+        # least-squares equality multipliers: one KKT solve at the start
+        # point (μ = 0 right-hand side), kept where its factorization is
+        # certified and ‖λ‖∞ ≤ lam_init_max
+        ctx0 = ops.prepare(Z_init, lam0, nu0, cache=(c_e0, c_i0), gauss_newton=gn,
+                           stagewise=sw, skip_hessian=lbfgs)
+        if lbfgs:  # B₀ = I is the natural metric here
+            ctx0.set_lbfgs(full(1.0), Z_init.new_zeros((B, 2 * m_l, z_dim)),
+                           torch.eye(2 * m_l, dtype=dtype, device=dev).expand(B, -1, -1))
+        Sig0 = (torch.where(mask_L, zL0 / dL0, 0.0) + torch.where(mask_U, zU0 / dU0, 0.0)) * free
+        g0 = free * ctx0.grad_f
+        _, lam_ls, ok0, _, _ = ctx0.kkt_step(Sig0, nu0 / s_init, g0, torch.zeros_like(c_e0),
+                                             full(0.0), opt)
+        good = ok0 & (_amax0(lam_ls.abs()) <= opt.lam_init_max)
+        lam0 = torch.where(good[:, None], lam_ls, 0.0)
 
     state0 = IPMState(
         Z=Z_init, s=s_init, lam=lam0, nu=nu0, zL=zL0, zU=zU0,
@@ -309,6 +384,12 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         topk_scores=(torch.full((B, top_k), -inf, dtype=dtype, device=dev)
                      if top_k > 1 else None),
         topk_Z=Z_init.new_zeros((B, top_k, z_dim)) if top_k > 1 else None,
+        phi_hist=(torch.full((B, n_hist), -inf, dtype=dtype, device=dev) if n_hist else None),
+        lbfgs_S=Z_init.new_zeros((B, m_l, z_dim)) if lbfgs else None,
+        lbfgs_Y=Z_init.new_zeros((B, m_l, z_dim)) if lbfgs else None,
+        lbfgs_n=full(0, i32) if lbfgs else None,
+        lbfgs_g_prev=Z_init.new_zeros((B, z_dim)) if lbfgs else None,
+        lbfgs_Z_prev=Z_init if lbfgs else None,
     )
     s_max = 100.0
 
@@ -327,11 +408,49 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
     def body(st: IPMState, active: torch.Tensor) -> IPMState:
         Z, s, lam, nu, zL, zU = st.Z, st.s, st.lam, st.nu, st.zL, st.zU
         dL, dU = bound_dists(Z)
-        ctx = ops.prepare(Z, lam, nu, cache=(st.c_e, st.c_i), gauss_newton=gn, stagewise=sw)
+        ctx = ops.prepare(Z, lam, nu, cache=(st.c_e, st.c_i), gauss_newton=gn, stagewise=sw,
+                          skip_hessian=lbfgs)
         gf, c_e, c_i = ctx.grad_f, ctx.c_e, ctx.c_i
 
+        lbfgs_S, lbfgs_Y, lbfgs_n = st.lbfgs_S, st.lbfgs_Y, st.lbfgs_n
+        if lbfgs:
+            # complete the (s, y) pair begun at the end of the previous
+            # iteration: y = ∇L(Z; λ, ν) − ∇L(Z_prev; λ, ν) at the same
+            # multipliers (carried in lbfgs_g_prev)
+            s_pair = Z - st.lbfgs_Z_prev
+            y_pair = ctx.grad_f + ctx.JeT(lam) + ctx.JiT(nu) - st.lbfgs_g_prev
+            sy = (s_pair * y_pair).sum(-1)
+            ss = (s_pair * s_pair).sum(-1)
+            yy = (y_pair * y_pair).sum(-1)
+            # curvature condition (skip the update where it fails)
+            good = (st.iter > 0) & (sy > 1e-8 * torch.sqrt(ss * yy)) & torch.isfinite(sy) & (ss > 0)
+            gc = good[:, None, None]
+            lbfgs_S = torch.where(gc, torch.cat([st.lbfgs_S[:, 1:], s_pair[:, None]], 1),
+                                  st.lbfgs_S)
+            lbfgs_Y = torch.where(gc, torch.cat([st.lbfgs_Y[:, 1:], y_pair[:, None]], 1),
+                                  st.lbfgs_Y)
+            lbfgs_n = torch.clamp(st.lbfgs_n + good.to(i32), max=m_l).to(i32)
+            # σI in the stage blocks, the low-rank part by SMW through the
+            # O(N) factorization (no densification)
+            ctx.set_lbfgs(*_lbfgs_compact(lbfgs_S, lbfgs_Y, lbfgs_n))
+
+        if hi:
+            # the float64 residual bundle: every quantity below is small near
+            # the solution only because O(1) terms cancel, so the
+            # cancellation runs in float64 and the small result is cast back
+            Z64 = Z.to(f64)
+            gf64 = gradient(nlp64, Z64)
+            c_e64, vjp_e = vjp(nlp64.c_eq, Z64)
+            c_i64, vjp_i = vjp(nlp64.c_in, Z64)
+            free64 = free.to(f64)
+            JeTlam64 = free64 * vjp_e(lam.to(f64))[0] if n_eq else torch.zeros_like(Z64)
+            gf, c_e, c_i = gf64.to(dtype), c_e64.to(dtype), c_i64.to(dtype)
+
         # ---- optimality errors at the current iterate -------------------- #
-        if comp:
+        if hi:
+            JiTnu64 = vjp_i(nu.to(f64))[0] if n_in else torch.zeros_like(Z64)
+            r_dual = (free64 * (gf64 + JeTlam64 + JiTnu64 - zL.to(f64) + zU.to(f64))).to(dtype)
+        elif comp:
             # five O(1) terms cancelling to O(tol): compensated summation
             r_dual = free * _csum([gf, ctx.JeT(lam), ctx.JiT(nu), -zL, zU])
         else:
@@ -344,6 +463,15 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         inf_du = _amax0(r_dual.abs())
         inf_pr = torch.maximum(_amax0(c_e.abs()), _amax0((c_i + s).abs()))
 
+        if hi:
+            # complementarity products in float64 (d·z ≈ μ only by
+            # cancellation of the float32 rounding of d near an active bound)
+            dLc = torch.where(_lane(has_L, Z64), Z64 - _lane(lb, Z64).to(f64), 1.0)
+            dUc = torch.where(_lane(has_U, Z64), _lane(ub, Z64).to(f64) - Z64, 1.0)
+            zLc, zUc, sc_, nuc = zL.to(f64), zU.to(f64), s.to(f64), nu.to(f64)
+        else:
+            dLc, dUc, zLc, zUc, sc_, nuc = dL, dU, zL, zU, s, nu
+
         def comp_err(mu_val):
             if comp:
                 # d·z ≈ μ only by cancellation: exact-product transforms
@@ -354,13 +482,13 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
                 comp_U = torch.where(mask_U, (pU - mu_val) + eU, 0.0)
                 comp_s = (ps - mu_val) + es
             else:
-                comp_L = torch.where(mask_L, dL * zL - mu_val, 0.0)
-                comp_U = torch.where(mask_U, dU * zU - mu_val, 0.0)
-                comp_s = s * nu - mu_val
+                comp_L = torch.where(mask_L, dLc * zLc - mu_val, 0.0)
+                comp_U = torch.where(mask_U, dUc * zUc - mu_val, 0.0)
+                comp_s = sc_ * nuc - mu_val
             return torch.maximum(
                 torch.maximum(_amax0(comp_L.abs()), _amax0(comp_U.abs())),
                 _amax0(comp_s.abs()),
-            )
+            ).to(dtype)
 
         base_err = torch.maximum(inf_du / s_d, inf_pr)
         comp0 = comp_err(0.0)
@@ -394,20 +522,49 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             improved, WarmStart(s=s, lam=lam, nu=nu, zL=zL, zU=zU), st.best_kkt_warm
         )
 
-        # ---- monotone barrier update (+ filter reset) --------------------- #
-        switch_level = opt.mu_switch_factor * opt.tol
-        endgame = st.mu <= switch_level
-        k_eps_far = opt.kappa_epsilon_far if opt.kappa_epsilon_far > 0 else opt.kappa_epsilon
-        k_mu_far = opt.kappa_mu_far if opt.kappa_mu_far > 0 else opt.kappa_mu
-        k_eps = torch.where(endgame, full(opt.kappa_epsilon), full(k_eps_far))
-        k_mu = torch.where(endgame, full(opt.kappa_mu), full(k_mu_far))
-        mu_update = e_mu <= k_eps * st.mu
-        mu_raw = torch.clamp(torch.minimum(k_mu * st.mu, st.mu ** opt.theta_mu), min=mu_floor)
-        mu_raw = torch.where(endgame, mu_raw, torch.clamp(mu_raw, min=switch_level))
-        mu = torch.where(mu_update, mu_raw, st.mu)
-        filter_th = torch.where(mu_update[:, None], inf, st.filter_th)
-        filter_ph = torch.where(mu_update[:, None], inf, st.filter_ph)
-        filter_n = torch.where(mu_update, 0, st.filter_n).to(i32)
+        # ---- barrier update (+ filter reset) ------------------------------ #
+        filter_th, filter_ph, filter_n = st.filter_th, st.filter_ph, st.filter_n
+        if mehrotra:
+            # μ is chosen after the affine-scaling probe below
+            mu = st.mu
+            mu_update = torch.zeros_like(st.converged)
+        elif options.mu_strategy == "adaptive":
+            # LOQO-style centrality rule: μ = σ·(average complementarity),
+            # σ driven by how uncentred the complementarity pairs are
+            nan = float("nan")
+            comp_terms = torch.cat([torch.where(mask_L, dL * zL, nan),
+                                    torch.where(mask_U, dU * zU, nan), s * nu], dim=-1)
+            m_cnt = (~torch.isnan(comp_terms)).sum(-1)
+            avg_c = torch.nansum(comp_terms, -1) / torch.clamp(m_cnt, min=1)
+            min_c = (torch.where(torch.isnan(comp_terms), inf, comp_terms).amin(-1)
+                     if comp_terms.shape[-1] else full(inf))
+            has_comp = m_cnt > 0
+            xi = torch.where(has_comp, min_c / torch.clamp(avg_c, min=1e-30), 1.0)
+            sigma = 0.1 * torch.clamp(0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-6), max=2.0) ** 3
+            mu_target = torch.clamp(sigma * avg_c, min=mu_floor, max=opt.mu_init)
+            mu = torch.where(has_comp, mu_target, torch.clamp(0.2 * st.mu, min=mu_floor))
+            # reset the filter only on large barrier drops
+            mu_update = mu <= 0.1 * st.mu
+        else:
+            # two-regime monotone (Fiacco–McCormick) rule
+            switch_level = opt.mu_switch_factor * opt.tol
+            endgame = st.mu <= switch_level
+            k_eps_far = opt.kappa_epsilon_far if opt.kappa_epsilon_far > 0 else opt.kappa_epsilon
+            k_mu_far = opt.kappa_mu_far if opt.kappa_mu_far > 0 else opt.kappa_mu
+            k_eps = torch.where(endgame, full(opt.kappa_epsilon), full(k_eps_far))
+            k_mu = torch.where(endgame, full(opt.kappa_mu), full(k_mu_far))
+            mu_update = e_mu <= k_eps * st.mu
+            mu_raw = torch.clamp(torch.minimum(k_mu * st.mu, st.mu ** opt.theta_mu), min=mu_floor)
+            mu_raw = torch.where(endgame, mu_raw, torch.clamp(mu_raw, min=switch_level))
+            mu = torch.where(mu_update, mu_raw, st.mu)
+        if not mehrotra:
+            filter_th = torch.where(mu_update[:, None], inf, st.filter_th)
+            filter_ph = torch.where(mu_update[:, None], inf, st.filter_ph)
+            filter_n = torch.where(mu_update, 0, st.filter_n).to(i32)
+        # the non-monotone memory compares φ within one barrier value only
+        phi_hist = st.phi_hist
+        if n_hist:
+            phi_hist = torch.where(mu_update[:, None], -inf, st.phi_hist)
 
         # ---- condensed system ------------------------------------------- #
         SigL = torch.where(mask_L, zL / dL, 0.0)
@@ -419,14 +576,87 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             delta_w_min=torch.clamp(opt.delta_w_mu_scale * mu * st.delta_w_boost,
                                     min=opt.delta_w_min)
         )
+
+        def build_g_hat(mu_v):
+            """The condensed right-hand side at barrier value ``mu_v`` (B,).
+            Refined, it is evaluated in float64 and shifted by the float64
+            Jᵀλ: the shifted right-hand side is the barrier dual residual
+            (small near the solution), so the cast keeps its relative
+            precision and the solve returns the increment Δλ, not λ⁺."""
+            if hi:
+                mu64 = mu_v.to(f64)[:, None]
+                g = (gf64 - torch.where(mask_L, mu64 / dLc, 0.0)
+                     + torch.where(mask_U, mu64 / dUc, 0.0))
+                if n_in:
+                    g = g + vjp_i(mu64 / sc_ + (nuc / sc_) * (c_i64 + sc_))[0]
+                return (free64 * (g + JeTlam64)).to(dtype)
+            mu_v = mu_v[:, None]
+            g = gf - torch.where(mask_L, mu_v / dL, 0.0) + torch.where(mask_U, mu_v / dU, 0.0)
+            if n_in:
+                g = g + ctx.JiT(mu_v / s + D * (c_i + s))
+            return free * g
+
+        if mehrotra:
+            # ---- affine-scaling probe: factor once, solve the μ = 0 system,
+            # measure the complementarity it would reach and take
+            # μ = σ·(average complementarity) with σ = (μ_aff/μ_avg)³ ------ #
+            g_aff = gf
+            if n_in:
+                g_aff = g_aff + ctx.JiT(D * (c_i + s))
+            dZ_a, _, ok, delta_fin, resolve = ctx.kkt_step(
+                Sig, D, free * g_aff, -c_e, st.delta_w_last, opt_k, active)
+            ds_a = -(c_i + s) - ctx.Ji(dZ_a)
+            dnu_a = -nu - D * ds_a
+            dzL_a = torch.where(mask_L, -zL - SigL * dZ_a, 0.0)
+            dzU_a = torch.where(mask_U, -zU + SigU * dZ_a, 0.0)
+            tau_a = 0.995
+            ap = torch.minimum(
+                _masked_min(-tau_a * dL / torch.clamp(dZ_a, max=-1e-30), mask_L & (dZ_a < 0), 1.0),
+                _masked_min(tau_a * dU / torch.clamp(dZ_a, min=1e-30), mask_U & (dZ_a > 0), 1.0),
+            )
+            ad = torch.minimum(
+                _masked_min(-tau_a * zL / torch.clamp(dzL_a, max=-1e-30), mask_L & (dzL_a < 0),
+                            1.0),
+                _masked_min(-tau_a * zU / torch.clamp(dzU_a, max=-1e-30), mask_U & (dzU_a < 0),
+                            1.0),
+            )
+            if n_in:
+                ap = torch.minimum(ap, _masked_min(
+                    -tau_a * s / torch.clamp(ds_a, max=-1e-30), ds_a < 0, 1.0))
+                ad = torch.minimum(ad, _masked_min(
+                    -tau_a * nu / torch.clamp(dnu_a, max=-1e-30), dnu_a < 0, 1.0))
+            apc, adc = ap[:, None], ad[:, None]
+            comp_now = (torch.where(mask_L, dL * zL, 0.0).sum(-1)
+                        + torch.where(mask_U, dU * zU, 0.0).sum(-1) + (s * nu).sum(-1))
+            comp_aff = (
+                torch.where(mask_L, (dL + apc * dZ_a) * (zL + adc * dzL_a), 0.0).sum(-1)
+                + torch.where(mask_U, (dU - apc * dZ_a) * (zU + adc * dzU_a), 0.0).sum(-1)
+                + ((s + apc * ds_a) * (nu + adc * dnu_a)).sum(-1)
+            )
+            m_cnt = (mask_L.sum(-1) + mask_U.sum(-1) + n_in).to(dtype).expand(B)
+            mu_avg = comp_now / torch.clamp(m_cnt, min=1.0)
+            mu_aff = comp_aff / torch.clamp(m_cnt, min=1.0)
+            sigma = torch.clamp((mu_aff / torch.clamp(mu_avg, min=1e-30)) ** 3, 1e-4, 10.0)
+            mu_new = torch.clamp(sigma * mu_avg, min=mu_floor, max=opt.mu_init)
+            mu = torch.where(m_cnt > 0, mu_new, torch.clamp(0.2 * mu, min=mu_floor))
+            # filter reset on large barrier drops
+            mu_update = mu <= 0.1 * st.mu
+            filter_th = torch.where(mu_update[:, None], inf, filter_th)
+            filter_ph = torch.where(mu_update[:, None], inf, filter_ph)
+            filter_n = torch.where(mu_update, 0, filter_n).to(i32)
+            if n_hist:
+                phi_hist = torch.where(mu_update[:, None], -inf, phi_hist)
+            g_hat = build_g_hat(mu)
+            dZ, lam_plus = resolve(-g_hat, -c_e)
+        else:
+            g_hat = build_g_hat(mu)
+            dZ, lam_plus, ok, delta_fin, resolve = ctx.kkt_step(
+                Sig, D, g_hat, -c_e, st.delta_w_last, opt_k, active
+            )
+        if hi:
+            # the Jᵀλ shift makes the solver's multiplier the increment Δλ
+            lam_plus = lam + lam_plus
         mu_c = mu[:, None]
-        g_hat = gf - torch.where(mask_L, mu_c / dL, 0.0) + torch.where(mask_U, mu_c / dU, 0.0)
-        if n_in:
-            g_hat = g_hat + ctx.JiT(mu_c / s + D * (c_i + s))
-        g_hat = free * g_hat
-        dZ, lam_plus, ok, delta_fin, resolve = ctx.kkt_step(
-            Sig, D, g_hat, -c_e, st.delta_w_last, opt_k, active
-        )
 
         # ---- recover eliminated directions ------------------------------- #
         ds = -(c_i + s) - ctx.Ji(dZ)
@@ -465,7 +695,9 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         )
         if n_in:
             Dphi = Dphi - mu * (ds / s).sum(-1)
-        phi_ref = phi0
+        # non-monotone reference (Grippo): the largest φ of the recent
+        # iterates at this μ; ls_memory = 1 is the monotone test
+        phi_ref = torch.maximum(phi0, phi_hist.amax(-1)) if n_hist else phi0
 
         def acceptable(alpha, phi_t, theta_t):
             """Filter / Armijo acceptance; trial axes after the lane axis."""
@@ -498,9 +730,18 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         # first trial at the full step; its residuals are shared with the SOC
         Z_full = nlp.apply_pins(Z + a_pri[:, None] * dZ)
         s_full = s + a_pri[:, None] * ds
-        c_e_full = nlp.c_eq(Z_full)
-        c_i_full = nlp.c_in(Z_full)
-        f_full = nlp.objective(Z_full)
+        if hi:
+            # near the floor the accepting (usually full) step's θ/φ decrease
+            # is below float32 evaluation noise: judge it on float64
+            # residuals (the backtracking grid stays float32)
+            Zf64 = Z_full.to(f64)
+            c_e_full = nlp64.c_eq(Zf64).to(dtype)
+            c_i_full = nlp64.c_in(Zf64).to(dtype)
+            f_full = nlp64.objective(Zf64).to(dtype)
+        else:
+            c_e_full = nlp.c_eq(Z_full)
+            c_i_full = nlp.c_in(Z_full)
+            f_full = nlp.objective(Z_full)
         phi_1, theta_1 = barrier_phi_from(f_full, Z_full, s_full, mu, c_e_full, c_i_full)
         acc_1, ftype_1 = acceptable(a_pri, phi_1, theta_1)
 
@@ -531,6 +772,9 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             dZ_soc, lam_soc = dZ, lam_plus
         else:
             dZ_soc, lam_soc = dZ, lam_plus
+        if hi and soc_on:
+            # the SOC's right-hand side carries the Jᵀλ shift too
+            lam_soc = lam + lam_soc
         ds_soc = -ci_soc - ctx.Ji(dZ_soc)
         a_soc = max_primal_step(dZ_soc, ds_soc) if soc_on else full(0.0)
         if n_rest:
@@ -671,6 +915,13 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         filter_th = torch.where(clear_f[:, None], inf, filter_th)
         filter_ph = torch.where(clear_f[:, None], inf, filter_ph)
         filter_n = torch.where(clear_f, 0, filter_n).to(i32)
+        if n_hist:
+            # push this iterate's φ into the non-monotone window (cleared by
+            # a restoration step or a collapse, as the filter is)
+            hit_h = (~stop_now)[:, None] & (
+                torch.arange(n_hist, device=dev) == (st.iter % n_hist)[:, None])
+            phi_hist = torch.where(hit_h, phi0[:, None], phi_hist)
+            phi_hist = torch.where(clear_f[:, None], -inf, phi_hist)
 
         # ---- local-infeasibility certificate ------------------------------ #
         g_feas = free * ctx.JeT(c_e)
@@ -760,6 +1011,11 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             obj_prev=st.obj, osc_count=osc_count, delta_w_boost=delta_w_boost,
             history_Z=history_Z, hist_n=hist_n, history_stats=history_stats,
             best_score=best_score, best_Z=best_Z, topk_scores=topk_scores, topk_Z=topk_Z,
+            phi_hist=phi_hist, lbfgs_S=lbfgs_S, lbfgs_Y=lbfgs_Y, lbfgs_n=lbfgs_n,
+            # begin the next pair: ∇L at the current iterate under the new
+            # multipliers (this iteration's context still holds Z's Jacobians)
+            lbfgs_g_prev=(ctx.grad_f + ctx.JeT(lam_new) + ctx.JiT(nu_new)) if lbfgs else None,
+            lbfgs_Z_prev=Z if lbfgs else None,
         )
 
     def cond(st: IPMState) -> torch.Tensor:

@@ -31,8 +31,16 @@ certificate of the δ_w retry ladder. On top of that core:
   (an estimated λ_min shift per stage) and "project" / "flip" (per-stage
   spectral modification).
 
-Not ported: the "floor" mode (ROADMAP Queue 1 item 3 records why) and
-L-BFGS (item 5).
+* **L-BFGS** (``hessian_approximation="lbfgs"``): ``prepare(...,
+  skip_hessian=True)`` runs no second-order AD pass; :meth:`set_lbfgs`
+  installs the compact model ``σI − UᵀM⁻¹U``, whose σ rides the free stage
+  and global diagonals and whose low-rank part is a Sherman–Morrison–
+  Woodbury correction after the factored solve (2m right-hand sides through
+  one resolve sweep and a (2m)×(2m) dense solve per lane). ``resolve`` and
+  ``resolve.many`` apply the same correction, so the SOC and the
+  restoration see the corrected operator.
+
+Not ported: the "floor" mode (ROADMAP Queue 1 item 3 records why).
 
 All tensors carry a leading lane axis B.
 """
@@ -398,8 +406,9 @@ def _global_hessians(obj, layout, zmat: torch.Tensor, gvec: torch.Tensor):
 
 class _RiccatiCtx:
     def __init__(self, nlp: CanonicalNLP, S: OCPStructure, Z, lam, nu, cache=None,
-                 gauss_newton: bool = False, stagewise=False):
+                 gauss_newton: bool = False, stagewise=False, skip_hessian: bool = False):
         self.nlp = nlp
+        self._lbfgs = None
         self.S = S
         layout = nlp.layout
         N, d, n_g = S.N, S.d, S.n_g
@@ -481,9 +490,18 @@ class _RiccatiCtx:
         # nonlinear-constraint curvature; with globals, the arrowhead blocks
         # H_zg (B, N, d, n_g) and H_gg (B, n_g, n_g) from the same terms
         obj = nlp.objective_obj
-        QW = _knot_hessians(obj, layout, zmat, gvec)
-        if n_g:
-            Hzg, Hgg = _global_hessians(obj, layout, zmat, gvec)
+        if skip_hessian:
+            # L-BFGS: no AD Hessian at all; the model arrives by set_lbfgs
+            # (σ on the diagonals, the cross curvature in the low-rank part)
+            gauss_newton = True
+            QW = torch.zeros((B, N, d, d), dtype=dtype, device=dev)
+            if n_g:
+                Hzg = torch.zeros((B, N, d, n_g), dtype=dtype, device=dev)
+                Hgg = torch.zeros((B, n_g, n_g), dtype=dtype, device=dev)
+        else:
+            QW = _knot_hessians(obj, layout, zmat, gvec)
+            if n_g:
+                Hzg, Hgg = _global_hessians(obj, layout, zmat, gvec)
         if not gauss_newton:
             off = 0
             for integ, (_, r) in zip(nlp.integrators, S.s_pos):
@@ -666,6 +684,13 @@ class _RiccatiCtx:
 
     # ---------------- KKT solve -------------------------------------------- #
 
+    def set_lbfgs(self, sigma, U, M):
+        """Install the compact L-BFGS model ``B = σI − Uᵀ M⁻¹ U`` per lane
+        (σ (B,), U (B, 2m, z_dim), M (B, 2m, 2m); ``ipm._lbfgs_compact``):
+        kkt_step adds σ to the free stage and global diagonals and applies the
+        low-rank term by SMW through the factored solve."""
+        self._lbfgs = (sigma, U * self.nlp.free_mask, M)
+
     def kkt_step(self, Sig, D, g_hat, rhs_c, delta_last, opt, active=None):
         nlp, S = self.nlp, self.S
         N, d, n_g = S.N, S.d, S.n_g
@@ -679,6 +704,10 @@ class _RiccatiCtx:
         Q = self.QW * f_blk[:, :, None] * f_blk[:, None, :]
         Q = Q + torch.diag_embed(1.0 - f_blk)
         Q = Q + torch.diag_embed(Sig[:, : N * d].reshape(B, N, d))
+        if self._lbfgs is not None:
+            # the L-BFGS base model σI on the free stage diagonal (the
+            # low-rank −UᵀM⁻¹U part is applied by SMW after the solve)
+            Q = Q + torch.diag_embed(self._lbfgs[0][:, None, None] * f_blk)
         if nlp.n_in and S.m_in:
             # fast inequality rows: the D-scaled Gram JᵀDJ per knot
             Db = _lane_scatter_add(torch.zeros((B, N, S.m_in), dtype=dtype, device=dev),
@@ -691,6 +720,8 @@ class _RiccatiCtx:
             Hzg_m = self.Hzg * f_blk[:, :, None] * gf
             Hgg_m = (self.Hgg * gf[:, None] * gf + torch.diag(1.0 - gf)
                      + torch.diag_embed(Sig[:, N * d :] * gf))
+            if self._lbfgs is not None:
+                Hgg_m = Hgg_m + torch.diag_embed(self._lbfgs[0][:, None] * gf)
 
         # ---- dynamics blocks ---------------------------------------------- #
         Jr_m = self.Jr * f_blk[: N - 1, None, :]
@@ -1041,6 +1072,36 @@ class _RiccatiCtx:
             dZ = torch.cat([dZ, dg], dim=1)
         lam_plus = pack_lam(lam_stack, lam_c)
         ok = ok & torch.isfinite(dZ).all(-1) & torch.isfinite(lam_plus).all(-1)
+
+        if self._lbfgs is not None:
+            # Sherman–Morrison–Woodbury for the compact L-BFGS low-rank term:
+            # the factored K₀ used W₀ = σI, the model is W = σI − UᵀM⁻¹U, so
+            # K = K₀ + Ṽ(−M⁻¹)Ṽᵀ with Ṽ = [U; 0]ᵀ and
+            # K⁻¹b = K₀⁻¹b − K₀⁻¹Ṽ (−M + ṼᵀK₀⁻¹Ṽ)⁻¹ ṼᵀK₀⁻¹b: 2m right-hand
+            # sides through one resolve sweep and a (2m)×(2m) solve per lane
+            _, U, Mlb = self._lbfgs
+            Xz, Xlam = resolve_many(U, U.new_zeros((B, U.shape[1], nlp.n_eq)))
+            Csmw = -Mlb + U @ Xz.transpose(-1, -2)
+            base_many = resolve_many
+
+            def smw(xz, xlam):
+                """Correct R solutions (B, R, ·) of K₀ to solutions of K."""
+                w = torch.linalg.solve(Csmw, U @ xz.transpose(-1, -2))  # (B, 2m, R)
+                return (xz - (Xz.transpose(-1, -2) @ w).transpose(-1, -2),
+                        xlam - (Xlam.transpose(-1, -2) @ w).transpose(-1, -2))
+
+            dZ1, lam1 = smw(dZ[:, None], lam_plus[:, None])
+            dZ, lam_plus = dZ1[:, 0], lam1[:, 0]
+            ok = ok & torch.isfinite(dZ).all(-1) & torch.isfinite(lam_plus).all(-1)
+
+            def resolve_many(rhs_z_stack, rhs_c_stack):
+                return smw(*base_many(rhs_z_stack, rhs_c_stack))
+
+            def resolve(rhs_z, rhs_c_flat):
+                dZr, lamr = resolve_many(rhs_z[:, None], rhs_c_flat[:, None])
+                return dZr[:, 0], lamr[:, 0]
+
+            resolve.many = resolve_many
         return dZ, lam_plus, ok, delta, resolve
 
 
@@ -1054,6 +1115,9 @@ class RiccatiOps:
         self.nlp = nlp
         self.struct = struct
 
-    def prepare(self, Z, lam, nu, cache=None, gauss_newton=False,
-                stagewise=False) -> _RiccatiCtx:
-        return _RiccatiCtx(self.nlp, self.struct, Z, lam, nu, cache, gauss_newton, stagewise)
+    def prepare(self, Z, lam, nu, cache=None, gauss_newton=False, stagewise=False,
+                skip_hessian=False) -> _RiccatiCtx:
+        """The iterate's context; ``skip_hessian`` (L-BFGS) skips every AD
+        Hessian, the model arriving by :meth:`_RiccatiCtx.set_lbfgs`."""
+        return _RiccatiCtx(self.nlp, self.struct, Z, lam, nu, cache, gauss_newton, stagewise,
+                           skip_hessian)

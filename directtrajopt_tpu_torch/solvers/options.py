@@ -1,10 +1,10 @@
 """Solver options.
 
 Counterpart of ``directtrajopt_tpu/solvers/options.py``: the same field
-names and defaults (see that file for the rationale of each knob). Values
-of an option that would take a code path the port does not have yet raise
+names and defaults (see that file for the rationale of each knob). The
+values whose code path the port does not have raise
 ``NotImplementedError`` in :meth:`IPMOptions.check_supported`, naming the
-ROADMAP item that will port it.
+ROADMAP item that records them.
 """
 
 from __future__ import annotations
@@ -91,24 +91,16 @@ class IPMOptions:
         }
         return self.replace(**changes)
 
-    def check_supported(self) -> None:
-        """Raise on option values whose code path is not ported yet."""
-
-        def no(option, value, item):
-            raise NotImplementedError(
-                f"{option}={value!r} is not ported to the PyTorch solver yet (ROADMAP {item})"
-            )
-
-        if self.mu_strategy != "monotone":
-            no("mu_strategy", self.mu_strategy, "Queue 1 item 3")
-        if self.hessian_approximation not in ("exact", "gauss_newton"):
-            no("hessian_approximation", self.hessian_approximation, "Queue 1 item 5")
+    def check_supported(self, backend: str = "riccati") -> None:
+        """Raise on option values whose code path is not ported: the
+        "floor" regularization, which is not to be ported (ROADMAP Queue 1
+        item 3 records why), and L-BFGS on the dense backend, which is not
+        ported yet (item 6)."""
         if self.hessian_regularization not in ("inertia", "auto", "stagewise", "project", "flip"):
-            no("hessian_regularization", self.hessian_regularization,
-               "Queue 1 item 3, which records why 'floor' stays out")
-        if self.refine_residuals:
-            no("refine_residuals", True, "Queue 1 item 3")
-        if self.ls_memory > 1:
-            no("ls_memory", self.ls_memory, "Queue 1 item 3")
-        if self.dual_init != "zero":
-            no("dual_init", self.dual_init, "Queue 1 item 3")
+            raise NotImplementedError(
+                f"hessian_regularization={self.hessian_regularization!r} is not ported to the "
+                "PyTorch solver (ROADMAP Queue 1 item 3 records why 'floor' stays out)")
+        if self.hessian_approximation == "lbfgs" and backend == "dense":
+            raise NotImplementedError(
+                "hessian_approximation='lbfgs' on the dense backend is not ported to the "
+                "PyTorch solver yet (ROADMAP Queue 1 item 6)")

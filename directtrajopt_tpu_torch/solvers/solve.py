@@ -103,6 +103,7 @@ def _drop_host_stop(options: IPMOptions, callbacks: IPMCallbacks | None, entry: 
 
 def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str,
                 callbacks: IPMCallbacks | None, warm: WarmStart | None) -> SolveResult:
+    options.check_supported(backend)
     if backend not in ("auto", "riccati"):
         raise NotImplementedError(f"backend={backend!r}: the dense backend is not ported yet "
                                   "(ROADMAP Queue 1 item 6)")

@@ -17,8 +17,7 @@ LEFT_OUT = {"module", "static_field", "HashableArray", "solve_jit", "say_hello"}
 
 # name -> the ROADMAP Queue 1 item that ports it
 NOT_YET = {
-    "GeneralIntegrator": 7, "TimeDependentBilinearIntegrator": 7, "td_integration_error": 7,
-    "tune_n_steps": 7,
+    "TimeDependentBilinearIntegrator": 7, "td_integration_error": 7, "tune_n_steps": 7,
 }
 
 # the port's own names: the HVP carriers and the warm start the JAX package
@@ -27,6 +26,7 @@ PORT_ONLY = {
     "ConstantLowRankHVP", "CustomKnotHVP", "WarmStart", "knot_hvp",
     "make_batched_bilinear_problems", "make_batched_global_problems",
     "make_batched_state_constrained_problems", "make_bilinear_problem",
+    "make_batched_cartpole_problems", "make_cartpole_problem",
 }
 
 
@@ -42,3 +42,39 @@ def test_public_names_match():
     assert jax_names - LEFT_OUT - set(NOT_YET) == port_names - PORT_ONLY
     assert set(tdx.__all__) == port_names
 
+
+
+def test_integrators_module_names():
+    """``rk4_step`` is exported from ``integrators`` only, as in the JAX
+    package; ``GeneralIntegrator`` from both."""
+    from directtrajopt_tpu import integrators as ji
+    from directtrajopt_tpu_torch import integrators as ti
+
+    assert "rk4_step" not in _public(dtx) and "rk4_step" not in _public(tdx)
+    assert {"rk4_step", "GeneralIntegrator"} <= set(ji.__all__) & set(ti.__all__)
+    assert tdx.GeneralIntegrator is ti.GeneralIntegrator
+
+
+def test_check_supported_refuses_only_floor_and_dense_lbfgs():
+    """The options the port refuses: "floor" (never to be ported) and
+    L-BFGS on the dense backend (ROADMAP Queue 1 item 6)."""
+    import pytest
+
+    refused = {("hessian_regularization", "floor", "riccati"),
+               ("hessian_regularization", "floor", "dense"),
+               ("hessian_approximation", "lbfgs", "dense")}
+    values = {"mu_strategy": ("monotone", "mehrotra", "adaptive"),
+              "hessian_approximation": ("exact", "gauss_newton", "lbfgs"),
+              "hessian_regularization": ("auto", "inertia", "stagewise", "project", "flip",
+                                         "floor"),
+              "dual_init": ("zero", "least_squares"), "refine_residuals": (False, True),
+              "ls_memory": (1, 4)}
+    for name, vals in values.items():
+        for v in vals:
+            for backend in ("riccati", "dense"):
+                opts = tdx.IPMOptions(**{name: v})
+                if (name, v, backend) in refused:
+                    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                        opts.check_supported(backend)
+                else:
+                    opts.check_supported(backend)
