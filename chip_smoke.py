@@ -72,9 +72,29 @@ Phases, each printing its own lines:
    R = 9 (K1 on 8 columns, K2 on the ninth) and K2 at R = 40 (bitwise the
    same as five launches of 8 columns; R = 41 raises).
 
+8. Path 6, the dense KKT backend (``chip_smoke.path6``). 6a: the order-1
+   time-dependent family (``make_batched_td_problems``: the 4-D Pauli state
+   under G(u, t), u linear between knots, Δt free and equal at every knot;
+   not Riccati-eligible) at B=2048, N=51, float64, backend "auto", which
+   must warn and fall back to dense: the converged share, the KKT error,
+   ``td_error`` and, on lanes 0-15, |obj/obj* − 1| and |u − u*| against
+   ``tests/golden/torch/td_order1_n51.npz`` with the iterations beside the
+   golden's. 6b: lanes 0-255 of path 1's batch on the dense backend with
+   the seek's options, twice: the converged share against its bar from the
+   JAX package (``tools/torch_dense_bars.py``), iterations beside path 1's
+   seek on the same lanes, the two runs' Z bitwise equal. 6c: lanes 0-1023
+   of path 5's batch with 5b's L-BFGS options on the dense backend: 5b's
+   certificate, and |obj_dense/obj_riccati − 1| against 5b per lane. Each
+   with seconds, lockstep passes, factorizations a KKT step, peak memory,
+   one ``prepare`` and one batched Cholesky timed at its shape, and its
+   launches: K1-K3 (and on 6a and 6c K4) must stay at 0, K4 must run on
+   6b's line search.
+
 Exits non-zero if there is no CUDA device, if any kernel fails to build,
-launch or agree, if a kernel of a path was never launched during it, or if
-a path's result does not meet its certificate. The last line is
+launch or agree, if a kernel of a path was never launched during it (or a
+Riccati kernel was on path 6), if path 6b's two runs differ or 6a's
+fallback warning is missing, or if a path's result does not meet its
+certificate. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -87,6 +107,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -120,6 +141,16 @@ KKT_POLISH = 1e-7
 # 2.5e-4; tools/torch_cartpole_ref.py, PERF.md §6)
 KKT_5A, OBJ_5A, RMS_5A = 1e-5, 1e-4, 2e-3
 KKT_5B, OBJ_5B = 1e-4, 5e-2
+# path 6a, per converged lane: the KKT error and the step-doubling
+# estimate of the time-dependent integrator at the solution (the port's
+# TD_ACCURACY_ATOL); on lanes 0-15, against the JAX package's float64 solve
+# (tests/golden/torch/td_order1_n51.npz), |obj/obj* − 1| and max |u − u*|.
+# Path 6b's bar: the JAX package's float32 dense solve of lanes 0-63 at the
+# same options converges CONV_6B_JAX of them (tools/torch_dense_bars.py,
+# PERF.md §6); the bar is that share less 0.1. Path 6c keeps 5b's bars.
+KKT_6A, TD_ATOL, OBJ_6A, U_6A = 1e-8, 1e-3, 1e-6, 1e-4
+CONV_6B_JAX = 30 / 64
+BAR_6B = CONV_6B_JAX - 0.1
 MIN_CONVERGED = 0.99  # share of lanes that must converge
 DEVICE = "cuda:0"
 
@@ -451,6 +482,208 @@ def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
                         smem.group(1) if smem else "0"))
             name = None
     return out
+
+
+def phase_line(tag, what, c):
+    print(f"[{tag}] {what}: {c['seconds']:.2f} s, {c['lanes']} lanes ({c['dtype']}), "
+          f"{c['passes']} lockstep passes, {c['unconverged']} unconverged after it; "
+          f"kernel launches {json.dumps(c['launches'])}", flush=True)
+
+
+def path6(dev, prob_big, prob_cp, it1, obj5b) -> dict:
+    """Path 6, the dense backend: 6a (the order-1 time-dependent family,
+    auto → dense, float64), 6b (lanes 0-255 of path 1's batch ``prob_big``,
+    float32, twice; ``it1``: path 1's seek iterations) and 6c (lanes 0-1023
+    of path 5's cartpole batch ``prob_cp`` with L-BFGS; ``obj5b``: 5b's
+    objectives). Prints and certifies each; returns 6b's launches."""
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.module import tree_take
+    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.solvers import ops_dense
+    from directtrajopt_tpu_torch.solvers.canonical import make_nlp
+    from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
+
+    solve_mod = importlib.import_module("directtrajopt_tpu_torch.solvers.solve")
+    N = benchmarks.headline_config()["N"]
+    N5 = benchmarks.cartpole_config()["N"]
+
+    k1_3 = ("factor_solve", "resolve", "window_jac")
+    orig_retry = ops_dense._reg_retry
+    retry_stats = {"steps": 0, "factors": 0}
+
+    def counting_retry(factor, *a, **kw):
+        retry_stats["steps"] += 1
+
+        def counted(delta):
+            retry_stats["factors"] += 1
+            return factor(delta)
+
+        return orig_retry(counted, *a, **kw)
+
+    def run6(tag, what, run):
+        """One dense solve: its result, its phase record, its launches and
+        the factorizations per KKT step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        retry_stats.update(steps=0, factors=0)
+        ops_dense._reg_retry = counting_retry
+        try:
+            with Timed(solve_mod, "_solve_impl") as tm:
+                res = run()
+        finally:
+            ops_dense._reg_retry = orig_retry
+        counts = dict(_build.LAUNCHES)
+        c = dict(tm.calls[0], seconds=sum(x["seconds"] for x in tm.calls),
+                 passes=sum(x["passes"] for x in tm.calls), launches=counts,
+                 unconverged=int((~res.converged).sum()))
+        phase_line(tag, what, c)
+        per = retry_stats["factors"] / max(retry_stats["steps"], 1)
+        print(f"[{tag}] {len(tm.calls)} solve call(s); {retry_stats['steps']} KKT steps, "
+              f"{retry_stats['factors']} factorizations ({per:.3f} a step); peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+        return res, c
+
+    def dense_layer(tag, prob, res, gn: bool):
+        """The dense context's layer times at the solution of ``res``: one
+        ``prepare`` (assembly: residuals, Jacobians, Hessian) and one
+        batched Cholesky factorization of a matrix of its shape, CUDA
+        events, median of three."""
+        nlp = make_nlp(prob)
+        ops = ops_dense.DenseOps(nlp)
+        Z, st = res.ipm.Z, res.ipm.state
+        t_prep = cuda_ms(lambda: ops.prepare(Z, st.lam, st.nu, gauss_newton=gn), reps=3)
+        A = torch.randn((Z.shape[0], nlp.z_dim, nlp.z_dim), dtype=Z.dtype, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+        M = A @ A.transpose(-1, -2) / nlp.z_dim + torch.eye(nlp.z_dim, dtype=Z.dtype, device=dev)
+        del A
+        t_chol = cuda_ms(lambda: torch.linalg.cholesky_ex(M), reps=3)
+        del M
+        print(f"[{tag}] dense layer at B={Z.shape[0]} z_dim={nlp.z_dim} n_eq={nlp.n_eq} "
+              f"{str(Z.dtype).replace('torch.', '')}: prepare (assembly) {t_prep:.2f} ms, "
+              f"batched Cholesky (torch.linalg.cholesky_ex) {t_chol:.2f} ms", flush=True)
+
+    def no_riccati_kernels(tag, counts, k4: bool):
+        zero = [k for k in (k1_3 if k4 else tuple(KERNELS)) if counts.get(k, 0)]
+        k4n = counts.get("residual", 0) + counts.get("residual_l1", 0)
+        print(f"[{tag}] launches K1 {counts.get('factor_solve', 0)}, K2 {counts.get('resolve', 0)}, "
+              f"K3 {counts.get('window_jac', 0)}, K4 {counts.get('residual', 0)} + "
+              f"{counts.get('residual_l1', 0)} (L1)", flush=True)
+        if zero:
+            fail(f"{tag}: the dense backend launched {zero}: {counts}")
+        if k4 and not k4n:
+            fail(f"{tag}: K4 was never launched on the dense backend's line search")
+
+    # ---- 6a: the order-1 time-dependent family, auto -> dense, float64 ---- #
+    td_cfg = benchmarks.td_config()
+    B6a, N6a = td_cfg["batch"], td_cfg["N"]
+    prob6a = benchmarks.make_batched_td_problems(B6a, N=N6a, device=dev)
+    with warnings.catch_warnings(record=True) as w6a:
+        warnings.simplefilter("always")
+        res6a, _ = run6("path6a", f"time-dependent order-1 B={B6a} N={N6a} float64, "
+                                  "backend auto", lambda: solve_batch_compact(
+                                      prob6a, **td_cfg["solve_kw"]))
+    msgs = [str(x.message) for x in w6a]
+    fallback = any("not Riccati-eligible" in m for m in msgs)
+    td_warn = [m for m in msgs if "integrator error" in m]
+    no_riccati_kernels("path6a", _build.LAUNCHES, k4=False)
+    conv6a = res6a.converged.cpu().numpy()
+    kkt6a = res6a.kkt_error.cpu().numpy()
+    it6a = res6a.iterations.cpu().numpy()
+    ln6a = np.nonzero(conv6a)[0]
+    tde = res6a.td_error.cpu().numpy()
+    obj_err6a, u_err6a, it_gold = benchmarks.td_certificate(res6a)
+    L6 = len(it_gold)
+    kkt6a_max = float(kkt6a[ln6a].max()) if len(ln6a) else float("nan")
+    print(f"[path6a] fallback warning seen: {fallback}; converged {len(ln6a)}/{B6a}; iterations "
+          f"median {np.median(it6a):g} max {it6a.max()}; max kkt over converged {kkt6a_max:.3e} "
+          f"(bound {KKT_6A:g}); td_error max {tde.max():.3e} (bound {TD_ATOL:g}); accuracy "
+          f"warnings {len(td_warn)}", flush=True)
+    print(f"[path6a] lanes 0-{L6 - 1} vs the JAX package's float64 solve: max |obj/obj* - 1| "
+          f"{obj_err6a.max():.3e} (bound {OBJ_6A:g}), max |u - u*| {u_err6a.max():.3e} (bound "
+          f"{U_6A:g}); iterations {it6a[:L6].tolist()} beside the golden's {it_gold.tolist()}",
+          flush=True)
+    st6a = res6a.status.cpu().numpy()
+    for i in np.nonzero(~conv6a)[0][:16]:
+        print(f"[path6a] unconverged lane {i}: {it6a[i]} iterations, kkt {kkt6a[i]:.3e}, "
+              f"status {st6a[i]}")
+    dense_layer("path6a", prob6a, res6a, gn=False)
+    del prob6a, res6a
+    if not fallback:
+        fail("path 6a: the auto backend's dense-fallback warning did not fire")
+    if len(ln6a) < MIN_CONVERGED * B6a:
+        fail(f"path 6a: only {len(ln6a)}/{B6a} lanes converged")
+    if not (kkt6a_max <= KKT_6A and tde.max() <= TD_ATOL and not td_warn):
+        fail("path 6a: a converged lane is not certified, or td_error is above its bound")
+    if not (obj_err6a.max() <= OBJ_6A and u_err6a.max() <= U_6A):
+        fail("path 6a: lanes 0-15 miss the golden's bounds")
+
+    # ---- 6b: path 1's family on the dense backend, float32 ---------------- #
+    d_cfg = benchmarks.dense_config()
+    L6b = d_cfg["lanes"]
+    prob6b = tree_take(prob_big, torch.arange(L6b, device=dev))
+    Z6b = []
+    for rep in range(2):
+        res6b, c6b = run6("path6b", f"path 1's lanes 0-{L6b - 1} N={N} float32, backend dense, "
+                                    f"the seek's options (run {rep + 1} of 2)",
+                          lambda: solve_batch_compact(prob6b, **d_cfg["solve_kw"]))
+        no_riccati_kernels("path6b", c6b["launches"], k4=True)
+        Z6b.append(res6b.problem.trajectory.to_zvec())
+    launches6b = c6b["launches"]
+    same6b = torch.equal(Z6b[0], Z6b[1])
+    conv6b = res6b.converged.cpu().numpy()
+    it6b = res6b.iterations.cpu().numpy()
+    kkt6b = res6b.kkt_error.cpu().numpy()
+    finite6b = bool(torch.isfinite(Z6b[1]).all())
+    it_seek = it1[:L6b]
+    print(f"[path6b] converged {int(conv6b.sum())}/{L6b} (bar {BAR_6B:.0%}); iterations median "
+          f"{np.median(it6b):g} max {it6b.max()} beside path 1's seek on the same lanes: median "
+          f"{np.median(it_seek):g} max {it_seek.max()}; max kkt over converged "
+          f"{kkt6b[conv6b].max() if conv6b.any() else float('nan'):.3e}; finite {finite6b}; "
+          f"two runs bitwise equal: {same6b}", flush=True)
+    st6b = res6b.status.cpu().numpy()
+    for i in np.nonzero(~conv6b)[0][:16]:
+        print(f"[path6b] unconverged lane {i}: {it6b[i]} iterations, kkt {kkt6b[i]:.3e}, "
+              f"status {st6b[i]}")
+    dense_layer("path6b", prob6b, res6b, gn=True)
+    del prob6b, res6b, Z6b
+    if not same6b:
+        fail("path 6b: two runs of the dense backend differ")
+    if not finite6b or conv6b.sum() < BAR_6B * L6b:
+        fail(f"path 6b: {int(conv6b.sum())}/{L6b} converged is below its bar, or an iterate "
+             "is not finite")
+
+    # ---- 6c: dense L-BFGS on the cartpole family, float32 ----------------- #
+    c_cfg = benchmarks.cartpole_dense_lbfgs_config()
+    L6c = c_cfg["lanes"]
+    prob6c = tree_take(prob_cp, torch.arange(L6c, device=dev))
+    res6c, c6c = run6("path6c", f"cartpole lanes 0-{L6c - 1} N={N5} float32, backend dense, "
+                                f"L-BFGS m={c_cfg['solve_kw']['limited_memory_max_history']}",
+                      lambda: solve_batch_compact(prob6c, **c_cfg["solve_kw"]))
+    no_riccati_kernels("path6c", c6c["launches"], k4=False)
+    conv6c = res6c.converged.cpu().numpy()
+    it6c = res6c.iterations.cpu().numpy()
+    kkt6c = res6c.kkt_error.cpu().numpy()
+    ln6c = np.nonzero(conv6c)[0]
+    obj_err6c, _ = benchmarks.cartpole_certificate(res6c)
+    obj6c = res6c.objective.detach().to("cpu", torch.float64).numpy()
+    vs5b = np.abs(obj6c / obj5b[:L6c] - 1.0)
+
+    def worst6c(x):
+        return float(x[ln6c].max()) if len(ln6c) else float("nan")
+
+    print(f"[path6c] converged {len(ln6c)}/{L6c}; iterations median {np.median(it6c):g} max "
+          f"{it6c.max()}; over converged lanes: max kkt {worst6c(kkt6c):.3e} (bound {KKT_5B:g}), "
+          f"max |obj/obj* - 1| {worst6c(obj_err6c):.3e} (bound {OBJ_5B:g}); per lane "
+          f"|obj_dense/obj_riccati - 1| against 5b: median {np.median(vs5b):.3e} max "
+          f"{vs5b.max():.3e}", flush=True)
+    dense_layer("path6c", prob6c, res6c, gn=False)
+    del prob6c, res6c
+    if len(ln6c) < MIN_CONVERGED * L6c:
+        fail(f"path 6c: only {len(ln6c)}/{L6c} lanes converged")
+    if not (worst6c(kkt6c) <= KKT_5B and worst6c(obj_err6c) <= OBJ_5B):
+        fail("path 6c: a converged lane is not certified")
+    return launches6b
 
 
 def main() -> None:
@@ -1146,11 +1379,6 @@ def main() -> None:
           prof="residual_grid_kernel")
     del Zt4, t4, dZb
 
-    def phase_line(tag, what, c):
-        print(f"[{tag}] {what}: {c['seconds']:.2f} s, {c['lanes']} lanes ({c['dtype']}), "
-              f"{c['passes']} lockstep passes, {c['unconverged']} unconverged after it; "
-              f"kernel launches {json.dumps(c['launches'])}", flush=True)
-
     # ---- 4a: solve_batch_scheduled at B=8192 ------------------------------ #
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1295,14 +1523,13 @@ def main() -> None:
             fail(f"{tag}: only {len(ln5)}/{B5} lanes converged")
         if not (worst(kkt5) <= kkt_bar and worst(obj_err) <= obj_bar and worst(rms5) <= rms_bar):
             fail(f"{tag}: a converged lane is not certified")
-        return counts
+        return counts, res.objective.detach().to("cpu", torch.float64).numpy()
 
-    launches5a = run5("path5a", f"cartpole B={B5} N={N5} float32, exact Hessian", cp_cfg,
+    launches5a, _ = run5("path5a", f"cartpole B={B5} N={N5} float32, exact Hessian", cp_cfg,
                       KKT_5A, OBJ_5A, RMS_5A)
-    launches5b = run5("path5b", f"cartpole B={B5} N={N5} float32, L-BFGS m="
+    launches5b, obj5b = run5("path5b", f"cartpole B={B5} N={N5} float32, L-BFGS m="
                                 f"{lb_cfg['solve_kw']['limited_memory_max_history']}", lb_cfg,
                       KKT_5B, OBJ_5B, float("inf"))
-    del prob_cp
 
     # ---- 5c: the other IPM options on lanes 0-255 of path 1's batch -------- #
     prob5c = tree_take(prob_big, torch.arange(LANES_5C, device=dev))
@@ -1330,6 +1557,10 @@ def main() -> None:
             fail(f"path 5c ({name}): no K1 launch, or {n_conv}/{LANES_5C} converged is below "
                  f"its bar")
         del res5c
+
+    # ---------------- 8. path 6: the dense backend --------------------------- #
+    launches6b = path6(dev, prob_big, prob_cp, it1, obj5b)
+    del prob_cp
 
     table = []
     for name, (route, src, replaces) in KERNELS.items():
@@ -1383,6 +1614,15 @@ def main() -> None:
         r = results[res_key]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
+    # path 6b's rows: K4 on the dense backend's line search at path 1's
+    # shapes (256 lanes, the seek's slots), the shapes of the K4 rows above
+    for k in ("residual", "residual_l1"):
+        route, src, replaces = KERNELS[k]
+        r = results[k]
+        table.append(dict(name=f"{k}_dense", route=route, source=src, replaces=replaces,
+                          launches=launches6b.get(k, 0), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     print(json.dumps({"kernels": table}))

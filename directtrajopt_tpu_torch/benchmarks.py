@@ -21,6 +21,13 @@ package's cartpole cart-move (general RK4 dynamics through
 ``GeneralIntegrator``), one lane per seed; ``cartpole_config`` and
 ``cartpole_lbfgs_config`` solve it with the exact Hessian and with L-BFGS
 (path 5 of ``chip_smoke.py``), certified by ``cartpole_certificate``.
+``make_batched_td_problems`` builds the sixth: the 4-D Pauli state under a
+time-dependent generator with an order-1 control spline
+(``TimeDependentBilinearIntegrator``), which the Riccati backend cannot take,
+so ``td_config`` solves it on the dense backend in float64, certified by
+``td_certificate``; ``dense_config`` and ``cartpole_dense_lbfgs_config`` run
+path 1's and path 5's families on the dense backend (path 6 of
+``chip_smoke.py``).
 
 Problems are built on the host in numpy from a seed (the same draws as the
 JAX package, so both packages pose the same problems) and put on
@@ -38,9 +45,15 @@ import torch
 from .constraints import (
     GlobalLinearConstraint,
     NonlinearGlobalKnotPointConstraint,
+    TimeStepsAllEqualConstraint,
     NonlinearKnotPointConstraint,
 )
-from .integrators import BilinearIntegrator, DerivativeIntegrator, GeneralIntegrator
+from .integrators import (
+    BilinearIntegrator,
+    DerivativeIntegrator,
+    GeneralIntegrator,
+    TimeDependentBilinearIntegrator,
+)
 from .objectives import (
     GlobalKnotPointObjective,
     GlobalObjective,
@@ -79,6 +92,14 @@ __all__ = [
     "cartpole_lbfgs_config",
     "cartpole_certificate",
     "GOLDEN_CARTPOLE",
+    "td_generator",
+    "td_data",
+    "make_batched_td_problems",
+    "td_config",
+    "td_certificate",
+    "dense_config",
+    "cartpole_dense_lbfgs_config",
+    "GOLDEN_TD",
 ]
 
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -88,6 +109,7 @@ GOLDEN_STATE_CONSTRAINED = os.path.join(_GOLDEN_DIR, "torch", "state_constrained
 GOLDEN_GLOBAL_PHASE = os.path.join(_GOLDEN_DIR, "torch", "global_phase_n51.npz")
 GOLDEN_SCHEDULED = os.path.join(_GOLDEN_DIR, "torch", "scheduled_n51.npz")
 GOLDEN_CARTPOLE = os.path.join(_GOLDEN_DIR, "cartpole_n40_seed0.npz")
+GOLDEN_TD = os.path.join(_GOLDEN_DIR, "torch", "td_order1_n51.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):
@@ -616,3 +638,145 @@ def cartpole_certificate(res, path: str = GOLDEN_CARTPOLE):
     u = p64.trajectory.data["u"].cpu().numpy()
     rms = np.sqrt(np.mean((u - u_star[None]) ** 2, axis=(1, 2)))
     return np.abs(obj / float(data["obj"]) - 1.0), rms
+
+
+# the time-dependent family: G(u, t) = (1 + TD_AMP·sin t)·TD_OMEGA·G_z + u₀G_x + u₁G_y
+TD_OMEGA, TD_AMP = 0.1, 0.2
+TD_DT, TD_U_GUESS, TD_X_NOISE = 0.1, 0.3, 0.05
+TD_N_STEPS = 6
+
+
+def td_generator():
+    """The family's generator ``G(u, t)``: a torch function of one knot's u
+    (2,) and a scalar t, in u's dtype (its constants are made once per
+    dtype and device)."""
+    Gx, Gy, Gz = pauli_generators()
+    consts: dict = {}
+
+    def G(u, t):
+        key = (u.dtype, u.device)
+        if key not in consts:
+            consts[key] = tuple(torch.as_tensor(a, dtype=u.dtype, device=u.device)
+                                for a in (TD_OMEGA * Gz, Gx, Gy))
+        gz, gx, gy = consts[key]
+        return (1.0 + TD_AMP * torch.sin(t)) * gz + u[0] * gx + u[1] * gy
+
+    return G
+
+
+def _np_td_rollout(x0, u, dt: float, n_steps: int = TD_N_STEPS):
+    """Host rollout of the family's dynamics by the integrator's own chain
+    (``n_steps`` RK4 steps a window, u linear between knots, t_k = k·Δt).
+    Shapes: x0 (4,), u (B, N, 2) → (B, N, 4)."""
+    Gx, Gy, Gz = pauli_generators()
+    B, N = u.shape[:2]
+    xs = [np.broadcast_to(np.asarray(x0, dtype=np.float64), (B, 4)).copy()]
+    h = 1.0 / n_steps
+    for k in range(N - 1):
+        t0, u0, u1 = k * dt, u[:, k], u[:, k + 1]
+
+        def ode(y, tau):
+            uu = u0 + tau * (u1 - u0)
+            G = ((1.0 + TD_AMP * np.sin(t0 + tau * dt)) * TD_OMEGA * Gz
+                 + uu[:, 0, None, None] * Gx + uu[:, 1, None, None] * Gy)
+            return dt * np.einsum("bij,bj->bi", G, y)
+
+        y = xs[-1]
+        for i in range(n_steps):
+            tau0 = i * h
+            k1 = ode(y, tau0)
+            k2 = ode(y + 0.5 * h * k1, tau0 + 0.5 * h)
+            k3 = ode(y + 0.5 * h * k2, tau0 + 0.5 * h)
+            k4 = ode(y + h * k3, tau0 + h)
+            y = y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+        xs.append(y)
+    return np.stack(xs, axis=1)
+
+
+def td_data(batch: int, N: int = 51, seed0: int = 0) -> dict:
+    """The time-dependent family's host data, lane i from seed ``seed0 + i``:
+    controls u uniform in ±0.3 drawn, the state path rolled out from
+    x_1 = (1, 0, 0, 0) at Δt = 0.1 under them (its last state is the lane's
+    pinned x_N, so every lane is feasible), then 0.05·N(0, 1) noise on that
+    path for the guess, with u = 0, Δt = 0.1 and t_k = k·Δt. Returns
+    ``{"x", "u", "t", "dt", "x_final"}`` with a lane axis."""
+    u_roll, noise = [], []
+    for i in range(batch):
+        rng = np.random.default_rng(seed0 + i)
+        u_roll.append(TD_U_GUESS * (2 * rng.random((N, 2)) - 1))
+        noise.append(TD_X_NOISE * rng.standard_normal((N, 4)))
+    xs = _np_td_rollout(np.array([1.0, 0.0, 0.0, 0.0]), np.stack(u_roll), TD_DT)
+    t = np.broadcast_to(np.arange(N, dtype=np.float64)[:, None] * TD_DT, (batch, N, 1))
+    return dict(x=xs + np.stack(noise), u=np.zeros((batch, N, 2)), t=t.copy(),
+                dt=np.full((batch, N, 1), TD_DT), x_final=xs[:, -1])
+
+
+def make_batched_td_problems(batch: int, N: int = 51, seed0: int = 0, *, device=None,
+                             dtype=torch.float64) -> DirectTrajOptProblem:
+    """The time-dependent family (see :func:`td_data`): x ∈ ℝ⁴, u ∈ ℝ² with
+    |u| ≤ 0.5, a time component t and a free Δt in (0.05, 0.2), equal at
+    every knot (``TimeStepsAllEqualConstraint``: a uniform grid whose length
+    is free), tied by the time-consistency rows the problem injects; x_1 = (1, 0, 0, 0) and t_1 = 0 pinned,
+    x_N pinned to the lane's rollout; dynamics
+    ``TimeDependentBilinearIntegrator(td_generator(), spline_order=1,
+    n_steps=6)`` with no derivative chain, so the problem is not
+    Riccati-eligible; objective ``QuadraticRegularizer("u")``."""
+    data = td_data(batch, N, seed0)
+    x_final = data.pop("x_final")
+    traj = Trajectory.create(
+        data, timestep="dt", controls=("u",),
+        initial={"x": [1.0, 0.0, 0.0, 0.0], "t": [0.0]}, final={"x": x_final},
+        bounds={"u": 0.5, "dt": (0.05, 0.2)}, device=device, dtype=dtype)
+    td = TimeDependentBilinearIntegrator.create(td_generator(), "x", "u", "t", traj,
+                                                spline_order=1, n_steps=TD_N_STEPS)
+    return DirectTrajOptProblem.create(traj, QuadraticRegularizer.create("u", traj, 1.0), td,
+                                       constraints=[TimeStepsAllEqualConstraint()])
+
+
+def td_config() -> dict:
+    """Path 6a: the time-dependent family on the card, float64 (the dense
+    backend's δ_c floor leaves float32 a KKT floor of a few 1e-6 on it),
+    tol = acceptable_tol = 1e-8, 200 iterations, the backend "auto" (which
+    falls back to dense, with its warning), one chunk of 2048 lanes: about
+    six live (B, 408, 408) float64 tensors, 16 GB. Returns ``{"N",
+    "batch", "solve_kw"}``."""
+    B = 2048
+    return dict(N=51, batch=B, solve_kw=dict(
+        phases=((200, None),), chunk=B, tol=1e-8, acceptable_tol=1e-8, backend="auto"))
+
+
+def td_certificate(res, path: str = GOLDEN_TD):
+    """Lanes 0-(L−1) against the JAX package's float64 solve of them
+    (``tests/golden/torch/td_order1_n51.npz``, L its lanes): per lane
+    |obj/obj* − 1| and max |u − u*|, and the golden's iterations."""
+    data = np.load(path)
+    L = int(data["lanes"])
+    layout = res.problem.trajectory.layout
+    N, d = layout.N, layout.dim
+    Zg = np.asarray(data["Z"], dtype=np.float64)[:, : N * d].reshape(L, N, d)
+    u_star = Zg[..., layout.comp_slice("u")]
+    u = res.problem.trajectory.data["u"][:L].detach().to("cpu", torch.float64).numpy()
+    obj = res.objective[:L].detach().to("cpu", torch.float64).numpy()
+    obj_err = np.abs(obj / np.asarray(data["objective"]) - 1.0)
+    return obj_err, np.abs(u - u_star).max(axis=(1, 2)), np.asarray(data["iterations"])
+
+
+def dense_config() -> dict:
+    """Path 6b: lanes 0-255 of path 1's batch on the dense backend, with the
+    seek's options (``headline_config()["phase1_kw"]``: Gauss-Newton, tol
+    1e-6, mu_init 3e-2, its three phases, 7 trial slots, no SOC and no
+    restoration) in one chunk of 256, float32. Returns ``{"N", "lanes",
+    "taylor_order", "solve_kw"}``."""
+    kw = dict(headline_config()["phase1_kw"], chunk=256, backend="dense")
+    return dict(N=51, lanes=256, taylor_order=6, solve_kw=kw)
+
+
+def cartpole_dense_lbfgs_config() -> dict:
+    """Path 6c: lanes 0-1023 of path 5's cartpole batch with
+    ``cartpole_lbfgs_config()``'s options (m = 20, tol 1e-4, 300
+    iterations) on the dense backend, whose model is the L-BFGS Hessian
+    materialized per lane, in one chunk, float32. Returns ``{"N", "lanes",
+    "solve_kw"}``."""
+    L = 1024
+    kw = dict(cartpole_lbfgs_config()["solve_kw"], chunk=L, backend="dense")
+    return dict(N=40, lanes=L, solve_kw=kw)

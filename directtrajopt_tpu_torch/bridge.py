@@ -8,7 +8,9 @@ objects' attributes. This module never imports ``jax``.
 
 A user function (a nonlinear constraint's ``g``, a knot or global
 objective's ℓ, a custom HVP apply, a ``GeneralIntegrator``'s dynamics
-``f``) is JAX code and cannot cross: ``functions`` maps
+``f``, a bilinear integrator's callable generator ``G(u)`` or a
+``TimeDependentBilinearIntegrator``'s ``G(u, t)``) is JAX code and cannot
+cross: ``functions`` maps
 ``("constraint", i)`` (index into ``problem.constraints``),
 ``("objective", j)`` (index into the flattened objective terms),
 ``("hvp", j)`` or ``("integrator", i)`` (index into
@@ -27,7 +29,12 @@ import torch
 
 from . import constraints as C
 from . import objectives as O
-from .integrators import BilinearIntegrator, DerivativeIntegrator, GeneralIntegrator
+from .integrators import (
+    BilinearIntegrator,
+    DerivativeIntegrator,
+    GeneralIntegrator,
+    TimeDependentBilinearIntegrator,
+)
 from .precision import check_device
 from .problem import DirectTrajOptProblem
 from .solvers.ipm import WarmStart
@@ -109,23 +116,27 @@ def _objective(obj, B, batched, device, dtype, functions, j=0):
 def _integrator(integ, B, batched, device, dtype, functions, i):
     kind = type(integ).__name__
     if kind == "BilinearIntegrator":
-        if integ.G_fn is not None or integ.method != "taylor":
-            raise NotImplementedError("only the Taylor method with array generators is "
-                                      "ported (ROADMAP Queue 1 item 7)")
+        kw = dict(x_name=integ.x_name, u_name=integ.u_name, method=integ.method,
+                  taylor_order=int(integ.taylor_order), squarings=int(integ.squarings))
+        if integ.G_fn is not None:
+            return BilinearIntegrator(
+                G_drift=None, G_drives=None,
+                G_fn=_fn(functions, ("integrator", i), "a bilinear integrator's generator"),
+                **kw)
         return BilinearIntegrator(
             G_drift=_lanes(integ.G_drift, B, batched, device, dtype),
-            G_drives=_lanes(integ.G_drives, B, batched, device, dtype),
-            x_name=integ.x_name, u_name=integ.u_name,
-            method="taylor", taylor_order=int(integ.taylor_order),
-        )
+            G_drives=_lanes(integ.G_drives, B, batched, device, dtype), **kw)
+    if kind == "TimeDependentBilinearIntegrator":
+        return TimeDependentBilinearIntegrator(
+            G_fn=_fn(functions, ("integrator", i), "a time-dependent integrator's generator"),
+            x_name=integ.x_name, u_name=integ.u_name, t_name=integ.t_name,
+            spline_order=int(integ.spline_order), n_steps=int(integ.n_steps))
     if kind == "DerivativeIntegrator":
         return DerivativeIntegrator(x_name=integ.x_name, xdot_name=integ.xdot_name)
     if kind == "GeneralIntegrator":
         return GeneralIntegrator(f=_fn(functions, ("integrator", i), "a general integrator's f"),
                                  x_name=integ.x_name, u_name=integ.u_name, scheme=integ.scheme)
-    raise NotImplementedError(f"integrator {kind} is not ported yet (ROADMAP Queue 1 item 7: "
-                              "TimeDependentBilinearIntegrator, the Padé method and callable "
-                              "generators)")
+    raise TypeError(f"unknown integrator {kind}")
 
 
 def _constraint(con, B, batched, device, dtype, functions, i):

@@ -18,17 +18,36 @@ only the derivatives with respect to ``z_k``:
   windows and lanes are independent, so one reverse pass gives every
   window's gradient and one forward tangent per coordinate (applied to all
   windows at once) gives every window's Hessian column.
+
+The dense backend assembles over the whole 2·dim window ``[z_k; z_{k+1}]``
+(an implicit integrator reads both knots):
+
+* ``stack_jacobians`` — (B, N−1, r, 2d);
+* ``stack_hessians`` — (B, N−1, 2d, 2d), from the integrator's closed-form
+  ``hessian_zk`` padded to the window when it has one, otherwise by AD.
+
+Both differentiate only the window columns the residual reads
+(``_window_cols``: the integrator's ``read_cols`` on z_k and its
+``read_cols_next``, or the target x, on z_{k+1}), one tangent per read
+column, the rows of a one-hot embedding; the other entries are zero. The
+z_k-width functions stay generic full-width AD, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import grad, jvp, vmap
 
 from ..trajectory import Layout
 
 __all__ = [
     "windows",
+    "integrator_dim",
+    "evaluate",
+    "stack_jacobians",
+    "stack_hessians",
     "stack_residuals",
     "stack_residuals_l1",
     "stack_jacobians_zk",
@@ -39,6 +58,17 @@ __all__ = [
 def windows(zmat: torch.Tensor) -> torch.Tensor:
     """Adjacent knots: ``(..., N, dim) -> (..., N-1, 2*dim)`` rows [z_k; z_{k+1}]."""
     return torch.cat([zmat[..., :-1, :], zmat[..., 1:, :]], dim=-1)
+
+
+def integrator_dim(integrator, layout: Layout) -> int:
+    """Total residual dimension ``x_dim·(N−1)``."""
+    return integrator.residual_dim(layout) * (layout.N - 1)
+
+
+def evaluate(integrator, traj) -> torch.Tensor:
+    """Flat residual vectors (B, x_dim·(N−1)) of every lane of a trajectory."""
+    res = stack_residuals(integrator, traj.layout, traj.knot_matrix())
+    return res.reshape(res.shape[0], -1)
 
 
 def stack_residuals(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
@@ -97,3 +127,88 @@ def stack_hessians_zk(
         return jvp(g, (zk,), (e.expand_as(zk),))[1]
 
     return vmap(col)(eye).movedim(0, -1)
+
+
+def stack_jacobians(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    """Per-window residual Jacobians over the 2·dim window: ``(B, N-1, r, 2*dim)``."""
+    d = layout.dim
+    zk, zk1 = zmat[..., :-1, :], zmat[..., 1:, :]
+    E = _tangents(integrator, layout, zmat)
+
+    def col(e):
+        return jvp(lambda a, b: integrator.residual(layout, a, b), (zk, zk1),
+                   (e[:d].expand_as(zk), e[d:].expand_as(zk1)))[1]
+
+    Jr = vmap(col)(E).movedim(0, -1)  # (B, N-1, r, n_read)
+    return Jr @ E
+
+
+def stack_hessians(integrator, layout: Layout, zmat: torch.Tensor,
+                   mu: torch.Tensor) -> torch.Tensor:
+    """Per-window Hessians of ``μ_k·residual_k`` over the 2·dim window:
+    ``(B, N-1, 2*dim, 2*dim)``; ``mu`` is (B, N-1, x_dim)."""
+    d = layout.dim
+    zk, zk1 = zmat[..., :-1, :], zmat[..., 1:, :]
+    # explicit integrators are linear in z_{k+1}: the whole window Hessian is
+    # the z_k block, which a closed-form hessian_zk gives directly
+    custom = getattr(integrator, "hessian_zk", None)
+    if custom is not None:
+        return F.pad(custom(layout, zk, zk1, mu), (0, d, 0, d))
+    E = _tangents(integrator, layout, zmat)
+    g = grad(lambda a, b: (mu * integrator.residual(layout, a, b)).sum(), argnums=(0, 1))
+
+    def col(e):
+        ga, gb = jvp(g, (zk, zk1), (e[:d].expand_as(zk), e[d:].expand_as(zk1)))[1]
+        return torch.cat([ga, gb], dim=-1) @ E.T
+
+    Hr = vmap(col)(E).movedim(0, -1)  # (B, N-1, n_read, n_read)
+    return E.T @ Hr @ E
+
+
+def _read_cols(integrator, layout: Layout) -> np.ndarray | None:
+    """The z_k columns the integrator's residual reads (its ``read_cols``),
+    or None for all of them: without ``read_cols``, or when it names every
+    column."""
+    fn = getattr(integrator, "read_cols", None)
+    if fn is None:
+        return None
+    cols = np.unique(np.asarray(fn(layout), dtype=np.int64))
+    if len(cols) >= layout.dim:
+        return None
+    return cols
+
+
+def _window_cols(integrator, layout: Layout) -> np.ndarray | None:
+    """The columns the residual reads within the 2·dim window, or None for
+    all: z_k's from ``read_cols``, z_{k+1}'s from ``read_cols_next`` when
+    the integrator declares it (an order-1 control spline also reads
+    u_{k+1}), else the target x."""
+    cols_k = _read_cols(integrator, layout)
+    if cols_k is None:
+        return None
+    fn = getattr(integrator, "read_cols_next", None)
+    if fn is not None:
+        nxt = np.unique(np.asarray(fn(layout), dtype=np.int64))
+    else:
+        x_name = getattr(integrator, "x_name", None)
+        if x_name is None:
+            return None
+        cs = layout.comp_slice(x_name)
+        nxt = np.arange(cs.start, cs.stop, dtype=np.int64)
+    return np.concatenate([cols_k, layout.dim + nxt])
+
+
+def _embedding(cols: np.ndarray, dim: int, dtype, device=None) -> torch.Tensor:
+    """One-hot embedding ``E (n_read, dim)`` of the columns ``cols``."""
+    E = np.zeros((len(cols), dim))
+    E[np.arange(len(cols)), cols] = 1.0
+    return torch.as_tensor(E, dtype=dtype, device=device)
+
+
+def _tangents(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    """The window AD's tangents: the rows of the read columns' embedding,
+    or the identity of the whole window."""
+    cols = _window_cols(integrator, layout)
+    if cols is None:
+        return torch.eye(2 * layout.dim, dtype=zmat.dtype, device=zmat.device)
+    return _embedding(cols, 2 * layout.dim, zmat.dtype, zmat.device)

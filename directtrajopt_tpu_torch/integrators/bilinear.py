@@ -1,32 +1,41 @@
 """Bilinear integrator: ``x_{k+1} − exp(Δt_k·G(u_k))·x_k = 0``.
 
-Counterpart of ``directtrajopt_tpu/integrators/bilinear.py``, Taylor method
-only: ``G(u) = G_drift + Σᵢ uᵢ·G_drives[i]`` with per-lane generators
-``G_drift`` (B, x_dim, x_dim) and ``G_drives`` (B, u_dim, x_dim, x_dim). The
-Padé method and callable generators are not ported yet (ROADMAP Queue 1
-item 7).
+Counterpart of ``directtrajopt_tpu/integrators/bilinear.py``. The system
+matrix is ``G(u) = G_drift + Σᵢ uᵢ·G_drives[i]`` with per-lane generators
+``G_drift`` (B, x_dim, x_dim) and ``G_drives`` (B, u_dim, x_dim, x_dim), or
+a callable ``G_fn(u)``: a torch function of one knot's u (no lane axis)
+returning (x_dim, x_dim) in u's dtype, mapped over every window of every
+lane with ``torch.func.vmap``. The exponential is the Taylor action
+(``method="taylor"``, the port's default) or Padé-13 with ``squarings``
+scaling steps (``method="pade"``, the JAX package's default).
 
-Residuals and window Jacobians route through ``ops/expv_kernel.py``. The
-dtype gate is the JAX package's: float32 residuals take the residual
-kernel, float64 residuals the generic differentiable chain; the window
-Jacobian takes the closed-form recurrences at both. Both kernels read the
-knot matrix in place (:meth:`BilinearIntegrator._trial_views`), and the
-window-Jacobian kernel writes the residual's Jacobian straight into the
-knot's width.
+Residuals and window Jacobians of the Taylor method with array generators
+route through ``ops/expv_kernel.py``. The dtype gate is the JAX package's:
+float32 residuals take the residual kernel, float64 residuals the generic
+differentiable chain; the window Jacobian takes the closed-form recurrences
+at both. Both kernels read the knot matrix in place
+(:meth:`BilinearIntegrator._trial_views`), and the window-Jacobian kernel
+writes the residual's Jacobian straight into the knot's width. The Padé
+method and callable generators take the generic path (the closed forms
+return None), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import functools
 
+from typing import Callable
+
 import numpy as np
 import torch
+from torch.func import grad, jvp, vmap
 
 from ..module import module
 from ..ops import expv_kernel
-from ..ops.expm import expv_taylor
+from ..ops.expm import expm_pade, expv_taylor
 from ..precision import check_device
 from ..trajectory import Layout
+from .base import _embedding
 
 __all__ = ["BilinearIntegrator"]
 
@@ -37,23 +46,31 @@ class BilinearIntegrator:
 
     explicit = True
 
-    G_drift: torch.Tensor
-    G_drives: torch.Tensor
+    G_drift: torch.Tensor | None
+    G_drives: torch.Tensor | None
     x_name: str
     u_name: str
     method: str = "taylor"
     taylor_order: int = 12
+    G_fn: Callable | None = None
+    squarings: int = 4
 
     @staticmethod
-    def create(G, x_name: str, u_name: str, *, batch: int, device=None, dtype=torch.float64,
-               method: str = "taylor", taylor_order: int = 12) -> "BilinearIntegrator":
-        """From a ``(G_drift, G_drives)`` pair of host arrays, per problem
-        ((x, x) and (u, x, x)) or per lane (with a leading batch axis).
-        ``device`` None means the card."""
+    def create(G, x_name: str, u_name: str, *, batch: int | None = None, device=None,
+               dtype=torch.float64, method: str = "taylor", taylor_order: int = 12,
+               squarings: int = 4) -> "BilinearIntegrator":
+        """From a callable ``G(u)`` or a ``(G_drift, G_drives)`` pair of host
+        arrays, per problem ((x, x) and (u, x, x)) or per lane (with a
+        leading batch axis of length ``batch``). ``device`` None means the
+        card."""
+        if method not in ("taylor", "pade"):
+            raise ValueError(f"unknown method {method!r}")
         if callable(G):
-            raise NotImplementedError("callable generators are not ported yet (ROADMAP Queue 1 item 7)")
-        if method != "taylor":
-            raise NotImplementedError(f"method={method!r}: only 'taylor' is ported (ROADMAP Queue 1 item 7)")
+            return BilinearIntegrator(G_drift=None, G_drives=None, x_name=x_name,
+                                      u_name=u_name, method=method, taylor_order=taylor_order,
+                                      G_fn=G, squarings=squarings)
+        if batch is None:
+            raise ValueError("array generators need the batch size")
         device = check_device(device)
         G_drift, G_drives = G
         Gd = np.asarray(G_drift, dtype=np.float64)
@@ -67,10 +84,24 @@ class BilinearIntegrator:
             G_drift=torch.as_tensor(np.array(Gd), **kw),
             G_drives=torch.as_tensor(np.array(Gv), **kw),
             x_name=x_name, u_name=u_name, method=method, taylor_order=taylor_order,
+            squarings=squarings,
         )
 
     def residual_dim(self, layout: Layout) -> int:
         return layout.dim_of(self.x_name)
+
+    def read_cols(self, layout: Layout) -> list:
+        """z_k columns the residual reads (x, u and a free Δt)."""
+        cs_x, cs_u = layout.comp_slice(self.x_name), layout.comp_slice(self.u_name)
+        cols = list(range(cs_x.start, cs_x.stop)) + list(range(cs_u.start, cs_u.stop))
+        if layout.has_free_time:
+            cols.append(layout.offsets[layout.timestep])
+        return cols
+
+    @property
+    def _closed_form(self) -> bool:
+        """Whether the kernels' closed forms apply: Taylor, array generators."""
+        return self.G_fn is None and self.method == "taylor"
 
     def _gens(self, extra: int):
         """Generators viewed to broadcast over ``extra`` axes after the batch."""
@@ -79,15 +110,70 @@ class BilinearIntegrator:
         return (Gd.reshape(Gd.shape[:1] + one + Gd.shape[1:]),
                 Gv.reshape(Gv.shape[:1] + one + Gv.shape[1:]))
 
+    def system_matrix(self, u: torch.Tensor) -> torch.Tensor:
+        """``G(u)`` (B, ..., x, x) for controls u (B, ..., u_dim)."""
+        if self.G_fn is not None:
+            out = vmap(self.G_fn)(u.reshape(-1, u.shape[-1]))
+            return out.reshape(u.shape[:-1] + out.shape[-2:])
+        Gd, Gv = self._gens(u.ndim - 2)
+        return Gd + torch.einsum("...m,...mij->...ij", u, Gv)
+
+    def _apply(self, u, dt, v, transpose: bool = False):
+        """``exp(Δt·G(u)) v`` (or the adjoint action with ``transpose``)."""
+        A = dt[..., None, None] * self.system_matrix(u)
+        if transpose:
+            A = A.transpose(-1, -2)
+        if self.method == "taylor":
+            return expv_taylor(A, v, order=self.taylor_order)
+        return (expm_pade(A, squarings=self.squarings) @ v.unsqueeze(-1)).squeeze(-1)
+
     def residual(self, layout: Layout, zk: torch.Tensor, zk1: torch.Tensor) -> torch.Tensor:
         """Generic differentiable residual on windows ``zk``, ``zk1`` (B, ..., K, d)."""
         x = layout.knot_extract(zk, self.x_name)
         x_next = layout.knot_extract(zk1, self.x_name)
         u = layout.knot_extract(zk, self.u_name)
-        dt = layout.knot_timestep(zk)
-        Gd, Gv = self._gens(zk.ndim - 2)
-        G = Gd + torch.einsum("...m,...mij->...ij", u, Gv)
-        return x_next - expv_taylor(dt[..., None, None] * G, x, order=self.taylor_order)
+        return x_next - self._apply(u, layout.knot_timestep(zk), x)
+
+    def hessian_zk(self, layout: Layout, zk: torch.Tensor, zk1: torch.Tensor,
+                   mu: torch.Tensor) -> torch.Tensor:
+        """Closed-form Hessian of ``μᵀ residual`` w.r.t. ``z_k`` per window,
+        (B, K, d, d). The residual ``x_{k+1} − E(u,Δt)·x`` is linear in x, so
+        with θ = (u, Δt): H_xx = 0, H_xθ = −∂_θ(E(θ)ᵀμ) (forward mode, one
+        tangent per θ coordinate, on the adjoint action) and
+        H_θθ = −∂²_θ(μᵀE(θ)x) (forward over reverse)."""
+        d = layout.dim
+        cs_x = layout.comp_slice(self.x_name)
+        cs_u = layout.comp_slice(self.u_name)
+        x = zk[..., cs_x]
+        free_t = layout.has_free_time
+        th_cols = list(range(cs_u.start, cs_u.stop))
+        if free_t:
+            th_cols.append(layout.offsets[layout.timestep])
+        th0 = zk[..., th_cols]
+        dt_fixed = None if free_t else layout.knot_timestep(zk)
+
+        def split(th):
+            if free_t:
+                return th[..., :-1], th[..., -1]
+            return th, dt_fixed
+
+        def ETm(th):
+            u_, dt_ = split(th)
+            return self._apply(u_, dt_, mu, transpose=True)
+
+        def mEx(th):
+            u_, dt_ = split(th)
+            return (mu * self._apply(u_, dt_, x)).sum()
+
+        n_th = len(th_cols)
+        eye = torch.eye(n_th, dtype=zk.dtype, device=zk.device)
+        g = grad(mEx)
+        Hxt = -vmap(lambda e: jvp(ETm, (th0,), (e.expand_as(th0),))[1])(eye).movedim(0, -1)
+        Htt = -vmap(lambda e: jvp(g, (th0,), (e.expand_as(th0),))[1])(eye).movedim(0, -1)
+        Ex = _embedding(np.arange(cs_x.start, cs_x.stop), d, zk.dtype, zk.device)
+        Et = _embedding(np.asarray(th_cols), d, zk.dtype, zk.device)
+        Hxt_full = Ex.T @ Hxt @ Et
+        return Hxt_full + Hxt_full.transpose(-1, -2) + Et.T @ Htt @ Et
 
     def _trial_views(self, layout: Layout, zmat: torch.Tensor):
         """The residual kernel's arguments (the window-Jacobian kernel's
@@ -124,8 +210,9 @@ class BilinearIntegrator:
 
     def residuals_stacked(self, layout: Layout, zmat: torch.Tensor):
         """Closed-form stacked residuals through the residual kernel
-        (float32 only; None sends float64 to the generic path)."""
-        if zmat.dtype != torch.float32:
+        (Taylor with array generators, float32 only; None sends the rest to
+        the generic path)."""
+        if not self._closed_form or zmat.dtype != torch.float32:
             return None
         out = expv_kernel.residual_action(self.taylor_order, *self._trial_views(layout, zmat))
         return out.reshape(zmat.shape[:-2] + out.shape[2:])
@@ -133,7 +220,7 @@ class BilinearIntegrator:
     def residuals_l1_stacked(self, layout: Layout, zmat: torch.Tensor):
         """``Σ|residual|`` per lane through the L1 form of the residual kernel
         (float32 only)."""
-        if zmat.dtype != torch.float32:
+        if not self._closed_form or zmat.dtype != torch.float32:
             return None
         out = expv_kernel.residual_l1(self.taylor_order, *self._trial_views(layout, zmat))
         return out.reshape(zmat.shape[:-2])
@@ -141,7 +228,10 @@ class BilinearIntegrator:
     def jacobians_zk_stacked(self, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
         """Closed-form ``∂residual/∂z_k`` (B, *trial, N−1, x_dim, d) through
         the window-Jacobian kernel, which writes −J's columns (x, u, Δt) into
-        z_k width: one allocation and one launch on the card."""
+        z_k width: one allocation and one launch on the card. None for the
+        Padé method or a callable generator (generic AD then)."""
+        if not self._closed_form:
+            return None
         out = expv_kernel.window_jac_zk(self.taylor_order, *self._window_jac_args(layout, zmat))
         return out.reshape(zmat.shape[:-2] + out.shape[2:])
 

@@ -1,9 +1,9 @@
 """Matrix exponential: Taylor action and fixed-structure Padé.
 
 Counterpart of ``directtrajopt_tpu/ops/expm.py``. ``expv_taylor`` is the
-integrators' action; ``expm_pade`` (Padé-13 with a fixed number of
-squarings) serves the rollouts (``rollout.bilinear_rollout``). The Padé
-integrator method is not ported yet (ROADMAP Queue 1 item 7).
+bilinear integrator's Taylor action; ``expm_pade`` (Padé-13 with a fixed
+number of squarings) serves the integrator's Padé method and the rollouts
+(``rollout.bilinear_rollout``).
 """
 
 from __future__ import annotations

@@ -73,6 +73,29 @@ class COORows:
         sel = self.vals[:, torch.as_tensor(np.nonzero(keep)[0], device=out.device)]
         return out.reshape(B, -1).index_add(1, flat, sel).reshape(out.shape)
 
+    def dense(self, dtype) -> torch.Tensor:
+        """Full dense (B, n_rows, n_cols) materialization (the dense backend's
+        assembly). Repeated (row, col) entries add up in the order they
+        appear: each pass scatters at most one entry per position, so no
+        two additions race on the card and the result is the same at every
+        call."""
+        B = self.vals.shape[0]
+        out = self.vals.new_zeros((B, self.n_rows * self.n_cols), dtype=dtype)
+        if len(self.rows) == 0:
+            return out.reshape(B, self.n_rows, self.n_cols)
+        flat = self.rows * self.n_cols + self.cols
+        # the rank of each entry among the earlier entries at its position
+        order = np.argsort(flat, kind="stable")
+        first = np.searchsorted(flat[order], flat[order], side="left")
+        rank = np.empty_like(flat)
+        rank[order] = np.arange(len(flat)) - first
+        vals = self.vals.to(dtype)
+        for r in range(int(rank.max()) + 1):
+            sel = np.nonzero(rank == r)[0]
+            idx = torch.as_tensor(flat[sel], device=out.device)
+            out = out.index_add(1, idx, vals[:, torch.as_tensor(sel, device=out.device)])
+        return out.reshape(B, self.n_rows, self.n_cols)
+
 
 @dataclass
 class CanonicalNLP:

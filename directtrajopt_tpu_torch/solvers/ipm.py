@@ -15,7 +15,8 @@ least-squares initial equality duals, float64 residual refinement inside a
 float32 solve (``refine_residuals``: the residuals, the right-hand side and
 the accepting trial in float64, the multipliers by increments), and compact
 L-BFGS, whose (s, y) rings ride the state and whose model reaches the
-Riccati backend by ``set_lbfgs``.
+Riccati backend in compact form by ``set_lbfgs`` and the dense backend
+materialized by ``set_hessian``.
 
 The JAX package ``vmap``s a per-problem ``while_loop``. Here the loop is
 written batch-first: every state field carries a leading lane axis, the
@@ -29,7 +30,7 @@ iterate and telemetry rings and best-score tracking. A hook that is not set
 runs no device operation.
 
 Not ported (``IPMOptions.check_supported`` raises): the "floor"
-regularization, and L-BFGS on the dense backend (ROADMAP Queue 1 item 6).
+regularization.
 """
 
 from __future__ import annotations
@@ -83,6 +84,14 @@ def _lbfgs_compact(S, Y, count, sigma_clip=(1e-6, 1e6)):
     M = M + torch.diag_embed(torch.cat([1.0 - valid, 1.0 - valid], dim=-1))
     U = torch.cat([sigma[:, None, None] * Sv, Yv], dim=1)
     return sigma, U, M
+
+
+def _lbfgs_hessian(S, Y, count, sigma_clip=(1e-6, 1e6)):
+    """The compact L-BFGS Hessian ``σI − UᵀM⁻¹U`` materialized dense per lane,
+    (B, z, z) (see :func:`_lbfgs_compact`; the dense backend's model)."""
+    sigma, U, M = _lbfgs_compact(S, Y, count, sigma_clip)
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    return sigma[:, None, None] * eye - U.transpose(-1, -2) @ torch.linalg.solve(M, U)
 
 
 class WarmStart(NamedTuple):
@@ -255,15 +264,20 @@ def _ring_set(ring: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> torc
     return ring.scatter(1, idx, row[:, None].to(ring.dtype))
 
 
-def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
+def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None,
               callbacks: IPMCallbacks | None = None,
               warm: WarmStart | None = None) -> IPMResult:
     """Run the interior-point method from ``Z0`` (B, z_dim) on every lane.
 
     ``callbacks``: an optional :class:`IPMCallbacks` (host monitoring, stop
     predicates, rings, best-score tracking). ``options.max_wall_time`` > 0
-    adds a wall-clock stop anchored at this solve's start."""
+    adds a wall-clock stop anchored at this solve's start. ``ops`` None
+    means the dense backend."""
     options.check_supported()
+    if ops is None:
+        from .ops_dense import DenseOps
+
+        ops = DenseOps(nlp)
     cb = callbacks
     if options.max_wall_time > 0.0:
         cb = _wall_stop_cached(float(options.max_wall_time)).merged_with(cb)
@@ -338,9 +352,11 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
         # certified and ‖λ‖∞ ≤ lam_init_max
         ctx0 = ops.prepare(Z_init, lam0, nu0, cache=(c_e0, c_i0), gauss_newton=gn,
                            stagewise=sw, skip_hessian=lbfgs)
-        if lbfgs:  # B₀ = I is the natural metric here
+        if lbfgs and hasattr(ctx0, "set_lbfgs"):  # B₀ = I is the natural metric here
             ctx0.set_lbfgs(full(1.0), Z_init.new_zeros((B, 2 * m_l, z_dim)),
                            torch.eye(2 * m_l, dtype=dtype, device=dev).expand(B, -1, -1))
+        elif lbfgs:
+            ctx0.set_hessian(torch.eye(z_dim, dtype=dtype, device=dev).expand(B, -1, -1))
         Sig0 = (torch.where(mask_L, zL0 / dL0, 0.0) + torch.where(mask_U, zU0 / dU0, 0.0)) * free
         g0 = free * ctx0.grad_f
         _, lam_ls, ok0, _, _ = ctx0.kkt_step(Sig0, nu0 / s_init, g0, torch.zeros_like(c_e0),
@@ -430,9 +446,12 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops,
             lbfgs_Y = torch.where(gc, torch.cat([st.lbfgs_Y[:, 1:], y_pair[:, None]], 1),
                                   st.lbfgs_Y)
             lbfgs_n = torch.clamp(st.lbfgs_n + good.to(i32), max=m_l).to(i32)
-            # σI in the stage blocks, the low-rank part by SMW through the
-            # O(N) factorization (no densification)
-            ctx.set_lbfgs(*_lbfgs_compact(lbfgs_S, lbfgs_Y, lbfgs_n))
+            if hasattr(ctx, "set_lbfgs"):
+                # σI in the stage blocks, the low-rank part by SMW through
+                # the O(N) factorization (no densification)
+                ctx.set_lbfgs(*_lbfgs_compact(lbfgs_S, lbfgs_Y, lbfgs_n))
+            else:
+                ctx.set_hessian(_lbfgs_hessian(lbfgs_S, lbfgs_Y, lbfgs_n))
 
         if hi:
             # the float64 residual bundle: every quantity below is small near

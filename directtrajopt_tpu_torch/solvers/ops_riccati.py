@@ -51,11 +51,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, jvp, vmap
 
 from ..integrators.base import stack_hessians_zk, stack_jacobians_zk
 from ..ops import riccati_kernel
-from .assembly import gradient
+from .assembly import _global_hessians, _knot_hessians, gradient, nl_hessians, nl_jacobians
 from .canonical import CanonicalNLP
 from .ops_dense import _reg_retry
 
@@ -371,39 +370,6 @@ def _lane_scatter_add(base: torch.Tensor, idx: list, vals: torch.Tensor) -> torc
     return base.index_put((lane, *(i[None] for i in idx)), vals, accumulate=True)
 
 
-def _knot_hessians(obj, layout, zmat: torch.Tensor, gvec=None) -> torch.Tensor:
-    """Per-knot Hessians (B, N, d, d) of a knot-separable objective (the
-    global block ``gvec`` held fixed), by forward-over-reverse AD: one
-    tangent per coordinate, applied to every knot of every lane at once."""
-    g = grad(lambda z: obj.cost_at_knot(layout, z, gvec).sum())
-    eye = torch.eye(layout.dim, dtype=zmat.dtype, device=zmat.device)
-    # out_dims=0: a Hessian that does not depend on the tangent (a linear
-    # cost) comes back unbatched, which vmap cannot place on the last axis
-    return vmap(lambda e: jvp(g, (zmat,), (e.expand_as(zmat),))[1])(eye).movedim(0, -1)
-
-
-def _global_hessians(obj, layout, zmat: torch.Tensor, gvec: torch.Tensor):
-    """The objective's arrowhead blocks: H_zg (B, N, d, n_g), each knot's
-    ∂²cost_k/∂z_k∂g, and H_gg (B, n_g, n_g), ∂²/∂g² of the knot costs
-    (when they read g) plus the global cost. Forward over reverse, one
-    tangent per global coordinate applied to every lane at once."""
-
-    def total(z, g):
-        t = obj.cost_global(layout, g)
-        if obj.uses_global:
-            t = t + obj.cost_at_knot(layout, z, g).sum(-1)
-        return t.sum()
-
-    grads = grad(total, argnums=(0, 1))
-    eye = torch.eye(gvec.shape[-1], dtype=gvec.dtype, device=gvec.device)
-
-    def col(e):
-        return jvp(lambda g: grads(zmat, g), (gvec,), (e.expand_as(gvec),))[1]
-
-    Hz, Hg = vmap(col)(eye)
-    return Hz.movedim(0, -1), Hg.movedim(0, -1)
-
-
 class _RiccatiCtx:
     def __init__(self, nlp: CanonicalNLP, S: OCPStructure, Z, lam, nu, cache=None,
                  gauss_newton: bool = False, stagewise=False, skip_hessian: bool = False):
@@ -439,51 +405,12 @@ class _RiccatiCtx:
         lin_mask[S.lin_border_rows] = 1.0
         self._lin_mask = torch.as_tensor(lin_mask, dtype=dtype, device=dev)
 
-        def zsel(con):
-            return zmat[:, list(con.times)]
-
-        def gsel(con):
-            # a copy: a forward-mode primal may not repeat a memory location
-            return gvec[:, None, :].expand(B, len(con.times), n_g).contiguous()
-
-        def coupled(con):
-            return bool(n_g) and getattr(con, "uses_global", False)
-
-        # torch.func's forward mode can promote the tangent of a 0-d float32
-        # op with a Python float (u[0] − 0.1) to float64: the Jacobians are
-        # cast back to the iterate's dtype
-
-        def nl_jac(con):
-            """Per-knot Jacobian blocks (B, T, g_dim, d); None for a
-            pure-global constraint."""
-            if not hasattr(con, "knot_residual"):
-                return None
-            if coupled(con):
-                return con.map_knots(
-                    lambda z, p, g: jacfwd(lambda zz: con.knot_residual(layout, zz, p, g))(z),
-                    zsel(con), gsel(con)).to(dtype)
-            return con.map_knots(
-                lambda z, p: jacfwd(lambda zz: con.knot_residual(layout, zz, p))(z),
-                zsel(con)).to(dtype)
-
-        def nl_jac_g(con):
-            """Global-column Jacobian blocks: (B, T, g_dim, n_g) for a
-            global-coupled knot constraint, (B, g_dim, n_g) for a pure-global
-            one, None otherwise."""
-            if not n_g:
-                return None
-            if hasattr(con, "knot_residual"):
-                if not coupled(con):
-                    return None
-                return con.map_knots(
-                    lambda z, p, g: jacfwd(lambda gg: con.knot_residual(layout, z, p, gg))(g),
-                    zsel(con), gsel(con)).to(dtype)
-            return vmap(jacfwd(lambda g: con.global_residual(layout, g)))(gvec).to(dtype)
-
-        self.nl_eq_jacs = [nl_jac(c) for c in nlp.eq_cons]
-        self.nl_in_jacs = [nl_jac(c) for c in nlp.in_cons]
-        self.nl_eq_jacs_g = [nl_jac_g(c) for c in nlp.eq_cons]
-        self.nl_in_jacs_g = [nl_jac_g(c) for c in nlp.in_cons]
+        eq_j = [nl_jacobians(c, layout, zmat, gvec) for c in nlp.eq_cons]
+        in_j = [nl_jacobians(c, layout, zmat, gvec) for c in nlp.in_cons]
+        self.nl_eq_jacs = [j for j, _ in eq_j]
+        self.nl_in_jacs = [j for j, _ in in_j]
+        self.nl_eq_jacs_g = [jg for _, jg in eq_j]
+        self.nl_in_jacs_g = [jg for _, jg in in_j]
 
         # Lagrangian Hessian blocks (B, N, d, d): objective, then (exact
         # Hessian only) the λ-weighted dynamics and the λ/ν-weighted
@@ -512,36 +439,15 @@ class _RiccatiCtx:
             for cons, offsets, mults in ((nlp.eq_cons, S.nl_eq_offsets, lam),
                                          (nlp.in_cons, S.nl_in_offsets, nu)):
                 for con, o in zip(cons, offsets):
-                    gd = con.g_dim
-                    if not hasattr(con, "knot_residual"):
-                        # pure-global: its curvature is all in H_gg
-                        mu_g = mults[:, o : o + gd]
-                        Hgg = Hgg + vmap(hessian(
-                            lambda g, m, con=con: (m * con.global_residual(layout, g)).sum()))(
-                            gvec, mu_g)
-                        continue
-                    T = len(con.times)
-                    mu = mults[:, o : o + T * gd].reshape(B, T, gd)
-                    tt = torch.as_tensor(con.times, device=dev)
-                    if coupled(con):
-                        # one Hessian over [z_k; g] per knot, split into blocks
-                        def hess_w(z, p, m, g, con=con):
-                            def lagr(w):
-                                return (m * con.knot_residual(layout, w[:d], p, w[d:])).sum()
-
-                            return hessian(lagr)(torch.cat([z, g]))
-
-                        Hw = con.map_knots(hess_w, zsel(con), mu, gsel(con))
-                        QW = QW.index_add(1, tt, Hw[..., :d, :d])
-                        Hzg = Hzg.index_add(1, tt, Hw[..., :d, d:])
-                        Hgg = Hgg + Hw[..., d:, d:].sum(1)
-                        continue
-
-                    def hess(z, p, m, con=con):
-                        return hessian(lambda zz: (m * con.knot_residual(layout, zz, p)).sum())(z)
-
-                    blocks = con.map_knots(hess, zsel(con), mu)
-                    QW = QW.index_add(1, tt, blocks)
+                    n = con.constraint_dim(layout)
+                    Hzz, Hzg_c, Hgg_c = nl_hessians(con, layout, zmat, gvec, mults[:, o : o + n])
+                    tt = None if Hzz is None else torch.as_tensor(con.times, device=dev)
+                    if Hzz is not None:
+                        QW = QW.index_add(1, tt, Hzz)
+                    if Hzg_c is not None:
+                        Hzg = Hzg.index_add(1, tt, Hzg_c)
+                    if Hgg_c is not None:
+                        Hgg = Hgg + Hgg_c
         self.QW = QW
         if n_g:
             self.Hzg, self.Hgg = Hzg, Hgg

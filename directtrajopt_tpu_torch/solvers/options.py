@@ -94,13 +94,8 @@ class IPMOptions:
     def check_supported(self, backend: str = "riccati") -> None:
         """Raise on option values whose code path is not ported: the
         "floor" regularization, which is not to be ported (ROADMAP Queue 1
-        item 3 records why), and L-BFGS on the dense backend, which is not
-        ported yet (item 6)."""
+        item 3 records why), on either backend."""
         if self.hessian_regularization not in ("inertia", "auto", "stagewise", "project", "flip"):
             raise NotImplementedError(
                 f"hessian_regularization={self.hessian_regularization!r} is not ported to the "
                 "PyTorch solver (ROADMAP Queue 1 item 3 records why 'floor' stays out)")
-        if self.hessian_approximation == "lbfgs" and backend == "dense":
-            raise NotImplementedError(
-                "hessian_approximation='lbfgs' on the dense backend is not ported to the "
-                "PyTorch solver yet (ROADMAP Queue 1 item 6)")

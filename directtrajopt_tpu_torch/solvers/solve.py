@@ -10,7 +10,14 @@ multi-phase one of the certified benchmark pipeline, and ``solve_polished``
 / ``solve_batch_polished`` add a float64 polish to a solve in the
 problem's dtype.
 
-Not ported yet: the dense backend (ROADMAP Queue 1 item 6).
+``backend``: "auto" takes the Riccati backend when the structure analysis
+accepts the problem and otherwise the dense one, with a warning; "riccati"
+raises on an ineligible problem; "dense" is the dense backend. For "auto"
+and "riccati" a spline-order-1 time-dependent integrator whose u is chained
+by another explicit integrator is lowered first (``_lower_order1_td``). A
+problem with a time-dependent integrator reports the step-doubling error
+estimate at its solution (``SolveResult.td_error``), and ``solve`` warns
+when it exceeds ``TD_ACCURACY_ATOL``.
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ import torch
 
 from .. import precision
 from ..constraints import L1SlackConstraint
+from ..integrators.time_dependent import TimeDependentBilinearIntegrator, td_integration_error
 from ..module import tree_map, tree_take
 from ..problem import DirectTrajOptProblem
 from .callbacks import IPMCallbacks
 from .canonical import make_nlp
 from .ipm import IPMResult, WarmStart, ipm_solve
+from .ops_dense import DenseOps
 from .options import IPMOptions
 from .ops_riccati import RiccatiOps, analyze
 
@@ -34,7 +43,7 @@ precision.apply()
 
 __all__ = ["SolveResult", "solve", "solve_batch", "solve_batch_scheduled", "solve_batch_compact",
            "solve_polished", "solve_batch_polished", "cast_problem", "remove_slack_variables",
-           "get_default_options", "set_default_options"]
+           "get_default_options", "set_default_options", "TD_ACCURACY_ATOL"]
 
 # process-global default solver options, used when a solve is called
 # without an options object
@@ -59,6 +68,11 @@ class SolveResult(NamedTuple):
     kkt_error: torch.Tensor
     objective: torch.Tensor
     ipm: IPMResult
+    # the largest step-doubling error estimate of any time-dependent
+    # integrator, per lane, re-evaluated at the solution (None without one):
+    # n_steps is fixed at set-up (tune_n_steps), so a solve that moved into
+    # a stiffer regime shows here
+    td_error: torch.Tensor | None = None
 
 
 def remove_slack_variables(problem: DirectTrajOptProblem) -> DirectTrajOptProblem:
@@ -101,27 +115,95 @@ def _drop_host_stop(options: IPMOptions, callbacks: IPMCallbacks | None, entry: 
     return options, callbacks
 
 
+def _lower_order1_td(problem: DirectTrajOptProblem) -> DirectTrajOptProblem:
+    """Make spline-order-1 time-dependent integrators explicit by
+    substituting ``u_{k+1} = F_u(z_k)`` where another explicit integrator
+    already determines u's next value from ``z_k`` (a u→du derivative
+    chain). Exact: within the chain's feasible set both systems are the
+    same, so the lowered problem has the same solutions."""
+    integs = list(problem.integrators)
+    changed = False
+    for i, td in enumerate(integs):
+        if (not isinstance(td, TimeDependentBilinearIntegrator) or td.spline_order != 1
+                or td.u_next_fn is not None):
+            continue
+        chain = next((g for g in integs if g is not td and getattr(g, "explicit", False)
+                      and getattr(g, "x_name", None) == td.u_name), None)
+        if chain is None:
+            continue
+
+        def _u_next(layout, zk, _chain=chain):
+            # the explicit residual is u_{k+1} − F_u(z_k); at a zero next
+            # knot it leaves −F_u(z_k)
+            return -_chain.residual(layout, zk, torch.zeros_like(zk))
+
+        integs[i] = td.replace(u_next_fn=_u_next)
+        changed = True
+    if not changed:
+        return problem
+    return problem.replace(integrators=tuple(integs))
+
+
+def _make_ops(nlp, backend: str):
+    if backend not in ("auto", "riccati", "dense"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend in ("auto", "riccati"):
+        if analyze(nlp) is not None:
+            return RiccatiOps(nlp)
+        if backend == "riccati":
+            raise ValueError("problem is not Riccati-eligible")
+        # falling back silently would hide an O((N·d)³)-vs-O(N·d³) cliff
+        warnings.warn(
+            "problem is not Riccati-eligible (implicit integrator, or a constraint without "
+            "knot/global residual structure); using the dense KKT backend — expect "
+            "O((N·d)^3) solves", stacklevel=4)
+    return DenseOps(nlp)
+
+
 def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str,
                 callbacks: IPMCallbacks | None, warm: WarmStart | None) -> SolveResult:
     options.check_supported(backend)
-    if backend not in ("auto", "riccati"):
-        raise NotImplementedError(f"backend={backend!r}: the dense backend is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
-    nlp = make_nlp(problem)
-    if analyze(nlp) is None:
-        raise NotImplementedError("problem is not Riccati-eligible and the dense backend is "
-                                  "not ported yet (ROADMAP Queue 1 item 6)")
-    ops = RiccatiOps(nlp)
+    lowered = _lower_order1_td(problem) if backend in ("auto", "riccati") else problem
+    nlp = make_nlp(lowered)
+    ops = _make_ops(nlp, backend)
     if options.hessian_regularization == "auto":
         # resolved to "inertia", as in the JAX package (see its rationale)
         options = options.replace(hessian_regularization="inertia")
     res = ipm_solve(nlp, problem.trajectory.to_zvec(), options, ops=ops, callbacks=callbacks,
                     warm=warm)
+    # written back into the ORIGINAL problem: the lowering's closure stays out
     new_prob = problem.replace(trajectory=problem.trajectory.from_zvec(res.Z))
+    td_err = None
+    layout = problem.trajectory.layout
+    for integ in problem.integrators:
+        if isinstance(integ, TimeDependentBilinearIntegrator):
+            zmat = res.Z[:, : layout.N * layout.dim].reshape(-1, layout.N, layout.dim)
+            e = td_integration_error(integ, layout, zmat).amax(-1)
+            td_err = e if td_err is None else torch.maximum(td_err, e)
     return SolveResult(
         problem=new_prob, iterations=res.iterations, converged=res.converged,
         status=res.status, kkt_error=res.kkt_error, objective=res.objective, ipm=res,
+        td_error=td_err,
     )
+
+
+# the reference's own integrator tests accept atol=1e-3 trajectory agreement;
+# tune_n_steps uses the same default bar
+TD_ACCURACY_ATOL = 1e-3
+
+
+def _warn_td_accuracy(res: SolveResult) -> None:
+    """Warn when the time-dependent integrator's error estimate at the
+    solution exceeds ``TD_ACCURACY_ATOL`` on any lane (one device read)."""
+    if res.td_error is None:
+        return
+    e = float(res.td_error.max())
+    if e > TD_ACCURACY_ATOL:
+        warnings.warn(
+            f"time-dependent integrator error estimate at the SOLUTION is {e:.2e} > "
+            f"{TD_ACCURACY_ATOL:g}: the solution trajectory left the regime n_steps was tuned "
+            f"for — re-tune with tune_n_steps on the solved trajectory and re-solve",
+            stacklevel=3)
 
 
 def solve(problem: DirectTrajOptProblem, options: IPMOptions | None = None, *,
@@ -131,8 +213,12 @@ def solve(problem: DirectTrajOptProblem, options: IPMOptions | None = None, *,
     ``callbacks``: an :class:`IPMCallbacks` bundle (host monitoring, early
     stop, rings, best tracking; a host-interactive stop halts every lane).
     ``warm``: a :class:`WarmStart` of per-lane slacks/duals from a previous
-    solve (the primal warm start is the trajectory itself)."""
-    return _solve_impl(problem, _merge_options(options, kwargs), backend, callbacks, warm)
+    solve (the primal warm start is the trajectory itself). ``backend``:
+    "auto" (Riccati when the problem is an explicit OCP, dense otherwise),
+    "riccati" or "dense"."""
+    res = _solve_impl(problem, _merge_options(options, kwargs), backend, callbacks, warm)
+    _warn_td_accuracy(res)
+    return res
 
 
 def solve_batch(problems: DirectTrajOptProblem, options: IPMOptions | None = None, *,

@@ -15,10 +15,8 @@ import directtrajopt_tpu_torch as tdx
 # JAX pytree machinery, the jitted entry point and a greeting: no counterpart
 LEFT_OUT = {"module", "static_field", "HashableArray", "solve_jit", "say_hello"}
 
-# name -> the ROADMAP Queue 1 item that ports it
-NOT_YET = {
-    "TimeDependentBilinearIntegrator": 7, "td_integration_error": 7, "tune_n_steps": 7,
-}
+# name -> the ROADMAP Queue 1 item that ports it (none are left)
+NOT_YET: dict = {}
 
 # the port's own names: the HVP carriers and the warm start the JAX package
 # keeps in its submodules, and the card's problem builders
@@ -56,13 +54,13 @@ def test_integrators_module_names():
 
 
 def test_check_supported_refuses_only_floor_and_dense_lbfgs():
-    """The options the port refuses: "floor" (never to be ported) and
-    L-BFGS on the dense backend (ROADMAP Queue 1 item 6)."""
+    """The options the port refuses: "floor" (never to be ported), on
+    either backend. L-BFGS on the dense backend, which this test once
+    listed too, is ported."""
     import pytest
 
     refused = {("hessian_regularization", "floor", "riccati"),
-               ("hessian_regularization", "floor", "dense"),
-               ("hessian_approximation", "lbfgs", "dense")}
+               ("hessian_regularization", "floor", "dense")}
     values = {"mu_strategy": ("monotone", "mehrotra", "adaptive"),
               "hessian_approximation": ("exact", "gauss_newton", "lbfgs"),
               "hessian_regularization": ("auto", "inertia", "stagewise", "project", "flip",

@@ -232,15 +232,21 @@ def test_options_mirror_jax():
     dict(ls_memory=2),
 ])
 def test_unported_options_raise(kw):
-    """Every IPM option but the "floor" regularization is ported on the
-    Riccati backend; the dense backend is not ported yet, so with it each of
-    these raises, naming its ROADMAP item."""
+    """Only the "floor" regularization is left unported: with it a solve
+    raises, naming its ROADMAP item, on either backend. Every other option
+    runs on the dense backend too (three iterations, a finite iterate)."""
     from directtrajopt_tpu_torch import benchmarks as tb
     from directtrajopt_tpu_torch.solvers.solve import solve as tsolve
 
     prob = tb.make_bilinear_problem(N=3, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolve(prob, backend="dense", **kw)
+    if kw.get("hessian_regularization") == "floor":
+        for backend in ("dense", "riccati"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tsolve(prob, backend=backend, **kw)
+        return
+    res = tsolve(prob, backend="dense", max_iter=3, **kw)
+    Z = res.problem.trajectory.to_zvec()
+    assert Z.shape == prob.trajectory.to_zvec().shape and bool(torch.isfinite(Z).all())
 
 
 @pytest.mark.parametrize("mode", ["stagewise", "project", "flip", "inertia", "auto"])

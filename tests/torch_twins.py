@@ -3,15 +3,18 @@ counterparts of their user functions for ``bridge.from_numpy_problem``.
 
 Each builder returns ``(jax_problem, functions)``. The problems are those of
 ``tests/test_solve.py`` (92-241) and ``tests/test_promotion.py`` with the
-bilinear integrator's Taylor method (the port's integrator; the Padé method
-is not ported), plus two that exercise what those leave out: a duration
+bilinear integrator's Taylor method (the port's default and the kernels'),
+plus two that exercise what those leave out: a duration
 range whose lower bound is active (a border inequality) and a problem with a
 nonlinear equality, a multi-variable nonlinear inequality with per-time
 parameters, and terminal and parametrized knot objectives. The global
 problems are the JAX package's arrowhead fixtures: ``make_problem(with_globals=True)``
 of ``tests/test_riccati.py`` (with and without border inequalities) and its
 end-to-end global-phase problem (``tests/test_riccati.py:434``, the same as
-``tests/test_gauss_newton.py:44``), one lane per start.
+``tests/test_gauss_newton.py:44``), one lane per start. ``E2E`` holds the
+end-to-end fixtures of ``tests/test_riccati.py`` (``:357``, ``:407``,
+``:434``) as they are, on the Padé method, each returning ``(problem,
+functions, solve kwargs)``.
 """
 
 from __future__ import annotations
@@ -293,4 +296,90 @@ PROBLEMS = {
     "l1_slack": l1_slack,
     "state_constrained": lambda: state_constrained(1, 20),
     "nonlinear_mixed": nonlinear_mixed,
+}
+
+
+def _pade_rollout(u, dt):
+    """The rollout of the 2-D transfer by the JAX package's Padé integrator
+    (``dtx.bilinear_rollout``), as the fixtures of ``tests/test_riccati.py``
+    build their goals."""
+    integ = dtx.BilinearIntegrator.create((G_DRIFT, [G_DRIVE]), "x", "u", None)
+    return np.asarray(dtx.bilinear_rollout(integ, jnp.array([1.0, 0.0]), jnp.asarray(u), dt))
+
+
+def e2e_l1_free_time():
+    """``tests/test_riccati.py::test_e2e_riccati_matches_dense`` (N=14, the
+    Padé method): bounds, L1 slacks and free time. Returns ``(problem,
+    functions, solve kwargs)``."""
+    rng = np.random.default_rng(2)
+    N = 14
+    u = 0.25 * np.sin(np.linspace(0, 5, N))[:, None]
+    xs = _pade_rollout(u, 0.12)
+    data = {"x": xs + 0.02 * rng.normal(size=(N, 2)), "u": u, "du": np.zeros((N, 1)),
+            "sl": 0.2 * np.ones((N, 1)), "dt": np.full((N, 1), 0.12)}
+    traj = dtx.Trajectory.create(
+        data, timestep="dt", controls=("u", "du"), initial={"x": [1.0, 0.0]},
+        final={"x": xs[-1]}, bounds={"u": 0.8, "sl": (0.0, np.inf), "dt": (0.05, 0.3)})
+    integs = [dtx.BilinearIntegrator.create((G_DRIFT, [G_DRIVE]), "x", "u", traj),
+              dtx.DerivativeIntegrator.create("u", "du", traj)]
+    obj = (dtx.QuadraticRegularizer.create("u", traj, 1.0)
+           + 0.1 * dtx.LinearRegularizer.create("sl", traj, 1.0)
+           + 0.05 * dtx.MinimumTimeObjective.create(traj, 1.0))
+    prob = dtx.DirectTrajOptProblem.create(
+        traj, obj, integs, constraints=[dtx.L1SlackConstraint.create("du", "sl", traj)])
+    return prob, {}, dict(max_iter=300, tol=1e-8, acceptable_tol=1e-4, acceptable_iter=10)
+
+
+def e2e_strict():
+    """``tests/test_riccati.py::test_e2e_riccati_matches_dense_strict`` (N=16)."""
+    rng = np.random.default_rng(4)
+    N = 16
+    u = 0.3 * np.sin(np.linspace(0, 5, N))[:, None]
+    xs = _pade_rollout(u, 0.12)
+    traj = dtx.Trajectory.create(
+        {"x": xs + 0.03 * rng.normal(size=(N, 2)), "u": u}, timestep=0.12, controls="u",
+        initial={"x": [1.0, 0.0]}, final={"x": xs[-1]}, bounds={"u": 0.5})
+    integ = dtx.BilinearIntegrator.create((G_DRIFT, [G_DRIVE]), "x", "u", None)
+    prob = dtx.DirectTrajOptProblem.create(traj, dtx.QuadraticRegularizer.create("u", traj, 1.0),
+                                           integ)
+    return prob, {}, dict(max_iter=200)
+
+
+def e2e_globals():
+    """``tests/test_riccati.py::test_e2e_riccati_matches_dense_globals``
+    (N=12): a global phase parameter through a knot equality, a global
+    objective and a global knot objective."""
+    rng = np.random.default_rng(7)
+    N = 12
+    u = 0.3 * np.sin(np.linspace(0, 4, N))[:, None]
+    xs = _pade_rollout(u, 0.12)
+    traj = dtx.Trajectory.create(
+        {"x": xs + 0.02 * rng.normal(size=(N, 2)), "u": u}, timestep=0.12, controls="u",
+        initial={"x": [1.0, 0.0]}, final={"x": xs[-1]}, bounds={"u": 0.8, "theta": 3.0},
+        global_data={"theta": [0.4, -0.2]})
+    obj = (dtx.QuadraticRegularizer.create("u", traj, 1.0)
+           + dtx.GlobalObjective.create(lambda th: jnp.sum((th - 0.3) ** 2), "theta", traj)
+           + dtx.GlobalKnotPointObjective.create(lambda v: 0.02 * (v[1] - v[-1]) ** 2, "x",
+                                                 "theta", traj))
+    cons = [dtx.NonlinearGlobalKnotPointConstraint.create(
+                lambda v: jnp.array([v[0] - 0.5 * v[-2] - 0.1]), "u", "theta", traj, times=[3]),
+            dtx.GlobalLinearConstraint.create("theta", np.array([[1.0, 1.0]]), lb=[0.2],
+                                              ub=[0.2])]
+    prob = dtx.DirectTrajOptProblem.create(
+        traj, obj, [dtx.BilinearIntegrator.create((G_DRIFT, [G_DRIVE]), "x", "u", traj)],
+        constraints=cons)
+    return prob, {
+        ("constraint", 0): lambda v: (v[0] - 0.5 * v[-2] - 0.1).reshape(1),
+        ("objective", 1): lambda th: ((th - 0.3) ** 2).sum(),
+        ("objective", 2): lambda v: 0.02 * (v[1] - v[-1]) ** 2,
+    }, dict(max_iter=200)
+
+
+# the end-to-end fixtures of tests/test_riccati.py, with the tolerances at
+# which its tests hold the Riccati backend to the dense one: (fixture,
+# "objective" rtol or "Z" atol)
+E2E = {
+    "l1_free_time": (e2e_l1_free_time, ("objective", 5e-3)),
+    "strict": (e2e_strict, ("Z", 1e-6)),
+    "globals": (e2e_globals, ("Z", 1e-5)),
 }
