@@ -90,11 +90,32 @@ Phases, each printing its own lines:
    launches: K1-K3 (and on 6a and 6c K4) must stay at 0, K4 must run on
    6b's line search.
 
+9. Path 7, the scaling family (``make_batched_scaled_problems``: random
+   generators, lane i from seed 42 + i; the JAX package's
+   ``bench_sweep.py``) at N=51 in float32 through ``solve_batch_compact``
+   with ``scaled_config()``. 7a: state_dim 8, Padé (K1 generic (10,3,3),
+   K2 (10,3,2)); 7b: state_dim 16, Padé (the wide K1/K2 at (18,3,·)); 7c:
+   state_dim 8 with the Taylor action of order 12 (the generic K3/K4 at
+   (8,2)). Each with its seconds, lockstep passes, iterations, launches
+   and plain calls (0), the converged share against its bar (the JAX
+   package's share on lanes 0-63 less 0.1, ``tools/torch_scaled_bars.py``),
+   the KKT error, and |obj/obj* − 1| on lanes 0-3 against the float64
+   golden ``tests/golden/torch/scaled.npz``. 7d: state_dim 23 (n_s 25,
+   x_dim 23), beyond every kernel's caps, 64 lanes at N=11: the plain
+   versions on the card (``PLAIN_CALLS`` > 0, no launch), the first 5
+   iterations' steps and Z as on the CPU, the whole solve certified, and
+   no more lanes parting from the CPU's solve than part between two
+   float32 solves. Phase 2 holds the generic K1/K2 and
+   the wide ones on 7a's and 7b's captured calls, the wide ones at the
+   range's corner (24,24,8), the generic K3/K4 on 7c's knot matrix and at
+   (3,1) and (8,8), and K3/K4 at 9 drives, beyond the caps, on the plain
+   version.
+
 Exits non-zero if there is no CUDA device, if any kernel fails to build,
 launch or agree, if a kernel of a path was never launched during it (or a
-Riccati kernel was on path 6), if path 6b's two runs differ or 6a's
-fallback warning is missing, or if a path's result does not meet its
-certificate. The last line is
+Riccati kernel was on path 6), if a float32 call on paths 1-7c took a
+plain version, if path 6b's two runs differ or 6a's fallback warning is
+missing, or if a path's result does not meet its certificate. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,6 +123,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -151,6 +173,35 @@ KKT_5B, OBJ_5B = 1e-4, 5e-2
 KKT_6A, TD_ATOL, OBJ_6A, U_6A = 1e-8, 1e-3, 1e-6, 1e-4
 CONV_6B_JAX = 30 / 64
 BAR_6B = CONV_6B_JAX - 0.1
+# path 7 (the scaling family, float32): each sub-path runs
+# scaled_config()'s batch, one chunk of 128 lanes (cut from 1024: a chunk
+# whose slowest lane takes 378 iterations costs 39-186 s, PERF.md §4); its
+# bars: the JAX package's
+# float32 converged share on lanes 0-63 at the same options (56, 39 and 56
+# of 64; tools/torch_scaled_bars.py, PERF.md §6) less 0.1; the KKT error of
+# a converged lane at most the options' acceptable_tol; and |obj/obj* − 1|
+# ≤ OBJ_7 against the float64 golden (tests/golden/torch/scaled.npz, made at
+# the same options) on the golden's lanes where the JAX package's own
+# float32 solve comes within OBJ_7 of it (HELD_7: 4.0e-6 on 7a's lane 0,
+# 2.6e-6 on 7c's; on the others both packages' float32 solves stop 2e-3 to
+# 30 away: these random problems are not convex, and long solves part).
+SUB7 = {"7a": (8, None), "7b": (16, None), "7c": (8, 12)}  # state_dim, Taylor order
+CONV_7_JAX = {"7a": 56 / 64, "7b": 39 / 64, "7c": 56 / 64}
+HELD_7 = {"7a": (0,), "7b": (), "7c": (0,)}
+OBJ_7, KKT_7 = 1e-3, 5e-4
+# 7d: 64 lanes at N=11, state_dim 23 (n_s 25, x_dim 23: beyond every
+# kernel's caps), Taylor order 12, on the card and on the CPU. The first
+# ITER_7D iterations take the same steps on every lane, each lane's Z
+# within Z_7D (relative to max(max |Z|, 1)) of the CPU's; the whole solve
+# is certified (KKT, converged count within 10 % of the CPU's), and at
+# most PART_7D lanes part: take other iterations than the CPU's, or end
+# beyond Z_7D from its Z. Two sound float32 CPU solves, the JAX package's
+# and the port's, part so on 24 of the family's first 512 lanes (4.7 %:
+# 15 on other iterations, up to 1.0 apart; 9 on equal iterations, 1.2e-3
+# to 2.3e-2 apart; the first 5 iterations within 2.1e-4 on every lane;
+# tools/torch_scaled_bars.py --witness-7d --lanes 512, PERF.md §6):
+# PART_7D is 10 % of the lanes.
+STATE_7D, LANES_7D, N_7D, ITER_7D, Z_7D, PART_7D = 23, 64, 11, 5, 1e-3, 6
 MIN_CONVERGED = 0.99  # share of lanes that must converge
 DEVICE = "cuda:0"
 
@@ -166,7 +217,20 @@ KERNELS = {
                  "directtrajopt_tpu/ops/expv_kernel.py:293"),
     "residual_l1": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
                     "directtrajopt_tpu/ops/expv_kernel.py:293"),
+    "factor_solve_wide": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_kernel.cu",
+                          "directtrajopt_tpu/ops/riccati_kernel.py:342"),
+    "resolve_wide": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_kernel.cu",
+                     "directtrajopt_tpu/ops/riccati_kernel.py:488"),
+    "window_jac_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
+                           "directtrajopt_tpu/ops/expv_kernel.py:111"),
+    "residual_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
+                         "directtrajopt_tpu/ops/expv_kernel.py:293"),
+    "residual_l1_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
+                            "directtrajopt_tpu/ops/expv_kernel.py:293"),
 }
+# the launch counts of the kernels that paths 1-6 run (the ≤ 16/8 K1/K2,
+# K3/K4 at their exact shapes)
+BASE_KERNELS = ("factor_solve", "resolve", "window_jac", "residual", "residual_l1")
 # path 2 rows of the kernels table: (row name, launch-count key)
 PATH2 = [("factor_solve_sc", "factor_solve"), ("resolve_sc", "resolve"),
          ("window_jac_sc", "window_jac"), ("residual_sc", "residual"),
@@ -274,18 +338,35 @@ def op_count(fn, name: str) -> int:
     return sum(e.count for e in prof.key_averages() if e.key == name)
 
 
-def max_dev(ref, out, rel: bool):
-    """Max |ref − out| over a tuple of outputs (relative to max(|ref|, 1) per
-    output when ``rel``), and the max absolute deviation."""
+def max_dev(ref, out, rel):
+    """Deviation of ``out`` from ``ref`` over a tuple of outputs, on their
+    finite entries: max |ref − out| (``rel`` False), over max(max |ref|, 1)
+    per output (True), or over max(max |ref[..., c]|, 1) per column c of
+    the last axis ("col"); and the max absolute deviation. Both are inf
+    where the two are not finite at the same entries."""
     worst, worst_abs = 0.0, 0.0
     for x, y in zip(ref, out):
-        if x.dtype == torch.bool:
+        if x.dtype == torch.bool or not x.numel():
             continue
-        d = (x.float() - y.float()).abs().max().item()
-        scale = max(x.abs().max().item(), 1.0) if rel else 1.0
-        worst = max(worst, d / scale)
-        worst_abs = max(worst_abs, d)
+        fin = torch.isfinite(x)
+        if not torch.equal(fin, torch.isfinite(y)):
+            return math.inf, math.inf
+        x0 = torch.where(fin, x.float(), 0.0)
+        d = (x0 - torch.where(fin, y.float(), 0.0)).abs()
+        if rel == "col":
+            scale = x0.abs().reshape(-1, x.shape[-1]).amax(0).clamp(min=1.0)
+        elif rel:
+            scale = x0.abs().max().clamp(min=1.0)
+        else:
+            scale = 1.0
+        worst = max(worst, (d / scale).max().item())
+        worst_abs = max(worst_abs, d.max().item())
     return worst, worst_abs
+
+
+def non_finite(outs) -> int:
+    """Entries of the outputs that are not finite."""
+    return sum(int((~torch.isfinite(t)).sum()) for t in outs if t.dtype != torch.bool)
 
 
 def nbytes(tensors) -> int:
@@ -380,6 +461,8 @@ def lane_rel(x, ref, mask) -> float:
     d = (x.double() - ref).abs().reshape(x.shape[0], -1).amax(1)
     s = ref.abs().reshape(x.shape[0], -1).amax(1).clamp(min=1.0)
     r = (d / s)[mask]
+    if not bool(torch.isfinite(r).all()):
+        return math.inf
     return float(r.max()) if r.numel() else 0.0
 
 
@@ -465,8 +548,9 @@ class Timed:
 def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
     """(kernel, registers, stack frame and spills, shared memory) per kernel
     from ``nvcc -Xptxas -v`` output."""
-    kernels = ("factor_solve_grouped", "factor_solve_generic", "resolve_grouped",
-               "resolve_generic", "window_jac_kernel", "residual_grid_kernel")
+    kernels = ("factor_solve_grouped", "factor_solve_generic", "factor_solve_wide",
+               "resolve_grouped", "resolve_generic", "resolve_wide", "window_jac_kernel",
+               "residual_grid_kernel")
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -482,6 +566,20 @@ def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
                         smem.group(1) if smem else "0"))
             name = None
     return out
+
+
+def base_counts(counts: dict) -> dict:
+    """The launch counts of the kernels that paths 1-6 run."""
+    return {k: counts.get(k, 0) for k in BASE_KERNELS}
+
+
+def no_plain_calls(tag: str) -> None:
+    """Fail if a float32 call on the card took a plain version since the
+    counts were last set to 0."""
+    from directtrajopt_tpu_torch.ops import _build
+
+    if any(_build.PLAIN_CALLS.values()):
+        fail(f"{tag}: float32 calls took a plain version: {dict(_build.PLAIN_CALLS)}")
 
 
 def phase_line(tag, what, c):
@@ -686,6 +784,165 @@ def path6(dev, prob_big, prob_cp, it1, obj5b) -> dict:
     return launches6b
 
 
+def scaled_batch(lanes, N, state_dim, n_controls=2, taylor_order=None, dev=DEVICE,
+                 dtype=torch.float32):
+    """The scaling family's lanes 0-(lanes − 1) (seeds 42 + i) in ``dtype``:
+    as its builder makes them (Padé) or, with ``taylor_order``, the same
+    problems with the Taylor action of that order, built from the port's
+    public constructors."""
+    from directtrajopt_tpu_torch import (BilinearIntegrator, DerivativeIntegrator,
+                                         DirectTrajOptProblem, QuadraticRegularizer, benchmarks)
+    from directtrajopt_tpu_torch.solvers.solve import cast_problem
+
+    if taylor_order is None:
+        prob = benchmarks.make_batched_scaled_problems(lanes, N, state_dim, n_controls,
+                                                       device=dev)
+    else:
+        Gd, Gv, data = benchmarks.scaled_data(lanes, N, state_dim, n_controls)
+        traj = benchmarks.scaled_trajectory(data, device=dev, dtype=torch.float64)
+        integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=lanes, device=dev,
+                                          method="taylor", taylor_order=taylor_order)
+        prob = DirectTrajOptProblem.create(traj, QuadraticRegularizer.create("u", traj, 1.0),
+                                           [integ, DerivativeIntegrator.create("u", "du")])
+    return cast_problem(prob, dtype)
+
+
+def path7(dev) -> dict:
+    """Path 7, the scaling family at N=51 through ``solve_batch_compact``
+    with ``scaled_config()``: 7a-7c (``SUB7``, its batch) against their
+    bars, then 7d (``STATE_7D``) beyond the kernels' caps against the
+    same solve on the CPU. Prints and certifies each; returns the launches of
+    7a-7c by sub-path."""
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
+
+    solve_mod = importlib.import_module("directtrajopt_tpu_torch.solvers.solve")
+    cfg = benchmarks.scaled_config()
+    N7 = cfg["N"]
+    gold = np.load(benchmarks.GOLDEN_SCALED)
+    # the kernels each sub-path must launch
+    needs = {"7a": ("factor_solve", "resolve"), "7b": ("factor_solve_wide", "resolve_wide"),
+             "7c": ("factor_solve", "window_jac_generic", "residual_generic",
+                    "residual_l1_generic")}
+    expv = ("window_jac", "residual", "residual_l1", "window_jac_generic", "residual_generic",
+            "residual_l1_generic")
+    launches, t_all = {}, time.perf_counter()
+    for tag, (dim, order) in SUB7.items():
+        lanes = cfg["batch"]
+        prob = scaled_batch(lanes, N7, dim, taylor_order=order, dev=dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with Timed(solve_mod, "_solve_impl") as tm:
+            res = solve_batch_compact(prob, **cfg["solve_kw"])
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        plain = dict(_build.PLAIN_CALLS)
+        c = dict(tm.calls[0], seconds=sum(x["seconds"] for x in tm.calls),
+                 passes=sum(x["passes"] for x in tm.calls), launches=counts,
+                 unconverged=int((~res.converged).sum()))
+        phase_line(f"path{tag}", f"scaling family B={lanes} N={N7} state_dim {dim} float32, "
+                                 f"{'Padé' if order is None else f'Taylor order {order}'}, "
+                                 f"{len(tm.calls)} phase chunks", c)
+        conv = res.converged.cpu().numpy()
+        kkt = res.kkt_error.cpu().numpy()
+        it = res.iterations.cpu().numpy()
+        obj = res.objective.detach().to("cpu", torch.float64).numpy()
+        g_obj = gold[f"p{tag}_objective"]
+        n = len(g_obj)
+        err = np.abs(obj[:n] / g_obj - 1.0)
+        held = [i for i in HELD_7[tag] if conv[i]]
+        err_max = float(err[held].max()) if held else 0.0
+        kkt_max = float(kkt[conv].max()) if conv.any() else 0.0
+        bar = CONV_7_JAX[tag] - 0.1
+        print(f"[path{tag}] converged {int(conv.sum())}/{lanes} (bar {bar:.4f}); iterations "
+              f"median {np.median(it):g} max {it.max()}; max kkt over converged {kkt_max:.3e} "
+              f"(bound {KKT_7:g}); lanes 0-{n - 1}: |obj/obj* - 1| "
+              f"{np.array2string(err, precision=3)} (bound {OBJ_7:g} on the held lanes "
+              f"{list(HELD_7[tag])}, {len(held)} of them converged here), converged "
+              f"{conv[:n].tolist()} beside the golden's {gold[f'p{tag}_converged'].tolist()}, "
+              f"iterations {it[:n].tolist()} beside the golden's "
+              f"{gold[f'p{tag}_iterations'].tolist()}; plain calls {json.dumps(plain)}",
+              flush=True)
+        del prob, res
+        launches[tag] = counts
+        missing = [k for k in needs[tag] if not counts.get(k)]
+        if missing:
+            fail(f"path {tag}: {missing} never launched: {counts}")
+        if order is None and any(counts.get(k) for k in expv):
+            fail(f"path {tag}: the Padé method launched K3/K4: {counts}")
+        no_plain_calls(f"path {tag}")
+        if conv.mean() < bar:
+            fail(f"path {tag}: {int(conv.sum())}/{lanes} converged is below its bar")
+        if not (kkt_max <= KKT_7 and err_max <= OBJ_7):
+            fail(f"path {tag}: a converged lane is not certified")
+    t7 = time.perf_counter() - t_all
+    path7d(dev)
+    print(f"[path7] 7a-7c {t7:.2f} s; path 7 {time.perf_counter() - t_all:.2f} s", flush=True)
+    return launches
+
+
+def path7d(dev) -> None:
+    """Path 7d: the scaling family beyond every kernel's caps (``STATE_7D``)
+    on the card, which must take the plain versions, against the same solve
+    on the CPU. Prints and certifies it."""
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
+
+    cfg = benchmarks.scaled_config()
+    kw = dict(cfg["solve_kw"], chunk=LANES_7D)
+    runs = {}
+    for where in (dev, "cpu"):
+        prob = scaled_batch(LANES_7D, N_7D, STATE_7D, taylor_order=12, dev=where)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_batch_compact(prob, **kw)
+        short = solve_batch_compact(prob, **dict(kw, phases=((ITER_7D, None),)))
+        if where != "cpu":
+            torch.cuda.synchronize()
+        runs[str(where)] = (res, short, time.perf_counter() - t0, dict(_build.PLAIN_CALLS),
+                            {k: v for k, v in _build.LAUNCHES.items() if v})
+    (r_d, s_d, t_d, plain_d, counts_d), (r_c, s_c, t_c, _, _) = runs[str(dev)], runs["cpu"]
+
+    def z_dev(a, b):
+        """Per lane max |Z_a − Z_b| / max(max |Z_b|, 1)."""
+        Za = a.problem.trajectory.to_zvec().double().cpu()
+        Zb = b.problem.trajectory.to_zvec().double().cpu()
+        return ((Za - Zb).abs().amax(1) / Zb.abs().amax(1).clamp(min=1.0)).numpy()
+
+    it_d, it_c = r_d.iterations.cpu().numpy(), r_c.iterations.cpu().numpy()
+    same = it_d == it_c
+    dz, dz_short = z_dev(r_d, r_c), z_dev(s_d, s_c)
+    parted = ~same | (dz > Z_7D)
+    same_short = bool((s_d.iterations.cpu() == s_c.iterations.cpu()).all())
+    conv_d, conv_c = r_d.converged.cpu().numpy(), r_c.converged.cpu().numpy()
+    kkt_d = r_d.kkt_error.cpu().numpy()
+    kkt_max = float(kkt_d[conv_d].max()) if conv_d.any() else 0.0
+    print(f"[path7d] beyond the caps: B={LANES_7D} N={N_7D} state_dim {STATE_7D}, 2 drives, "
+          f"Taylor order 12, float32: card {t_d:.2f} s, CPU {t_c:.2f} s (the solve and its first "
+          f"{ITER_7D} iterations); plain calls on the card {json.dumps(plain_d)}; launches "
+          f"{json.dumps(counts_d)}; first {ITER_7D} iterations: the same on every lane {same_short}, "
+          f"max per-lane |Z - Z_cpu| {dz_short.max():.3e} (bound {Z_7D:g}); the solve: converged "
+          f"{int(conv_d.sum())} / {int(conv_c.sum())}, max kkt over converged {kkt_max:.3e} (bound "
+          f"{KKT_7:g}), iterations equal on {int(same.sum())}/{LANES_7D} lanes (card median "
+          f"{np.median(it_d):g} max {it_d.max()}), per-lane |Z - Z_cpu| on those median "
+          f"{np.median(dz[same]):.3e} max {dz[same].max(initial=0):.3e}, on the others max "
+          f"{dz[~same].max(initial=0):.3e}; lanes parted (other iterations or Z beyond "
+          f"{Z_7D:g}) {np.flatnonzero(parted).tolist()} (at most {PART_7D})", flush=True)
+    if not (plain_d["factor_solve"] and plain_d["window_jac"] and plain_d["residual"]):
+        fail("path 7d: K1, K3 or K4 did not take the plain version beyond the caps")
+    if counts_d:
+        fail(f"path 7d: a kernel launched beyond the caps: {counts_d}")
+    if not (same_short and dz_short.max() <= Z_7D):
+        fail("path 7d: the card's first iterations differ from the CPU's")
+    if conv_d.sum() < conv_c.sum() - 0.1 * LANES_7D or kkt_max > KKT_7:
+        fail("path 7d: the card's solve is not certified")
+    if parted.sum() > PART_7D:
+        fail("path 7d: more lanes part from the CPU's solve than part between two float32 "
+             "solves")
+    del runs, r_d, r_c, s_d, s_c
+
+
 def main() -> None:
     # ---------------- 1. environment ---------------------------------------- #
     if not torch.cuda.is_available():
@@ -722,13 +979,15 @@ def main() -> None:
     ptxas = ptxas_summary(info.get("log", ""))
     for name, regs, frame, smem in ptxas:
         print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
-    # the grouped K1 and K2 and the K3 and K4 kernels keep every array in
-    # registers or shared memory
+    # the grouped K1 and K2 and the K3 and K4 kernels at their exact shapes
+    # keep every array in registers or shared memory (the generic K3/K4,
+    # <8,8,·>, and the generic and wide K1/K2 may use local memory)
     for kname, count in (("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES)),
                          ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES)),
                          ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES)),
                          ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES))):
-        found = [(name, frame) for name, _, frame, _ in ptxas if name.startswith(kname + "<")]
+        found = [(name, frame) for name, _, frame, _ in ptxas
+                 if name.startswith(kname + "<") and not name.startswith(kname + "<8,8,")]
         if info.get("log") and (len(found) != count or any(
                 re.search(r"[1-9]\d* bytes", frame) for _, frame in found)):
             fail(f"{kname}: want {count} instantiations with no stack frame and no spills, "
@@ -747,34 +1006,39 @@ def main() -> None:
     results = {}
 
     def check(name, label, kern, plain, tol, rel, ins, n_ops, extra_ok=None, lanes=None,
-              prof=None):
+              prof=None, reps=20):
         """``ins``: the kernel's input tensors and ``n_ops`` its float32
         operations, for its time bound (the storage the views touch, each
         element once: K4's x and x_next one slab of N knots, u and Δt once
         per window, a fixed Δt one scalar, the generators once per problem);
         ``lanes``: compare the outputs on these lanes only (a bool mask);
         ``prof``: the CUDA kernel's name, to read its device time from the
-        profiler."""
+        profiler; ``reps``: the timed calls of each timer (fewer for the
+        slow wide K1)."""
         out_k = kern()
         out_p = plain()
         torch.cuda.synchronize()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        if lanes is None:
-            dev_rel, dev_abs = max_dev(outs_p, outs_k, rel)
-        else:
-            dev_rel, dev_abs = max_dev([t[lanes] for t in outs_p], [t[lanes] for t in outs_k], rel)
-        ms_k, ms_p, ms_seq = cuda_ms(kern), cuda_ms(plain), cuda_ms_back_to_back(kern)
-        ms_dev = device_ms(kern, prof) if prof else None
+        if lanes is not None and not bool(lanes.any()):
+            fail(f"{label}: no lane to compare")
+        cmp_p, cmp_k = ((outs_p, outs_k) if lanes is None else
+                        ([t[lanes] for t in outs_p], [t[lanes] for t in outs_k]))
+        dev_rel, dev_abs = max_dev(cmp_p, cmp_k, rel)
+        n_inf = non_finite(cmp_p)
+        ms_k, ms_p = cuda_ms(kern, reps), cuda_ms(plain, reps)
+        ms_seq = cuda_ms_back_to_back(kern, reps)
+        ms_dev = device_ms(kern, prof, reps) if prof else None
         dev_txt = "" if prof is None else (
             f", device {ms_dev:.4f} ms per launch (profiler)" if ms_dev is not None
             else ", device time not measured (the profiler recorded no launch)")
         b_ms, b_by = time_bound(nbytes(ins) + nbytes(outs_k), n_ops)
         ok = dev_rel <= tol and (extra_ok is None or extra_ok(outs_p, outs_k))
-        kind = "relative" if rel else "absolute"
+        kind = {"col": "per-column relative", True: "relative", False: "absolute"}[rel]
         print(f"[kernel] {label}: max {kind} deviation {dev_rel:.3e} (bound {tol:g}), "
-              f"max abs {dev_abs:.3e}; kernel {ms_k:.4f} ms ({ms_seq:.4f} ms per call "
-              f"back to back{dev_txt}), plain {ms_p:.4f} ms; "
+              f"max abs {dev_abs:.3e} ({n_inf} non-finite entries, in both, left out); kernel "
+              f"{ms_k:.4f} ms ({ms_seq:.4f} ms per call back to back{dev_txt}), plain "
+              f"{ms_p:.4f} ms; "
               f"time bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} of it reached "
               f"-> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -802,10 +1066,23 @@ def main() -> None:
                 fail(f"the indefinite fixture must fail the certificate on lane {bad_lane} alone")
         return s0, st
 
+    def but_lane(lanes, bad):
+        """Every lane but ``bad`` (None: every lane): the factors of an
+        indefinite lane grow without bound after its failed pivot (to inf and
+        NaN at (8,3,2) and (24,24,8)), so its rows compare them on the other
+        lanes and its certificate on all."""
+        keep = torch.ones(lanes, dtype=torch.bool, device=dev)
+        if bad is not None:
+            keep[bad] = False
+        return keep
+
     def instantiation(name, shape):
-        if name == "factor_solve":
-            return "grouped" if shape in riccati_kernel.GROUPED_SHAPES else "generic"
-        return "grouped" if shape in riccati_kernel.RESOLVE_GROUPED_SHAPES else "generic"
+        grouped = (riccati_kernel.GROUPED_SHAPES if name == "factor_solve"
+                   else riccati_kernel.RESOLVE_GROUPED_SHAPES)
+        if shape in grouped:
+            return "grouped"
+        small = riccati_kernel.MAX_SIZES
+        return "generic" if shape[0] <= small["ns"] and shape[1] <= small["nv"] else "wide"
 
     for key, lanes, shape, bad in (
         ("factor_solve", 256, (8, 3, 3), None),
@@ -818,7 +1095,7 @@ def main() -> None:
                    f"(n_s,n_v,R)={shape}" + (f", lane {bad} indefinite" if bad is not None else ""),
               lambda: riccati_kernel.factor_solve(s0, *st),
               lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
-              riccati_ops(lanes, N, *shape, factor=True), ok_equal,
+              riccati_ops(lanes, N, *shape, factor=True), ok_equal, lanes=but_lane(lanes, bad),
               prof=f"factor_solve_{instantiation('factor_solve', shape)}")
     for key, shape in (
         ("resolve", (8, 3, 2)),
@@ -897,7 +1174,11 @@ def main() -> None:
     def check_k3(key, what, prob, zmat=None):
         """K3 on the integrator's own arguments: views of the knot matrix
         (``zmat``, default the trajectory's), −J written into the knot's
-        width d."""
+        width d. Every K3 row holds each column c of J (a state, a drive,
+        Δt) to 2e-6 · max(max |J[..., c]|, 1): the JAX test's absolute bound
+        on the columns of unit scale or less, relative on a column that
+        reaches the tens (∂(E·x)/∂Δt = G·E·x), where 2e-6 is two float32
+        roundings."""
         integ, lay = prob.integrators[0], prob.trajectory.layout
         zmat = prob.trajectory.knot_matrix() if zmat is None else zmat
         ja = integ._window_jac_args(lay, zmat)
@@ -910,7 +1191,7 @@ def main() -> None:
                    f"divisions a window, ≈ {n_div * DIV_INSTRUCTIONS} instructions (estimate: "
                    f"{est:.4f} ms at the card's instruction rate)",
               lambda: expv_kernel.window_jac_zk(o3, *ja),
-              lambda: expv_kernel.window_jac_zk_plain(o3, *ja), 2e-6, False, ja[:5],
+              lambda: expv_kernel.window_jac_zk_plain(o3, *ja), 2e-6, "col", ja[:5],
               horner_ops(P3 * T3, K3, xd3, nd3, o3, True, free), prof="window_jac_kernel")
 
     # K3 at path 1's shape (a compact chunk of 256 lanes) and at B lanes
@@ -991,7 +1272,7 @@ def main() -> None:
         delta = plain_f32_error(plain, args, mask)
         return mask, max(5e-6, 4 * delta), f"; plain float32 within {delta:.2e} of float64"
 
-    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False):
+    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False, reps=20):
         """K1 and K2 on the first calls captured from a path's own solve
         (rows ``factor_solve_<tag>``, ``resolve_<tag>``), one certified lane
         made indefinite at stage 20; then every captured call."""
@@ -1031,7 +1312,7 @@ def main() -> None:
               lambda: riccati_kernel.factor_solve(*f_args),
               lambda: riccati_kernel.factor_solve_plain(*f_args), tol_f, True, f_args[1:],
               riccati_ops(lanes, n_knots, *shape_f, factor=True), ok_equal_lanes, lanes=well_f,
-              prof=f"factor_solve_{instantiation('factor_solve', shape_f)}")
+              prof=f"factor_solve_{instantiation('factor_solve', shape_f)}", reps=reps)
         r_args = cap_r.calls[0]
         shape_r = (r_args[1].shape[-1], r_args[2].shape[-1], r_args[8].shape[1])
         well_r, tol_r, note_r = compare_lanes(riccati_kernel.resolve_plain, r_args, f32_floor)
@@ -1041,7 +1322,7 @@ def main() -> None:
               lambda: riccati_kernel.resolve(*r_args),
               lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
               riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
-              prof=f"resolve_{instantiation('resolve', shape_r)}")
+              prof=f"resolve_{instantiation('resolve', shape_r)}", reps=reps)
         pipeline_calls(what, cap_f, cap_r, well_only=True)
         return shape_f, shape_r
 
@@ -1124,7 +1405,8 @@ def main() -> None:
                                 "of the K1 launch only",
           lambda: riccati_kernel.factor_solve(s0, *st),
           lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
-          riccati_ops(256, N, 1, 1, 9, factor=True), ok_equal, prof="factor_solve_generic")
+          riccati_ops(256, N, 1, 1, 9, factor=True), ok_equal, lanes=but_lane(256, 5),
+          prof="factor_solve_generic")
     # K2 at the Pallas resolve's bound, R = 40, in one launch
     s0, st = riccati_inputs(5, 256, 4, 1, 40)
     fac = riccati_kernel.factor_solve_plain(s0, *st)
@@ -1139,16 +1421,19 @@ def main() -> None:
     tiles = [riccati_kernel.resolve(*r_in, *(x[:, i:i + 8] for x in st[5:]))
              for i in range(0, 40, 8)]
     same = all(torch.equal(w, torch.cat([t[j] for t in tiles], 1)) for j, w in enumerate(whole))
-    try:
-        riccati_kernel.resolve(*r_in, *(torch.cat([x, x[:, :1]], 1) for x in st[5:]))
-        raised = False
-    except NotImplementedError:
-        raised = True
+    # beyond the caps (R' = 41) the plain version runs on the card, counted
+    r41 = (*r_in, *(torch.cat([x, x[:, :1]], 1) for x in st[5:]))
+    _build.reset_launches()
+    out41 = riccati_kernel.resolve(*r41)
+    plain41 = (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES))
+    same41 = all(torch.equal(a, b) for a, b in zip(out41, riccati_kernel.resolve_plain(*r41)))
     print(f"[kernel] K2 at R'=40: bitwise equal to five launches of 8 columns: {same}; "
-          f"R'=41 raises: {raised}", flush=True)
-    if not (same and raised):
-        fail("K2 at 40 right-hand sides differs from its tiles, or R'=41 did not raise")
-    del s0, st, fac, r_in, whole, tiles
+          f"R'=41 takes the plain version: plain calls {json.dumps(plain41[0])}, launches "
+          f"{sum(plain41[1].values())}, bitwise the plain version's: {same41}", flush=True)
+    if not (same and same41 and plain41[0]["resolve"] == 1 and not any(plain41[1].values())):
+        fail("K2 at 40 right-hand sides differs from its tiles, or R'=41 did not take the "
+             "plain version")
+    del s0, st, fac, r_in, whole, tiles, r41, out41
     # K1 (4,1,1) and K2 (4,1,2) on calls captured from 5a's own solve (its
     # problem, all B5 lanes in one chunk, its options, 3 iterations), and K2
     # (4,1,40) on 5b's SMW columns of a later iteration (nonzero pairs)
@@ -1184,6 +1469,119 @@ def main() -> None:
           prof="resolve_generic")
     del cap_r5b, smw_calls, r5b
 
+    # ---- at the scaling family's shapes (path 7) -------------------------- #
+    # K1 generic (10,3,3) and K2 (10,3,2) on 7a's captured calls, the wide
+    # K1/K2 at (18,3,3) and (18,3,2) on 7b's (the wide K1 is slow: fewer
+    # timed calls), each with one lane made indefinite. Plain float32 is
+    # nowhere within 1e-6 of float64 on these random systems: path 5's rule
+    # (lanes within 1e-3, the bound max(5e-6, 4δ))
+    s7 = benchmarks.scaled_config()
+    N7, B7 = s7["N"], s7["batch"]
+    kw7 = {k: v for k, v in s7["solve_kw"].items() if k not in ("phases", "chunk")}
+    shapes7 = {}
+    for tag7, reps7 in (("7a", 20), ("7b", 3)):
+        dim7, order7 = SUB7[tag7]
+        prob7 = scaled_batch(B7, N7, dim7, taylor_order=order7, dev=dev)
+        with Capture(riccati_kernel, "factor_solve", 3) as cap_f7, \
+                Capture(riccati_kernel, "resolve", 3) as cap_r7:
+            solve(prob7, max_iter=3, **kw7)
+        shapes7[tag7] = captured_rows(tag7, f"path-{tag7}", cap_f7, cap_r7, B7, N7,
+                                     f32_floor=True, reps=reps7)
+        del prob7, cap_f7, cap_r7
+    print(f"[path7] captured shapes (K1, K2): {shapes7}", flush=True)
+    if shapes7["7a"][0] != (10, 3, 3) or shapes7["7b"][0] != (18, 3, 3):
+        fail(f"path 7's K1 shapes {shapes7} are not (10,3,3) and (18,3,3)")
+    # the wide kernels at the range's corner, seeded: K1 with one lane
+    # indefinite, K2 on the factors of well-conditioned data
+    s0, st = riccati_inputs(6, 256, 24, 24, 8, bad_lane=5)
+    check("factor_solve_wide_corner", "K1 factor_solve (wide) B=256 (n_s,n_v,R)=(24, 24, 8), "
+                                      "lane 5 indefinite",
+          lambda: riccati_kernel.factor_solve(s0, *st),
+          lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
+          riccati_ops(256, N, 24, 24, 8, factor=True), ok_equal, lanes=but_lane(256, 5),
+          prof="factor_solve_wide", reps=3)
+    s0, st = riccati_inputs(7, 256, 24, 24, 8)
+    fac = riccati_kernel.factor_solve_plain(s0, *st)
+    check("resolve_wide_corner", "K2 resolve (wide) B=256 (n_s,n_v,R')=(24, 24, 8)",
+          lambda: riccati_kernel.resolve(s0, *fac[:5], *st[3:]),
+          lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
+          list(fac[:5]) + st[3:], riccati_ops(256, N, 24, 24, 8, factor=False),
+          prof="resolve_wide", reps=5)
+    del s0, st, fac
+    # the generic K3/K4 at (8,2) on 7c's knot matrix and trial grid
+    prob7c = scaled_batch(B7, N7, SUB7["7c"][0], taylor_order=SUB7["7c"][1], dev=dev)
+    check_k3("window_jac_7c", "<8,8> generic at (8,2), free dt", prob7c)
+    lay7 = prob7c.trajectory.layout
+    n_slots7 = IPMOptions().max_ls + 2
+    Z7 = prob7c.trajectory.to_zvec()
+    dZ7 = torch.as_tensor(1e-3 * np.random.default_rng(70).standard_normal(Z7.shape),
+                          dtype=torch.float32, device=dev)
+    al7 = torch.as_tensor(0.5 ** np.arange(n_slots7), dtype=torch.float32, device=dev)
+    Zt7 = (Z7[:, None] + al7[None, :, None] * dZ7[:, None]).reshape(
+        Z7.shape[0], n_slots7, lay7.N, lay7.dim)
+    t7 = prob7c.integrators[0]._trial_views(lay7, Zt7)
+    ops7 = horner_ops(Zt7.shape[0] * n_slots7, lay7.N - 1, 8, 2, SUB7["7c"][1], False)
+    check("residual_l1_7c", f"K4 residual <8,8> generic at (8,2) (L1 form) on Zt "
+                            f"{tuple(Zt7.shape)}",
+          lambda: expv_kernel.residual_l1(SUB7["7c"][1], *t7),
+          lambda: expv_kernel.residual_l1_plain(SUB7["7c"][1], *t7), 2e-6, True, t7, ops7,
+          prof="residual_grid_kernel")
+    check("residual_7c", f"K4 residual <8,8> generic at (8,2) (vector form) on Zt "
+                         f"{tuple(Zt7.shape)}",
+          lambda: expv_kernel.residual_action(SUB7["7c"][1], *t7),
+          lambda: expv_kernel.residual_action_plain(SUB7["7c"][1], *t7), 2e-6, False, t7, ops7,
+          prof="residual_grid_kernel")
+    del prob7c, Z7, dZ7, Zt7, t7
+    # ... and at (3,1) and (8,8) on seeded data: 2048 lanes x 50 windows,
+    # generators of unit scale (the bound is absolute), Taylor order 12
+    for xd7, nd7 in ((3, 1), (8, 8)):
+        rng7 = np.random.default_rng(10 * xd7 + nd7)
+        Gd7, Gv7, u7, dt7, x7, xn7 = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            0.5 * rng7.normal(size=(2048, xd7, xd7)), 0.5 * rng7.normal(size=(2048, nd7, xd7, xd7)),
+            0.3 * rng7.normal(size=(2048, 50, nd7)), 0.1 + 0.05 * rng7.random((2048, 50)),
+            rng7.normal(size=(2048, 50, xd7)), rng7.normal(size=(2048, 50, xd7))))
+        ins3 = (Gd7, Gv7, u7, dt7, x7)
+        # per column, as check_k3 holds every K3 row
+        check(f"window_jac_{xd7}_{nd7}", f"K3 window_jac <8,8> generic at ({xd7},{nd7}) B=2048 x 50 "
+                                     f"windows, free dt",
+              lambda: expv_kernel.window_jac(12, True, *ins3),
+              lambda: expv_kernel.window_jac_plain(12, True, *ins3), 2e-6, "col", ins3,
+              horner_ops(2048, 50, xd7, nd7, 12, True, True), prof="window_jac_kernel")
+        ins4 = (Gd7, Gv7, u7[:, None], dt7[:, None], x7[:, None], xn7[:, None])
+        ops4g = horner_ops(2048, 50, xd7, nd7, 12, False)
+        check(f"residual_{xd7}_{nd7}", f"K4 residual <8,8> generic at ({xd7},{nd7}) (vector form) "
+                                   f"B=2048 x 50",
+              lambda: expv_kernel.residual_action(12, *ins4),
+              lambda: expv_kernel.residual_action_plain(12, *ins4), 2e-6, False, ins4, ops4g,
+              prof="residual_grid_kernel")
+        check(f"residual_l1_{xd7}_{nd7}", f"K4 residual <8,8> generic at ({xd7},{nd7}) (L1 form) "
+                                      f"B=2048 x 50",
+              lambda: expv_kernel.residual_l1(12, *ins4),
+              lambda: expv_kernel.residual_l1_plain(12, *ins4), 2e-6, True, ins4, ops4g,
+              prof="residual_grid_kernel")
+        del Gd7, Gv7, u7, dt7, x7, xn7, ins3, ins4
+    # beyond the caps (9 drives) K3 and K4 take the plain version on the
+    # card, counted, and compute it bitwise
+    rng7 = np.random.default_rng(49)
+    Gd7, Gv7, u7, dt7, x7, xn7 = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        0.5 * rng7.normal(size=(256, 4, 4)), 0.5 * rng7.normal(size=(256, 9, 4, 4)),
+        0.3 * rng7.normal(size=(256, 50, 9)), 0.1 + 0.05 * rng7.random((256, 50)),
+        rng7.normal(size=(256, 50, 4)), rng7.normal(size=(256, 50, 4))))
+    ins4 = (Gd7, Gv7, u7[:, None], dt7[:, None], x7[:, None], xn7[:, None])
+    _build.reset_launches()
+    outs9 = (expv_kernel.window_jac(12, True, Gd7, Gv7, u7, dt7, x7),
+             expv_kernel.residual_action(12, *ins4), expv_kernel.residual_l1(12, *ins4))
+    plain9, launched9 = dict(_build.PLAIN_CALLS), sum(_build.LAUNCHES.values())
+    same9 = all(torch.equal(a, b) for a, b in zip(outs9, (
+        expv_kernel.window_jac_plain(12, True, Gd7, Gv7, u7, dt7, x7),
+        expv_kernel.residual_action_plain(12, *ins4), expv_kernel.residual_l1_plain(12, *ins4))))
+    print(f"[kernel] K3/K4 at (4,9), beyond the caps: plain calls {json.dumps(plain9)}, launches "
+          f"{launched9}, bitwise the plain versions': {same9}", flush=True)
+    if not (same9 and launched9 == 0 and plain9["window_jac"] == plain9["residual"]
+            == plain9["residual_l1"] == 1):
+        fail("K3/K4 at 9 drives did not take the plain version")
+    del Gd7, Gv7, u7, dt7, x7, xn7, ins4, outs9
+
     # the captured calls (≈ 1.5 GiB at B=8192) go before the paths' peak
     # device memory is measured
     del cap_f, cap_r
@@ -1196,6 +1594,7 @@ def main() -> None:
     with Timed(solve_mod, "_solve_impl") as tm1:  # for path 4's polish comparison
         res2, res1 = benchmarks.run_headline(prob_big, cfg, times)
     launches = dict(_build.LAUNCHES)
+    no_plain_calls("path 1")
     t_seek, t_polish = times["seek"], times["polish"]
 
     conv = res2.converged.cpu().numpy()
@@ -1220,7 +1619,7 @@ def main() -> None:
         print(f"[pipeline] unconverged lane {i}: seek {it1[i]} iterations, kkt {kkt1[i]:.3e}; "
               f"polish {it2[i]} iterations, kkt {kkt[i]:.3e}, status {st2[i]}")
 
-    if any(v == 0 for v in launches.values()):
+    if any(v == 0 for v in base_counts(launches).values()):
         fail(f"a kernel of the main path was never launched: {launches}")
     if len(lanes) < MIN_CONVERGED * B:
         fail(f"only {len(lanes)}/{B} lanes converged")
@@ -1237,6 +1636,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_path2 = time.perf_counter() - t0
     launches2 = dict(_build.LAUNCHES)
+    no_plain_calls("path 2")
     conv2 = res_sc.converged.cpu().numpy()
     kkt2 = res_sc.kkt_error.cpu().numpy()
     it_sc = res_sc.iterations.cpu().numpy()
@@ -1257,7 +1657,7 @@ def main() -> None:
     for i in np.nonzero(~conv2)[0][:16]:
         print(f"[path2] unconverged lane {i}: {it_sc[i]} iterations, kkt {kkt2[i]:.3e}, "
               f"status {st_sc[i]}")
-    if any(v == 0 for v in launches2.values()):
+    if any(v == 0 for v in base_counts(launches2).values()):
         fail(f"a kernel of path 2 was never launched: {launches2}")
     if len(lanes2) < MIN_CONVERGED * B2:
         fail(f"path 2: only {len(lanes2)}/{B2} lanes converged")
@@ -1274,6 +1674,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_path3 = time.perf_counter() - t0
     launches3 = dict(_build.LAUNCHES)
+    no_plain_calls("path 3")
     conv3 = res_g.converged.cpu().numpy()
     kkt3 = res_g.kkt_error.cpu().numpy()
     it_g = res_g.iterations.cpu().numpy()
@@ -1303,7 +1704,7 @@ def main() -> None:
     for i in np.nonzero(~conv3)[0][:16]:
         print(f"[path3] unconverged lane {i}: {it_g[i]} iterations, kkt {kkt3[i]:.3e}, "
               f"status {st_g[i]}")
-    if any(v == 0 for v in launches3.values()):
+    if any(v == 0 for v in base_counts(launches3).values()):
         fail(f"a kernel of path 3 was never launched: {launches3}")
     if len(lanes3) < MIN_CONVERGED * B3:
         fail(f"path 3: only {len(lanes3)}/{B3} lanes converged")
@@ -1389,6 +1790,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_4a = time.perf_counter() - t0
     launches4a = dict(_build.LAUNCHES)
+    no_plain_calls("path 4a")
     conv4a = res4a.converged.cpu().numpy()
     kkt4a = res4a.kkt_error.cpu().numpy()
     it_all = res4a.iterations.cpu().numpy()
@@ -1440,6 +1842,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_4b = time.perf_counter() - t0
     launches4b = dict(_build.LAUNCHES)
+    no_plain_calls("path 4b (its float32 phase; the float64 polish is not counted)")
     c32, c64 = tm4b.calls
     conv4b = res4b.converged.cpu().numpy()
     kkt4b = res4b.kkt_error.cpu().numpy()
@@ -1469,7 +1872,7 @@ def main() -> None:
     for i in np.nonzero(~conv4b)[0][:16]:
         print(f"[path4b] unconverged lane {i}: {it4b[i]} polish iterations, kkt {kkt4b[i]:.3e}, "
               f"status {st4b[i]}")
-    launches4 = {k: launches4a[k] + c32["launches"].get(k, 0) for k in launches4a}
+    launches4 = {k: launches4a[k] + c32["launches"].get(k, 0) for k in BASE_KERNELS}
     if any(v == 0 for v in launches4.values()):
         fail(f"a kernel of path 4 (4a and 4b's float32 phase) was never launched: {launches4}")
     if len(lanes4a) < MIN_CONVERGED * B4a:
@@ -1497,6 +1900,7 @@ def main() -> None:
         with Timed(solve_mod, "_solve_impl") as tm:
             res = solve_batch_compact(prob_cp, **cfg5["solve_kw"])
         counts = dict(_build.LAUNCHES)
+        no_plain_calls(tag)
         conv5 = res.converged.cpu().numpy()
         kkt5 = res.kkt_error.cpu().numpy()
         it5 = res.iterations.cpu().numpy()
@@ -1538,6 +1942,7 @@ def main() -> None:
         _build.reset_launches()
         with Timed(solve_mod, "_solve_impl") as tm5c:
             res5c = solve_batch_compact(prob5c, **dict(cfg["phase1_kw"], **extra))
+        no_plain_calls(f"path 5c ({name})")
         for k, v in _build.LAUNCHES.items():
             launches5c[k] = launches5c.get(k, 0) + v
         n_conv = int(res5c.converged.sum())
@@ -1560,10 +1965,16 @@ def main() -> None:
 
     # ---------------- 8. path 6: the dense backend --------------------------- #
     launches6b = path6(dev, prob_big, prob_cp, it1, obj5b)
-    del prob_cp
+    no_plain_calls("path 6")
+    del prob_cp, prob_big
+
+    # ---------------- 9. path 7: the scaling family -------------------------- #
+    torch.cuda.empty_cache()
+    launches7 = path7(dev)
 
     table = []
-    for name, (route, src, replaces) in KERNELS.items():
+    for name in BASE_KERNELS:
+        route, src, replaces = KERNELS[name]
         r = results[name]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=launches[name], max_abs_err=r["max_abs_err"],
@@ -1591,7 +2002,7 @@ def main() -> None:
               ("factor_solve", "window_jac", "residual", "residual_l1")]
              + [(f"{k}_sched", k, p2_launch) for k in
                 ("factor_solve", "window_jac", "residual", "residual_l1")]
-             + [(f"{k}_{B4b}", k, c32["launches"]) for k in KERNELS])
+             + [(f"{k}_{B4b}", k, c32["launches"]) for k in BASE_KERNELS])
     for name, key, counts in path4:
         route, src, replaces = KERNELS[key]
         r = results[name if name in results else key]
@@ -1608,7 +2019,7 @@ def main() -> None:
              ("factor_solve_lbfgs", "factor_solve", launches5b, "factor_solve_cp"),
              ("resolve_lbfgs", "resolve", launches5b, "resolve_lbfgs")]
     path5 += [(f"{k}_options", k, launches5c, "resolve_generic" if k == "resolve" else k)
-              for k in KERNELS]
+              for k in BASE_KERNELS]
     for name, key, counts, res_key in path5:
         route, src, replaces = KERNELS[key]
         r = results[res_key]
@@ -1623,6 +2034,28 @@ def main() -> None:
         r = results[k]
         table.append(dict(name=f"{k}_dense", route=route, source=src, replaces=replaces,
                           launches=launches6b.get(k, 0), max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
+    # path 7's rows: K1/K2 generic on 7a (and K1 on 7c, the same shape), the
+    # wide K1/K2 on 7b, the generic K3/K4 on 7c; the seeded rows (the wide
+    # corner, the generic K3/K4 at (3,1) and (8,8)) at shapes no path runs
+    rows7 = [("factor_solve_7a", "factor_solve", launches7["7a"], "factor_solve_7a"),
+             ("resolve_7a", "resolve", launches7["7a"], "resolve_7a"),
+             ("factor_solve_7b", "factor_solve_wide", launches7["7b"], "factor_solve_7b"),
+             ("resolve_7b", "resolve_wide", launches7["7b"], "resolve_7b"),
+             ("factor_solve_7c", "factor_solve", launches7["7c"], "factor_solve_7a"),
+             ("window_jac_7c", "window_jac_generic", launches7["7c"], "window_jac_7c"),
+             ("residual_7c", "residual_generic", launches7["7c"], "residual_7c"),
+             ("residual_l1_7c", "residual_l1_generic", launches7["7c"], "residual_l1_7c"),
+             ("factor_solve_wide_corner", "factor_solve_wide", {}, "factor_solve_wide_corner"),
+             ("resolve_wide_corner", "resolve_wide", {}, "resolve_wide_corner")]
+    rows7 += [(f"{k}_{xd}_{nd}", f"{k}_generic", {}, f"{k}_{xd}_{nd}")
+              for xd, nd in ((3, 1), (8, 8)) for k in ("window_jac", "residual", "residual_l1")]
+    for name, key, counts, res_key in rows7:
+        route, src, replaces = KERNELS[key]
+        r = results[res_key]
+        table.append(dict(name=name, route=route, source=src, replaces=replaces,
+                          launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     print(json.dumps({"kernels": table}))

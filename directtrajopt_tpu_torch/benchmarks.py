@@ -27,7 +27,11 @@ time-dependent generator with an order-1 control spline
 so ``td_config`` solves it on the dense backend in float64, certified by
 ``td_certificate``; ``dense_config`` and ``cartpole_dense_lbfgs_config`` run
 path 1's and path 5's families on the dense backend (path 6 of
-``chip_smoke.py``).
+``chip_smoke.py``). ``make_scaled_problem`` and
+``make_batched_scaled_problems`` build the seventh, the JAX package's
+scaling family (random generators of any state dimension, lane i from seed
+42 + i, the batch of its ``bench_sweep.py``), with ``scaled_config`` the
+sweep's float32 options (path 7 of ``chip_smoke.py``).
 
 Problems are built on the host in numpy from a seed (the same draws as the
 JAX package, so both packages pose the same problems) and put on
@@ -100,6 +104,12 @@ __all__ = [
     "dense_config",
     "cartpole_dense_lbfgs_config",
     "GOLDEN_TD",
+    "scaled_data",
+    "scaled_trajectory",
+    "make_scaled_problem",
+    "make_batched_scaled_problems",
+    "scaled_config",
+    "GOLDEN_SCALED",
 ]
 
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -110,6 +120,7 @@ GOLDEN_GLOBAL_PHASE = os.path.join(_GOLDEN_DIR, "torch", "global_phase_n51.npz")
 GOLDEN_SCHEDULED = os.path.join(_GOLDEN_DIR, "torch", "scheduled_n51.npz")
 GOLDEN_CARTPOLE = os.path.join(_GOLDEN_DIR, "cartpole_n40_seed0.npz")
 GOLDEN_TD = os.path.join(_GOLDEN_DIR, "torch", "td_order1_n51.npz")
+GOLDEN_SCALED = os.path.join(_GOLDEN_DIR, "torch", "scaled.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):
@@ -160,7 +171,7 @@ def _bilinear_problem(data: dict, *, device, dtype, free_time: bool, taylor_orde
     )
     integrators = [
         BilinearIntegrator.create((omega * Gz, [Gx, Gy]), "x", "u", batch=B, device=device,
-                                  dtype=dtype, taylor_order=taylor_order),
+                                  dtype=dtype, method="taylor", taylor_order=taylor_order),
         DerivativeIntegrator.create("u", "du"),
         DerivativeIntegrator.create("du", "ddu"),
     ]
@@ -223,6 +234,76 @@ SC_G_DRIFT = np.array([[0.0, 1.0], [-1.0, 0.0]])
 SC_G_DRIVE = np.array([[0.0, 1.0], [1.0, 0.0]])
 
 
+def scaled_data(batch: int, N: int, state_dim: int, n_controls: int = 2, seed: int = 42):
+    """The scaling family's host draws for lanes seed … seed + batch − 1, each
+    from its own ``np.random.default_rng`` in the JAX package's order
+    (``make_scaled_problem``): G_drift (batch, n, n), G_drives (batch, m,
+    n, n) and the guesses x (batch, N, n), u, du (batch, N, m), Δt ≡ 0.1."""
+    Gd, Gv, data = [], [], {"x": [], "u": [], "du": []}
+    for lane in range(batch):
+        rng = np.random.default_rng(seed + lane)
+        Gd.append(rng.standard_normal((state_dim, state_dim)))
+        Gv.append(np.stack([rng.standard_normal((state_dim, state_dim))
+                            for _ in range(n_controls)]))
+        data["x"].append(rng.standard_normal((N, state_dim)))
+        data["u"].append(0.1 * rng.standard_normal((N, n_controls)))
+        data["du"].append(rng.standard_normal((N, n_controls)))
+    data = {k: np.stack(v) for k, v in data.items()}
+    data["dt"] = np.full((batch, N, 1), 0.1)
+    return np.stack(Gd), np.stack(Gv), data
+
+
+def scaled_trajectory(data: dict, *, device, dtype) -> Trajectory:
+    """The scaling family's trajectory around per-lane data (B, N, ·): x
+    from e₀, u pinned to 0 at both ends, |u| ≤ 1, Δt ∈ [0.01, 0.5] free,
+    controls du and Δt."""
+    n, m = data["x"].shape[-1], data["u"].shape[-1]
+    x_init = np.zeros(n)
+    x_init[0] = 1.0
+    return Trajectory.create(data, timestep="dt", controls=("du", "dt"),
+                             initial={"x": x_init, "u": np.zeros(m)}, final={"u": np.zeros(m)},
+                             bounds={"u": 1.0, "dt": (0.01, 0.5)}, device=device, dtype=dtype)
+
+
+def make_batched_scaled_problems(batch: int, N: int, state_dim: int, n_controls: int = 2,
+                                 seed: int = 42, *, device=None,
+                                 dtype=torch.float64) -> DirectTrajOptProblem:
+    """The JAX package's ``make_scaled_problem`` (the reference's
+    ``problem_utils.jl:44-77``) for seeds seed … seed + batch − 1, one lane
+    each: ``x_{k+1} = exp(Δt_k G(u_k)) x_k`` with random G_drift and
+    G_drives (the integrator's default method, Padé), u → du a derivative
+    chain, objective ½Σ‖u_k‖²."""
+    Gd, Gv, data = scaled_data(batch, N, state_dim, n_controls, seed)
+    traj = scaled_trajectory(data, device=device, dtype=dtype)
+    integrators = [
+        BilinearIntegrator.create((Gd, Gv), "x", "u", batch=batch, device=device, dtype=dtype),
+        DerivativeIntegrator.create("u", "du"),
+    ]
+    return DirectTrajOptProblem.create(traj, QuadraticRegularizer.create("u", traj, 1.0),
+                                       integrators)
+
+
+def make_scaled_problem(N: int, state_dim: int, n_controls: int = 2, seed: int = 42, *,
+                        device=None, dtype=torch.float64) -> DirectTrajOptProblem:
+    """One lane of :func:`make_batched_scaled_problems`: the JAX package's
+    ``make_scaled_problem(N, state_dim, n_controls, seed)``."""
+    return make_batched_scaled_problems(1, N, state_dim, n_controls, seed, device=device,
+                                        dtype=dtype)
+
+
+def scaled_config() -> dict:
+    """Path 7: the scaling family at N=51 through ``solve_batch_compact`` with
+    the float32 options of the JAX package's ``bench_sweep.py`` (tol 1e-5,
+    acceptable_tol 5e-4 after 5 iterations, Gauss-Newton Hessian,
+    kappa_epsilon 100, kappa_mu 0.1; straggler phases of 20, 30, 72 and
+    256 iterations, the later ones restarting μ at 1e-3, in chunks of 128
+    lanes) on one chunk of 128 lanes. Returns ``{"N", "batch", "solve_kw"}``."""
+    return dict(N=51, batch=128, solve_kw=dict(
+        tol=1e-5, acceptable_tol=5e-4, acceptable_iter=5, hessian_approximation="gauss_newton",
+        kappa_epsilon=100.0, kappa_mu=0.1,
+        phases=((20, None), (30, 1e-3), (72, 1e-3), (256, 1e-3)), chunk=128))
+
+
 def make_batched_state_constrained_problems(batch: int, N: int = 51, seed0: int = 0, *,
                                             device=None,
                                             dtype=torch.float64, dt: float = 0.15,
@@ -251,7 +332,8 @@ def make_batched_state_constrained_problems(batch: int, N: int = 51, seed0: int 
     traj = Trajectory.create({"x": np.stack(xg), "u": np.stack(ug)}, timestep=dt, controls="u",
                              initial={"x": x0}, final={"x": xs[-1]}, device=device, dtype=dtype)
     integ = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=batch,
-                                      device=device, dtype=dtype, taylor_order=taylor_order)
+                                      device=device, dtype=dtype, method="taylor",
+                                      taylor_order=taylor_order)
     con = NonlinearKnotPointConstraint.create(
         lambda x: (x * x).sum(-1, keepdim=True) - cap, "x", traj, equality=False)
     return DirectTrajOptProblem.create(traj, QuadraticRegularizer.create("u", traj, 1.0), integ,
@@ -307,7 +389,8 @@ def make_batched_global_problems(batch: int, N: int = 51, seed0: int = 0, *, dev
         initial={"x": x0}, final={"x": xs[-1]}, bounds={"u": 0.8, "theta": 3.0},
         global_data={"theta": np.stack(thg)}, device=device, dtype=dtype)
     integ = BilinearIntegrator.create((SC_G_DRIFT, [SC_G_DRIVE]), "x", "u", batch=batch,
-                                      device=device, dtype=dtype, taylor_order=taylor_order)
+                                      device=device, dtype=dtype, method="taylor",
+                                      taylor_order=taylor_order)
     obj = (QuadraticRegularizer.create("u", traj, 1.0)
            + GlobalObjective.create(lambda th: ((th - 0.3) ** 2).sum(), "theta", traj)
            + GlobalKnotPointObjective.create(lambda v: 0.02 * (v[1] - v[-1]) ** 2, "x",

@@ -3,6 +3,7 @@
 // Replaces the two Pallas kernels of directtrajopt_tpu/ops/expv_kernel.py:
 //   * _kernel      (window Jacobian, wrapper _window_jac_pallas)  -> window_jac_kernel
 //   * _res_kernel  (residual chain, wrapper _res_pallas)          -> residual_grid_kernel
+// each instantiated at two exact shapes and once generic for any other.
 //
 // Per window k of lane l, with G = Gd + Σ_m u_m·Gv_m and A = Δt·G, the order-m
 // Taylor action E·x is the Horner chain  y ← x + A·y / j  (j = m..1). The
@@ -12,7 +13,13 @@
 // The small matrices live in registers; their sizes are template constants,
 // instantiated for the two shapes the port's paths give: x_dim=4 with 2
 // drives, the bilinear benchmark, and x_dim=2 with 1 drive, the
-// state-constrained family.
+// state-constrained family. The generic instantiation, at the maximum sizes
+// XD = ND = kDimMax = 8, covers the rest of the Pallas kernels' range,
+// x_dim ≤ 8 and n_drives ≤ 8: every loop bounded by 8 and cut at the
+// call's sizes, which it takes at run time (the exact instantiations cut
+// at their template constants, so their guards fold away and their code is
+// as before). A generic K3 block holds as many windows as its output tile
+// lets into kJacSmem, at most kJacThreads / GS.
 //
 // window_jac_kernel (K3): the knot matrix read in place, as K4 reads it (the
 // same (P, T, K) views, without x_next), and −J written straight into the
@@ -101,6 +108,18 @@ struct Divisor {
   }
 };
 
+// The generic kernels' bound on x_dim and n_drives: the Pallas kernels' caps.
+constexpr int kDimMax = 8;
+
+// x_dim and n_drives of a call. The exact instantiations take theirs from
+// the template; the generic one, at the maximum sizes, from here.
+struct Dims {
+  int xd, nd;
+};
+
+template <int XD, int ND>
+constexpr bool kGeneric = XD == kDimMax && ND == kDimMax;
+
 constexpr int kResBlock = 256;               // threads per block
 constexpr size_t kResSmem = 48 * 1024;       // the L1 form's partials (no opt-in)
 
@@ -113,7 +132,8 @@ inline int res_instances(int K) { return K < 1 ? kResBlock : (K >= kResBlock ? 1
 template <int XD, int ND>
 __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigned k, int order,
                                                  const Gens& g, const View& u, const View& dt,
-                                                 const View& x, const View& xn, float* r) {
+                                                 const View& x, const View& xn, float* r,
+                                                 int xd, int nd) {
   const float* gd = g.gd + q * g.d[0];
   const float* gv = g.gv + q * g.v[0];
   const float h = dt.p[q * dt.s[0] + t * dt.s[1] + k * dt.s[2]];
@@ -122,18 +142,25 @@ __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigne
   const float* xnp = xn.p + (q * xn.s[0] + t * xn.s[1] + k * xn.s[2]);
   float um[ND];
 #pragma unroll
-  for (int m = 0; m < ND; ++m) um[m] = up[m];
+  for (int m = 0; m < ND; ++m) {
+    if (m >= nd) break;
+    um[m] = up[m];
+  }
   float A[XD][XD], xs[XD], y[XD];
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
     xs[i] = xp[i];
     y[i] = xs[i];
 #pragma unroll
     for (int j = 0; j < XD; ++j) {
+      if (j >= xd) break;
       float s = 0.0f;
 #pragma unroll
-      for (int m = 0; m < ND; ++m)
+      for (int m = 0; m < ND; ++m) {
+        if (m >= nd) break;
         s += um[m] * __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]);
+      }
       A[i][j] = h * (__ldg(gd + i * g.d[1] + j * g.d[2]) + s);
     }
   }
@@ -142,17 +169,25 @@ __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigne
     float yn[XD];
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
       float s = 0.0f;
 #pragma unroll
-      for (int j = 0; j < XD; ++j) s += A[i][j] * y[j];
+      for (int j = 0; j < XD; ++j) {
+        if (j >= xd) break;
+        s += A[i][j] * y[j];
+      }
       yn[i] = xs[i] + s / fk;
     }
 #pragma unroll
-    for (int i = 0; i < XD; ++i) y[i] = yn[i];
+    for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
+      y[i] = yn[i];
+    }
   }
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
     const float ri = xnp[i] - y[i];
     if (r) r[i] = ri;
     acc += fabsf(ri);
@@ -168,13 +203,15 @@ __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigne
 template <int XD, int ND, bool L1>
 __global__ void __launch_bounds__(kResBlock) residual_grid_kernel(
     Divisor T, Divisor K, unsigned n, unsigned ipb, int order, Gens g, View u, View dt, View x,
-    View xn, float* __restrict__ out) {
+    View xn, Dims dims, float* __restrict__ out) {
+  constexpr bool GEN = kGeneric<XD, ND>;
+  const int xd = GEN ? dims.xd : XD, nd = GEN ? dims.nd : ND;
   if (!L1) {
     const unsigned w = blockIdx.x * blockDim.x + threadIdx.x;
     if (w >= n) return;
     const unsigned inst = K.div(w), q = T.div(inst);
     window_residual<XD, ND>(q, inst - q * T.d, w - inst * K.d, order, g, u, dt, x, xn,
-                            out + (size_t)w * XD);
+                            out + (size_t)w * xd, xd, nd);
     return;
   }
   extern __shared__ float part[];
@@ -183,7 +220,7 @@ __global__ void __launch_bounds__(kResBlock) residual_grid_kernel(
   for (unsigned w = threadIdx.x; w < n_here * K.d; w += blockDim.x) {
     const unsigned j = K.div(w), q = T.div(i0 + j);
     part[w] = window_residual<XD, ND>(q, i0 + j - q * T.d, w - j * K.d, order, g, u, dt, x, xn,
-                                      nullptr);
+                                      nullptr, xd, nd);
   }
   __syncthreads();
   if (threadIdx.x < n_here) {
@@ -211,58 +248,89 @@ constexpr size_t kJacSmem = 48 * 1024;       // the output tile (no opt-in)
 template <int XD, int ND>
 __device__ __forceinline__ float window_generator(unsigned q, unsigned t, unsigned k,
                                                   const Gens& g, const View& u, const View& dt,
-                                                  float (&G)[XD][XD], float (&A)[XD][XD]) {
+                                                  float (&G)[XD][XD], float (&A)[XD][XD],
+                                                  int xd, int nd) {
   const float* gd = g.gd + q * g.d[0];
   const float* gv = g.gv + q * g.v[0];
   const float h = dt.p[q * dt.s[0] + t * dt.s[1] + k * dt.s[2]];
   const float* up = u.p + (q * u.s[0] + t * u.s[1] + k * u.s[2]);
   float um[ND];
 #pragma unroll
-  for (int m = 0; m < ND; ++m) um[m] = up[m];
+  for (int m = 0; m < ND; ++m) {
+    if (m >= nd) break;
+    um[m] = up[m];
+  }
 #pragma unroll
-  for (int i = 0; i < XD; ++i)
+  for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
 #pragma unroll
     for (int j = 0; j < XD; ++j) {
+      if (j >= xd) break;
       float s = 0.0f;
 #pragma unroll
-      for (int m = 0; m < ND; ++m)
+      for (int m = 0; m < ND; ++m) {
+        if (m >= nd) break;
         s += um[m] * __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]);
+      }
       G[i][j] = __ldg(gd + i * g.d[1] + j * g.d[2]) + s;
       A[i][j] = h * G[i][j];
     }
+  }
   return h;
 }
 
 // E, the Taylor polynomial of A: E ← I + A·E/k, each column a chain of its
 // own; −E goes to the XD columns of o from its first (row stride d).
 template <int XD>
-__device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float* o, int d) {
+__device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float* o, int d,
+                                      int xd) {
   float E[XD][XD];
 #pragma unroll
-  for (int i = 0; i < XD; ++i)
+  for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
 #pragma unroll
-    for (int c = 0; c < XD; ++c) E[i][c] = (i == c) ? 1.0f : 0.0f;
+    for (int c = 0; c < XD; ++c) {
+      if (c >= xd) break;
+      E[i][c] = (i == c) ? 1.0f : 0.0f;
+    }
+  }
   for (int k = order; k >= 1; --k) {
     const float fk = (float)k;
     float En[XD][XD];
 #pragma unroll
-    for (int i = 0; i < XD; ++i)
+    for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
 #pragma unroll
       for (int c = 0; c < XD; ++c) {
+        if (c >= xd) break;
         float s = 0.0f;
 #pragma unroll
-        for (int j = 0; j < XD; ++j) s += A[i][j] * E[j][c];
+        for (int j = 0; j < XD; ++j) {
+          if (j >= xd) break;
+          s += A[i][j] * E[j][c];
+        }
         En[i][c] = ((i == c) ? 1.0f : 0.0f) + s / fk;
       }
+    }
 #pragma unroll
-    for (int i = 0; i < XD; ++i)
+    for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
 #pragma unroll
-      for (int c = 0; c < XD; ++c) E[i][c] = En[i][c];
+      for (int c = 0; c < XD; ++c) {
+        if (c >= xd) break;
+        E[i][c] = En[i][c];
+      }
+    }
   }
 #pragma unroll
-  for (int i = 0; i < XD; ++i)
+  for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
 #pragma unroll
-    for (int c = 0; c < XD; ++c) o[i * d + c] = -E[i][c];
+    for (int c = 0; c < XD; ++c) {
+      if (c >= xd) break;
+      o[i * d + c] = -E[i][c];
+    }
+  }
 }
 
 // The primal chain y ← x + A·y/k and its tangents ẏ_u = (Δt·Gv_m·y + A·ẏ_u)/k
@@ -272,67 +340,96 @@ __device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float
 template <int XD, int ND>
 __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv, const Gens& g,
                                              const float (&G)[XD][XD], const float (&A)[XD][XD],
-                                             const float* xp, float* o, const JacCols& c) {
+                                             const float* xp, float* o, const JacCols& c, int xd,
+                                             int nd) {
   const bool free_time = c.t >= 0;
   float xs[XD], y[XD], ydt[XD], ydu[ND][XD];
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
     xs[i] = xp[i];
     y[i] = xs[i];
     ydt[i] = 0.0f;
   }
 #pragma unroll
-  for (int m = 0; m < ND; ++m)
+  for (int m = 0; m < ND; ++m) {
+    if (m >= nd) break;
 #pragma unroll
-    for (int i = 0; i < XD; ++i) ydu[m][i] = 0.0f;
+    for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
+      ydu[m][i] = 0.0f;
+    }
+  }
   for (int k = order; k >= 1; --k) {
     const float fk = (float)k;
 #pragma unroll
     for (int m = 0; m < ND; ++m) {
+      if (m >= nd) break;
       float nxt[XD];
 #pragma unroll
       for (int i = 0; i < XD; ++i) {
+        if (i >= xd) break;
         float gy = 0.0f, ay = 0.0f;
 #pragma unroll
         for (int j = 0; j < XD; ++j) {
+          if (j >= xd) break;
           gy += __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]) * y[j];
           ay += A[i][j] * ydu[m][j];
         }
         nxt[i] = (h * gy + ay) / fk;
       }
 #pragma unroll
-      for (int i = 0; i < XD; ++i) ydu[m][i] = nxt[i];
+      for (int i = 0; i < XD; ++i) {
+        if (i >= xd) break;
+        ydu[m][i] = nxt[i];
+      }
     }
     if (free_time) {
       float nxt[XD];
 #pragma unroll
       for (int i = 0; i < XD; ++i) {
+        if (i >= xd) break;
         float gy = 0.0f, ay = 0.0f;
 #pragma unroll
         for (int j = 0; j < XD; ++j) {
+          if (j >= xd) break;
           gy += G[i][j] * y[j];
           ay += A[i][j] * ydt[j];
         }
         nxt[i] = (gy + ay) / fk;
       }
 #pragma unroll
-      for (int i = 0; i < XD; ++i) ydt[i] = nxt[i];
+      for (int i = 0; i < XD; ++i) {
+        if (i >= xd) break;
+        ydt[i] = nxt[i];
+      }
     }
     float yn[XD];
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
       float s = 0.0f;
 #pragma unroll
-      for (int j = 0; j < XD; ++j) s += A[i][j] * y[j];
+      for (int j = 0; j < XD; ++j) {
+        if (j >= xd) break;
+        s += A[i][j] * y[j];
+      }
       yn[i] = xs[i] + s / fk;
     }
 #pragma unroll
-    for (int i = 0; i < XD; ++i) y[i] = yn[i];
+    for (int i = 0; i < XD; ++i) {
+      if (i >= xd) break;
+      y[i] = yn[i];
+    }
   }
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
+    if (i >= xd) break;
 #pragma unroll
-    for (int m = 0; m < ND; ++m) o[i * c.d + c.u + m] = -ydu[m][i];
+    for (int m = 0; m < ND; ++m) {
+      if (m >= nd) break;
+      o[i * c.d + c.u + m] = -ydu[m][i];
+    }
     if (free_time) o[i * c.d + c.t] = -ydt[i];
   }
 }
@@ -343,16 +440,18 @@ __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv
 // (no divergence within a warp); with GS = 1 a thread runs both. Each
 // window's XD × d rows are assembled in shared memory (+0 where J has no
 // column), and the block stores its windows' rows, one contiguous span of
-// out (n, XD, d).
+// out (n, XD, d). The generic kernel's block holds blockDim.x / GS windows.
 template <int XD, int ND, int GS>
 __global__ void __launch_bounds__(kJacThreads) window_jac_kernel(
     Divisor T, Divisor K, unsigned n, int order, Gens g, View u, View dt, View x, JacCols c,
-    float* __restrict__ out) {
-  constexpr unsigned W = kJacThreads / GS;  // windows per block
+    Dims dims, float* __restrict__ out) {
+  constexpr bool GEN = kGeneric<XD, ND>;
+  const int xd = GEN ? dims.xd : XD, nd = GEN ? dims.nd : ND;
+  const unsigned W = GEN ? blockDim.x / GS : kJacThreads / GS;  // windows per block
   extern __shared__ float tile[];
   const unsigned w0 = blockIdx.x * W;
   const unsigned n_here = n - w0 < W ? n - w0 : W;
-  const unsigned span = XD * c.d;  // output floats per window
+  const unsigned span = xd * c.d;  // output floats per window
   for (unsigned i = threadIdx.x; i < n_here * span; i += blockDim.x) tile[i] = 0.0f;
   __syncthreads();
   const unsigned role = threadIdx.x / W, lw = threadIdx.x % W;
@@ -360,45 +459,52 @@ __global__ void __launch_bounds__(kJacThreads) window_jac_kernel(
     const unsigned w = w0 + lw, inst = K.div(w), q = T.div(inst);
     const unsigned t = inst - q * T.d, k = w - inst * K.d;
     float G[XD][XD], A[XD][XD];
-    const float h = window_generator<XD, ND>(q, t, k, g, u, dt, G, A);
+    const float h = window_generator<XD, ND>(q, t, k, g, u, dt, G, A, xd, nd);
     float* o = tile + lw * span;
-    if (GS == 1 || role == 0) jac_e<XD>(order, A, o + c.x, c.d);
+    if (GS == 1 || role == 0) jac_e<XD>(order, A, o + c.x, c.d, xd);
     if (GS == 1 || role == 1)
       jac_tangents<XD, ND>(order, h, g.gv + q * g.v[0], g, G, A,
-                           x.p + (q * x.s[0] + t * x.s[1] + k * x.s[2]), o, c);
+                           x.p + (q * x.s[0] + t * x.s[1] + k * x.s[2]), o, c, xd, nd);
   }
   __syncthreads();
   float* dst = out + (size_t)w0 * span;
   for (unsigned i = threadIdx.x; i < n_here * span; i += blockDim.x) dst[i] = tile[i];
 }
 
+// The generic kernel's windows per block W fill at most kJacSmem with their
+// output tile (W · x_dim · d floats), up to kJacThreads / GS.
 template <int XD, int ND>
 int launch_jac(int P, int T, int K, int order, const Gens& g, const View& u, const View& dt,
-               const View& x, const JacCols& c, float* out, cudaStream_t s) {
+               const View& x, const JacCols& c, const Dims& dims, float* out, cudaStream_t s) {
   const unsigned n = (unsigned)P * (unsigned)T * (unsigned)K;
   if (n == 0) return 0;
   const bool split = n < kJacSplitBelow;
-  const unsigned W = split ? kJacThreads / 2 : kJacThreads;
-  const size_t smem = sizeof(float) * W * XD * c.d;
-  if (smem > kJacSmem) return (int)cudaErrorInvalidValue;
+  const unsigned GS = split ? 2 : 1;
+  constexpr bool GEN = kGeneric<XD, ND>;
+  const size_t per_window = sizeof(float) * dims.xd * c.d;
+  unsigned W = kJacThreads / GS;
+  if (GEN && W * per_window > kJacSmem) W = (unsigned)(kJacSmem / per_window);
+  const size_t smem = W * per_window;
+  if (W == 0 || smem > kJacSmem) return (int)cudaErrorInvalidValue;
+  const unsigned threads = GEN ? W * GS : kJacThreads;
   if (split)
-    window_jac_kernel<XD, ND, 2><<<(n + W - 1) / W, kJacThreads, smem, s>>>(
-        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, out);
+    window_jac_kernel<XD, ND, 2><<<(n + W - 1) / W, threads, smem, s>>>(
+        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, dims, out);
   else
-    window_jac_kernel<XD, ND, 1><<<(n + W - 1) / W, kJacThreads, smem, s>>>(
-        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, out);
+    window_jac_kernel<XD, ND, 1><<<(n + W - 1) / W, threads, smem, s>>>(
+        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, dims, out);
   return (int)cudaGetLastError();
 }
 
 template <int XD, int ND, bool L1>
 int launch_res(int P, int T, int K, int order, const Gens& g, const View& u, const View& dt,
-               const View& x, const View& xn, float* out, cudaStream_t s) {
+               const View& x, const View& xn, const Dims& dims, float* out, cudaStream_t s) {
   const unsigned n_inst = (unsigned)P * (unsigned)T;
   if (!L1) {
     const unsigned n = n_inst * (unsigned)K;
     if (n == 0) return 0;
     residual_grid_kernel<XD, ND, false><<<(n + kResBlock - 1) / kResBlock, kResBlock, 0, s>>>(
-        Divisor(T), Divisor(K), n, 0, order, g, u, dt, x, xn, out);
+        Divisor(T), Divisor(K), n, 0, order, g, u, dt, x, xn, dims, out);
     return (int)cudaGetLastError();
   }
   const int ipb = res_instances(K);
@@ -407,7 +513,7 @@ int launch_res(int P, int T, int K, int order, const Gens& g, const View& u, con
   const int used = K < 1 ? kResBlock : ipb * K;
   const int threads = used >= kResBlock ? kResBlock : (used + 31) / 32 * 32;
   residual_grid_kernel<XD, ND, true><<<(n_inst + ipb - 1) / ipb, threads, smem, s>>>(
-      Divisor(T), Divisor(K), n_inst, ipb, order, g, u, dt, x, xn, out);
+      Divisor(T), Divisor(K), n_inst, ipb, order, g, u, dt, x, xn, dims, out);
   return (int)cudaGetLastError();
 }
 
@@ -425,7 +531,10 @@ bool narrow(int n, const long long* size, const long long* st, int* out) {
 }
 
 // Half-open column ranges [a, a + na) and [b, b + nb) share no column.
-bool apart(int a, int na, int b, int nb) { return a + na <= b || b + nb <= a; }
+bool apart(int a, int na, int b, int nb) { return na == 0 || nb == 0 || a + na <= b || b + nb <= a; }
+
+// The generic kernel's range: the Pallas kernels' caps.
+bool in_range(int xd, int nd) { return xd >= 1 && xd <= kDimMax && nd >= 0 && nd <= kDimMax; }
 
 }  // namespace
 
@@ -437,12 +546,14 @@ bool apart(int a, int na, int b, int nb) { return a + na <= b || b + nb <= a; }
 // contiguous. Returns cudaErrorInvalidValue, launching nothing, where P·T·K
 // or a view's element offset exceeds 2³¹ − 1, where J's columns fall outside
 // [0, d) or overlap, or where a block's output tile (up to kJacThreads
-// windows × xd × d floats) exceeds kJacSmem. Instantiated at (xd, nd) =
-// (4, 2) and (2, 1), as dto_residual.
+// windows × xd × d floats) exceeds kJacSmem, or where (xd, nd) is outside
+// 1 ≤ xd ≤ 8, 0 ≤ nd ≤ 8. Exact kernels at (xd, nd) = (4, 2) and (2, 1),
+// as dto_residual; the generic kernel at the others.
 extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, const void* Gd,
                               const void* Gv, const void* u, const void* dt, const void* x,
                               const long long* st, void* out, void* stream) {
-  if (P < 1 || T < 1 || K < 0 || (long long)P * T * (K > 1 ? K : 1) > INT_MAX)
+  if (P < 1 || T < 1 || K < 0 || (long long)P * T * (K > 1 ? K : 1) > INT_MAX ||
+      !in_range(xd, nd))
     return (int)cudaErrorInvalidValue;
   const long long* cm = st + 16;
   if (cm[0] < 1 || cm[0] > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -462,9 +573,10 @@ extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, co
     return (int)cudaErrorInvalidValue;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (xd == 4 && nd == 2) return launch_jac<4, 2>(P, T, K, order, g, vu, vd, vx, c, o, s);
-  if (xd == 2 && nd == 1) return launch_jac<2, 1>(P, T, K, order, g, vu, vd, vx, c, o, s);
-  return (int)cudaErrorInvalidValue;
+  const Dims dims{xd, nd};
+  if (xd == 4 && nd == 2) return launch_jac<4, 2>(P, T, K, order, g, vu, vd, vx, c, dims, o, s);
+  if (xd == 2 && nd == 1) return launch_jac<2, 1>(P, T, K, order, g, vu, vd, vx, c, dims, o, s);
+  return launch_jac<kDimMax, kDimMax>(P, T, K, order, g, vu, vd, vx, c, dims, o, s);
 }
 
 // K4 on the trial grid: P problems × T trial slots × K windows. Gd (P, xd, xd)
@@ -475,15 +587,17 @@ extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, co
 // call passes 16 arguments). Writes (P, T, K, xd) (l1 = 0) or (P, T)
 // (l1 = 1), contiguous. Returns cudaErrorInvalidValue, launching nothing,
 // where P·T·K or an element offset of a view exceeds 2³¹ − 1, or where the
-// L1 form's K partials per block exceed kResSmem. The (xd, nd) pairs
-// instantiated: (4, 2), the bilinear benchmark's 4-D state with 2 drives,
-// and (2, 1), the state-constrained family's 2-D state with one drive. The
-// Python wrapper (ops/expv_kernel.py, SUPPORTED_SHAPES) raises for any other.
+// L1 form's K partials per block exceed kResSmem, or where (xd, nd) is
+// outside 1 ≤ xd ≤ 8, 0 ≤ nd ≤ 8. Exact kernels at (4, 2), the bilinear
+// benchmark's 4-D state with 2 drives, and (2, 1), the state-constrained
+// family's 2-D state with one drive (ops/expv_kernel.py, SUPPORTED_SHAPES);
+// the generic kernel at the others.
 extern "C" int dto_residual(int P, int T, int K, int xd, int nd, int order, int l1,
                             const void* Gd, const void* Gv, const void* u, const void* dt,
                             const void* x, const void* xn, const long long* st, void* out,
                             void* stream) {
-  if (P < 1 || T < 1 || K < 0 || (long long)P * T * (K > 1 ? K : 1) > INT_MAX)
+  if (P < 1 || T < 1 || K < 0 || (long long)P * T * (K > 1 ? K : 1) > INT_MAX ||
+      !in_range(xd, nd))
     return (int)cudaErrorInvalidValue;
   const long long gds[3] = {P, xd, xd}, gvs[4] = {P, nd, xd, xd}, one = 1;
   const long long us[4] = {P, T, K, nd}, xs[4] = {P, T, K, xd};
@@ -497,11 +611,13 @@ extern "C" int dto_residual(int P, int T, int K, int xd, int nd, int order, int 
     return (int)cudaErrorInvalidValue;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
+  const Dims dims{xd, nd};
   if (xd == 4 && nd == 2)
-    return l1 ? launch_res<4, 2, true>(P, T, K, order, g, vu, vd, vx, vn, o, s)
-              : launch_res<4, 2, false>(P, T, K, order, g, vu, vd, vx, vn, o, s);
+    return l1 ? launch_res<4, 2, true>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s)
+              : launch_res<4, 2, false>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s);
   if (xd == 2 && nd == 1)
-    return l1 ? launch_res<2, 1, true>(P, T, K, order, g, vu, vd, vx, vn, o, s)
-              : launch_res<2, 1, false>(P, T, K, order, g, vu, vd, vx, vn, o, s);
-  return (int)cudaErrorInvalidValue;
+    return l1 ? launch_res<2, 1, true>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s)
+              : launch_res<2, 1, false>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s);
+  return l1 ? launch_res<kDimMax, kDimMax, true>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s)
+            : launch_res<kDimMax, kDimMax, false>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s);
 }

@@ -3,8 +3,9 @@
 //
 // Replaces the two Pallas kernels of directtrajopt_tpu/ops/riccati_kernel.py:
 //   * _fused_kernel (:342; wrapper _factor_solve_pallas)
-//       -> factor_solve_grouped, factor_solve_generic
-//   * _resolve_kernel (:488; wrapper _resolve_pallas) -> resolve_grouped, resolve_generic
+//       -> factor_solve_grouped, factor_solve_generic, factor_solve_wide
+//   * _resolve_kernel (:488; wrapper _resolve_pallas)
+//       -> resolve_grouped, resolve_generic, resolve_wide
 //
 // Per lane: a backward sweep over the N stages (PB = P·B, PA = P·A,
 // Hvv = Qvv + BᵀPB, its Cholesky, Mvs = Qsvᵀ + BᵀPA, Kg = −Hvv⁻¹Mvs,
@@ -67,6 +68,13 @@
 //   right-hand sides in tiles of 8 inside one launch, one tile per grid
 //   row (blockIdx.y), each a full backward and forward sweep against the
 //   stored factors: a tile computes exactly as a launch of its 8 columns.
+// * factor_solve_wide / resolve_wide — the same one-thread-per-lane bodies
+//   instantiated at n_s, n_v ≤ 24 (the Pallas kernels' shape caps), for
+//   the shapes beyond the generic kernels' 16 and 8 (the scaling family's
+//   (18, 3) at state dimension 16). A 24 × 24 block is 576 floats a
+//   thread: the stage blocks live in local memory, read through L1/L2,
+//   in blocks of one warp (kWideThreads). R and the tiles as for the
+//   generic kernels.
 //
 // Division and sqrt are IEEE (no fast math): correctly rounded.
 
@@ -1148,37 +1156,61 @@ unsigned grouped_grid(int L) {
 }
 
 constexpr int kNsMax = 16, kNvMax = 8, kRMax = 8;
+// the wide kernels' bounds: the Pallas kernels' shape caps
+constexpr int kNsWide = 24, kNvWide = 24;
 // K2 takes up to the Pallas resolve's 40 right-hand sides (the L-BFGS SMW
 // correction sends 2m ≤ 40), in tiles of kRMax inside one launch.
 constexpr int kRResolveMax = 40;
 
-__global__ void __launch_bounds__(128) factor_solve_generic(
-    int L, int N, int ns, int nv, int R, unsigned s0mask, const float* Qss,
-    const float* Qsv, const float* Qvv, const float* A, const float* B, const float* qs,
-    const float* qv, const float* rb, float* P, float* Lv, float* Kg, float* Mvs,
-    float* L0, float* ok, float* dzs, float* dzv, float* lam) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  factor_solve_lane<kNsMax, kNvMax, kRMax>(l, L, N, ns, nv, R, s0mask, Qss, Qsv, Qvv, A, B,
-                                           qs, qv, rb, P, Lv, Kg, Mvs, L0, ok, dzs, dzv,
-                                           lam);
-}
+#define FACTOR_SOLVE_KERNEL(NAME, NS, NV)                                                    \
+  __global__ void __launch_bounds__(128) NAME(                                              \
+      int L, int N, int ns, int nv, int R, unsigned s0mask, const float* Qss,                \
+      const float* Qsv, const float* Qvv, const float* A, const float* B, const float* qs,   \
+      const float* qv, const float* rb, float* P, float* Lv, float* Kg, float* Mvs,          \
+      float* L0, float* ok, float* dzs, float* dzv, float* lam) {                            \
+    const int l = blockIdx.x * blockDim.x + threadIdx.x;                                     \
+    if (l >= L) return;                                                                      \
+    factor_solve_lane<NS, NV, kRMax>(l, L, N, ns, nv, R, s0mask, Qss, Qsv, Qvv, A, B, qs,    \
+                                     qv, rb, P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam);         \
+  }
 
-__global__ void __launch_bounds__(128) resolve_generic(
-    int L, int N, int ns, int nv, int R, unsigned s0mask, const float* P, const float* Lv,
-    const float* Kg, const float* Mvs, const float* L0, const float* A, const float* B,
-    const float* qs, const float* qv, const float* rb, float* dzs, float* dzv,
-    float* lam) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  // one tile of at most kRMax columns per grid row (the per-thread arrays
-  // hold kRMax): each tile's thread streams the stored factors on its own
-  const int r0 = blockIdx.y * kRMax;
-  resolve_lane<kNsMax, kNvMax, kRMax>(l, L, N, ns, nv, min(kRMax, R - r0), r0, R, s0mask, P, Lv,
-                                      Kg, Mvs, L0, A, B, qs, qv, rb, dzs, dzv, lam);
-}
+// one tile of at most kRMax columns per grid row (the per-thread arrays hold
+// kRMax): each tile's thread streams the stored factors on its own
+#define RESOLVE_KERNEL(NAME, NS, NV)                                                         \
+  __global__ void __launch_bounds__(128) NAME(                                              \
+      int L, int N, int ns, int nv, int R, unsigned s0mask, const float* P, const float* Lv, \
+      const float* Kg, const float* Mvs, const float* L0, const float* A, const float* B,    \
+      const float* qs, const float* qv, const float* rb, float* dzs, float* dzv,             \
+      float* lam) {                                                                          \
+    const int l = blockIdx.x * blockDim.x + threadIdx.x;                                     \
+    if (l >= L) return;                                                                      \
+    const int r0 = blockIdx.y * kRMax;                                                       \
+    resolve_lane<NS, NV, kRMax>(l, L, N, ns, nv, min(kRMax, R - r0), r0, R, s0mask, P, Lv,   \
+                                Kg, Mvs, L0, A, B, qs, qv, rb, dzs, dzv, lam);               \
+  }
+
+FACTOR_SOLVE_KERNEL(factor_solve_generic, kNsMax, kNvMax)
+FACTOR_SOLVE_KERNEL(factor_solve_wide, kNsWide, kNvWide)
+RESOLVE_KERNEL(resolve_generic, kNsMax, kNvMax)
+RESOLVE_KERNEL(resolve_wide, kNsWide, kNvWide)
+#undef FACTOR_SOLVE_KERNEL
+#undef RESOLVE_KERNEL
+
+// the generic kernel where its bounds hold, else the wide one
+bool wide(int ns, int nv) { return ns > kNsMax || nv > kNvMax; }
 
 constexpr int kThreads = 128;
+// The wide kernels' block. A thread's stage blocks sit in local memory,
+// interleaved with its warp's other 31 lanes, so a warp's working set
+// takes a full warp's L1 lines whatever its active threads: one warp a
+// block leaves each SM's L1 to one warp (at (18,3,3) × 128 lanes 1.8×
+// sooner than four, no sooner with fewer threads or the largest L1
+// carveout; tools/torch_wide_blocks.py, which builds it with
+// -DDTO_WIDE_THREADS).
+#ifndef DTO_WIDE_THREADS
+#define DTO_WIDE_THREADS 32
+#endif
+constexpr int kWideThreads = DTO_WIDE_THREADS;
 
 }  // namespace
 
@@ -1188,16 +1220,21 @@ extern "C" int dto_factor_solve(int L, int N, int ns, int nv, int R, unsigned s0
                                 const void* qv, const void* rb, void* P, void* Lv,
                                 void* Kg, void* Mvs, void* L0, void* ok, void* dzs,
                                 void* dzv, void* lam, void* stream) {
-  if (ns < 1 || ns > kNsMax || nv < 1 || nv > kNvMax || R < 1 || R > kRMax || N < 1)
+  if (ns < 1 || ns > kNsWide || nv < 1 || nv > kNvWide || R < 1 || R > kRMax || N < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)((L + kThreads - 1) / kThreads);
 #define ARGS                                                                             \
   (const float*)Qss, (const float*)Qsv, (const float*)Qvv, (const float*)A,             \
       (const float*)B, (const float*)qs, (const float*)qv, (const float*)rb, (float*)P, \
       (float*)Lv, (float*)Kg, (float*)Mvs, (float*)L0, (float*)ok, (float*)dzs,         \
       (float*)dzv, (float*)lam
-  factor_solve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
+  if (wide(ns, nv)) {
+    factor_solve_wide<<<(L + kWideThreads - 1) / kWideThreads, kWideThreads, 0, s>>>(
+        L, N, ns, nv, R, s0mask, ARGS);
+  } else {
+    factor_solve_generic<<<(L + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        L, N, ns, nv, R, s0mask, ARGS);
+  }
 #undef ARGS
   return (int)cudaGetLastError();
 }
@@ -1233,15 +1270,21 @@ extern "C" int dto_resolve(int L, int N, int ns, int nv, int R, unsigned s0mask,
                            const void* L0, const void* A, const void* B, const void* qs,
                            const void* qv, const void* rb, void* dzs, void* dzv, void* lam,
                            void* stream) {
-  if (ns < 1 || ns > kNsMax || nv < 1 || nv > kNvMax || R < 1 || R > kRResolveMax || N < 1)
+  if (ns < 1 || ns > kNsWide || nv < 1 || nv > kNvWide || R < 1 || R > kRResolveMax || N < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((L + kThreads - 1) / kThreads), (unsigned)((R + kRMax - 1) / kRMax));
+  const unsigned tiles = (unsigned)((R + kRMax - 1) / kRMax);
 #define ARGS                                                                            \
   (const float*)P, (const float*)Lv, (const float*)Kg, (const float*)Mvs,              \
       (const float*)L0, (const float*)A, (const float*)B, (const float*)qs,            \
       (const float*)qv, (const float*)rb, (float*)dzs, (float*)dzv, (float*)lam
-  resolve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
+  if (wide(ns, nv)) {
+    const dim3 grid((unsigned)((L + kWideThreads - 1) / kWideThreads), tiles);
+    resolve_wide<<<grid, kWideThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
+  } else {
+    const dim3 grid((unsigned)((L + kThreads - 1) / kThreads), tiles);
+    resolve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
+  }
 #undef ARGS
   return (int)cudaGetLastError();
 }

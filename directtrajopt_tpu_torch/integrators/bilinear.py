@@ -5,9 +5,9 @@ matrix is ``G(u) = G_drift + Σᵢ uᵢ·G_drives[i]`` with per-lane generators
 ``G_drift`` (B, x_dim, x_dim) and ``G_drives`` (B, u_dim, x_dim, x_dim), or
 a callable ``G_fn(u)``: a torch function of one knot's u (no lane axis)
 returning (x_dim, x_dim) in u's dtype, mapped over every window of every
-lane with ``torch.func.vmap``. The exponential is the Taylor action
-(``method="taylor"``, the port's default) or Padé-13 with ``squarings``
-scaling steps (``method="pade"``, the JAX package's default).
+lane with ``torch.func.vmap``. The exponential is Padé-13 with
+``squarings`` scaling steps (``method="pade"``, the default, as in the JAX
+package) or the Taylor action (``method="taylor"``).
 
 Residuals and window Jacobians of the Taylor method with array generators
 route through ``ops/expv_kernel.py``. The dtype gate is the JAX package's:
@@ -50,14 +50,14 @@ class BilinearIntegrator:
     G_drives: torch.Tensor | None
     x_name: str
     u_name: str
-    method: str = "taylor"
+    method: str = "pade"
     taylor_order: int = 12
     G_fn: Callable | None = None
     squarings: int = 4
 
     @staticmethod
     def create(G, x_name: str, u_name: str, *, batch: int | None = None, device=None,
-               dtype=torch.float64, method: str = "taylor", taylor_order: int = 12,
+               dtype=torch.float64, method: str = "pade", taylor_order: int = 12,
                squarings: int = 4) -> "BilinearIntegrator":
         """From a callable ``G(u)`` or a ``(G_drift, G_drives)`` pair of host
         arrays, per problem ((x, x) and (u, x, x)) or per lane (with a

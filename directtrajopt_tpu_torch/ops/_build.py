@@ -12,7 +12,12 @@ on correctly rounded division and square root (nvcc's defaults
 ``-prec-div=true -prec-sqrt=true -ftz=false``).
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels. :func:`route` decides, as
+the JAX package's ``pallas_eligible`` and ``window_jac_eligible`` do without
+their VMEM terms, whether a call takes the kernel or its plain PyTorch
+version; :data:`PLAIN_CALLS` counts the float32 calls on the card that the
+shape caps send to the plain version (the counterpart of the JAX package's
+XLA route).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "reset_launches", "library", "build_info", "stream_ptr"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "route", "library", "build_info",
+           "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -36,8 +42,22 @@ NVCC_FLAGS = [
 ]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
+# launches by kernel: K1 and K2 up to n_s 16, n_v 8 (grouped or generic) and
+# their wide instantiations beyond; K3 and K4 at their exact shapes and
+# their generic instantiations
 LAUNCHES = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
-            "residual_l1": 0}
+            "residual_l1": 0, "factor_solve_wide": 0, "resolve_wide": 0,
+            "window_jac_generic": 0, "residual_generic": 0, "residual_l1_generic": 0}
+# float32 calls on the card that the shape caps sent to the plain version, by wrapper
+PLAIN_CALLS = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
+               "residual_l1": 0}
+
+# The Pallas kernels' shape caps (directtrajopt_tpu/ops/riccati_kernel.py
+# pallas_eligible, ops/expv_kernel.py window_jac_eligible), without their
+# VMEM budgets: K1/K2 at 1 ≤ n_s, n_v ≤ 24 and R ≤ 40; K3/K4 at
+# 1 ≤ x_dim ≤ 8 and n_drives ≤ 8.
+RICCATI_CAPS = {"ns": 24, "nv": 24, "R": 40}
+EXPV_CAPS = {"xd": 8, "nd": 8}
 
 _LIB = None
 _INFO: dict = {}
@@ -55,8 +75,43 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every count of :data:`LAUNCHES` and :data:`PLAIN_CALLS` to 0."""
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def route(kind: str, device_type: str, dtype, sizes: dict) -> str:
+    """"kernel" or "plain" for a call of ``kind`` ("riccati": K1/K2, sizes
+    ns, nv, R; "expv": K3/K4, sizes xd, nd) on ``device_type`` in ``dtype``:
+    the CPU and float64 take the plain version; float32 on the card takes
+    the kernel within the shape caps (:data:`RICCATI_CAPS`,
+    :data:`EXPV_CAPS`) and the plain version beyond them."""
+    import torch
+
+    if kind == "riccati":
+        within = (1 <= sizes["ns"] <= RICCATI_CAPS["ns"] and 1 <= sizes["nv"] <= RICCATI_CAPS["nv"]
+                  and 1 <= sizes["R"] <= RICCATI_CAPS["R"])
+    elif kind == "expv":
+        within = 1 <= sizes["xd"] <= EXPV_CAPS["xd"] and 0 <= sizes["nd"] <= EXPV_CAPS["nd"]
+    else:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    if device_type == "cpu" or dtype == torch.float64:
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"unsupported device type {device_type!r}")
+    if dtype != torch.float32:
+        raise TypeError(f"the kernels take float32 or float64, got {dtype}")
+    return "kernel" if within else "plain"
+
+
+def count_plain(x, key: str) -> None:
+    """Count a plain-version call of wrapper ``key`` where it ran in float32
+    on the card (the shape caps sent it there)."""
+    import torch
+
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        PLAIN_CALLS[key] += 1
 
 
 def _nvcc() -> str:

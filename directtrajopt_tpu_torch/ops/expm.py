@@ -3,14 +3,14 @@
 Counterpart of ``directtrajopt_tpu/ops/expm.py``. ``expv_taylor`` is the
 bilinear integrator's Taylor action; ``expm_pade`` (Padé-13 with a fixed
 number of squarings) serves the integrator's Padé method and the rollouts
-(``rollout.bilinear_rollout``).
+(``rollout.bilinear_rollout``); ``expm_apply`` is its action on a vector.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["expv_taylor", "expm_pade"]
+__all__ = ["expv_taylor", "expm_pade", "expm_apply"]
 
 # Padé-13 numerator coefficients (Higham 2005)
 _B13 = (
@@ -46,3 +46,10 @@ def expm_pade(A: torch.Tensor, squarings: int = 4) -> torch.Tensor:
     for _ in range(squarings):
         R = R @ R
     return R
+
+
+def expm_apply(A: torch.Tensor, x: torch.Tensor, squarings: int = 4) -> torch.Tensor:
+    """``exp(A) @ x`` through :func:`expm_pade` (the JAX package's
+    ``expm_apply``): ``A`` (..., n, n) and ``x`` (..., n) or (..., n, k)
+    as ``@`` takes them."""
+    return expm_pade(A, squarings=squarings) @ x

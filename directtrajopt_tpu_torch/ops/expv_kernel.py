@@ -27,11 +27,18 @@ fixed Δt is a scalar expanded with stride 0). Out: (P, T, K, xd, d) for
 :func:`window_jac_zk`; (P, T, K, xd), or (P, T) for the L1 form, for the
 residual chain.
 
-Routing: a CPU tensor takes the plain PyTorch version; a CUDA float32
-tensor launches the kernel (``csrc/expv_kernel.cu``) or raises; float64
-takes the plain version on either device, as the JAX package sends f64 to
-XLA. The plain versions are ports of ``_window_jac_xla`` and ``_res_xla``
-and take the same arguments as the wrappers.
+Routing (``_build.route``, the JAX package's ``window_jac_eligible``
+without its VMEM term): a CPU tensor takes the plain PyTorch version;
+float64 takes the plain version on either device, as the JAX package sends
+f64 to XLA; a CUDA float32 tensor launches the kernel
+(``csrc/expv_kernel.cu``) within the Pallas kernels' caps, 1 ≤ x_dim ≤ 8
+and n_drives ≤ 8, and takes the plain version beyond them (counted in
+``_build.PLAIN_CALLS``). Within the caps, a shape in
+:data:`SUPPORTED_SHAPES` runs its exact instantiation and any other the
+generic one, counted under ``window_jac_generic``, ``residual_generic`` and
+``residual_l1_generic``. The plain versions are ports of
+``_window_jac_xla`` and ``_res_xla`` and take the same arguments as the
+wrappers.
 """
 
 from __future__ import annotations
@@ -49,9 +56,10 @@ __all__ = [
     "SUPPORTED_SHAPES",
 ]
 
-# (x_dim, n_drives) pairs instantiated in csrc/expv_kernel.cu: the bilinear
-# benchmark's 4-D state with 2 drives, and the state-constrained family's
-# 2-D state with 1 drive
+# (x_dim, n_drives) pairs with an exact instantiation in csrc/expv_kernel.cu:
+# the bilinear benchmark's 4-D state with 2 drives, and the
+# state-constrained family's 2-D state with 1 drive; the generic kernels
+# take the rest of the caps
 SUPPORTED_SHAPES = {(4, 2), (2, 1)}
 # the residual kernel's 19 element strides go in one array (one argument for
 # all of them, which halves the cost of the ctypes call); the window
@@ -106,13 +114,26 @@ def residual_l1_plain(order, Gd, Gv, u, dt, x, xn):
     return residual_action_plain(order, Gd, Gv, u, dt, x, xn).abs().sum((-2, -1))
 
 
-def _route(x: torch.Tensor) -> bool:
-    """True → launch the kernel; False → plain version (CPU or float64)."""
-    if x.device.type == "cpu" or x.dtype == torch.float64:
+def _route(key: str, x: torch.Tensor, Gv: torch.Tensor) -> bool:
+    """True → launch wrapper ``key``'s kernel; False → its plain version
+    (``_build.route``; a float32 call on the card beyond the caps counts in
+    ``PLAIN_CALLS``)."""
+    sizes = {"xd": x.shape[-1], "nd": Gv.shape[1]}
+    if _build.route("expv", x.device.type, x.dtype, sizes) == "plain":
+        _build.count_plain(x, key)
         return False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     return True
+
+
+def _unit_last(*ts) -> bool:
+    """Unit stride on the last axis, as the kernels read it (any stride where
+    that axis holds one element or none)."""
+    return all(t.shape[-1] <= 1 or t.stride(-1) == 1 for t in ts)
+
+
+def _launch_key(key: str, xd: int, nd: int) -> str:
+    """The launch-count key of the exact (``key``) or generic instantiation."""
+    return key if (xd, nd) in SUPPORTED_SHAPES else f"{key}_generic"
 
 
 def window_jac_zk_plain(order, Gd, Gv, u, dt, x, cols, d):
@@ -141,7 +162,7 @@ def window_jac_zk_plain(order, Gd, Gv, u, dt, x, cols, d):
 def window_jac(order: int, free_time: bool, Gd, Gv, u, dt, x):
     """Window Jacobians (L, K, xd, xd + nd [+1]); see module docstring. On
     the card: :func:`window_jac_zk` with J's own columns, negated back."""
-    if not _route(x):
+    if not _route("window_jac", x, Gv):
         return window_jac_plain(order, free_time, Gd, Gv, u, dt, x)
     xd, nd = x.shape[-1], Gv.shape[1]
     cols = (0, xd, xd + nd if free_time else None)
@@ -156,7 +177,7 @@ def window_jac_zk(order: int, Gd, Gv, u, dt, x, cols, d):
     d-wide knot; see module docstring. On the card: one pass of checks, one
     allocation and one ctypes call; the kernel's entry checks the column map
     and its own size limits and refuses a call beyond them."""
-    if not _route(x):
+    if not _route("window_jac", x, Gv):
         return window_jac_zk_plain(order, Gd, Gv, u, dt, x, cols, d)
     P, T, K, xd = x.shape
     nd = Gv.shape[1]
@@ -170,13 +191,8 @@ def window_jac_zk(order: int, Gd, Gv, u, dt, x, cols, d):
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
         if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if u.stride(-1) != 1 or x.stride(-1) != 1:
+    if not _unit_last(u, x):
         raise ValueError("u and x need a unit stride on their last axis")
-    if (xd, nd) not in SUPPORTED_SHAPES:
-        raise NotImplementedError(
-            f"no kernel instantiation for x_dim={xd}, n_drives={nd} "
-            f"(instantiated: {sorted(SUPPORTED_SHAPES)})"
-        )
     out = torch.empty((P, T, K, xd, d), dtype=torch.float32, device=x.device)
     if out.numel():
         o_x, o_u, o_t = cols
@@ -190,7 +206,7 @@ def window_jac_zk(order: int, Gd, Gv, u, dt, x, cols, d):
         # error 1 (invalid value): P·T·K or a view's offsets beyond 2^31 − 1,
         # columns outside the knot or overlapping, or d too wide for the tile
         _build.check_rc(rc, f"window_jac on {P} x {T} x {K}, d={d}")
-        _build.LAUNCHES["window_jac"] += 1
+        _build.LAUNCHES[_launch_key("window_jac", xd, nd)] += 1
     return out
 
 
@@ -210,13 +226,8 @@ def _res_launch(order, l1, Gd, Gv, u, dt, x, xn):
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
         if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if u.stride(-1) != 1 or x.stride(-1) != 1 or xn.stride(-1) != 1:
+    if not _unit_last(u, x, xn):
         raise ValueError("u, x and xn need a unit stride on their last axis")
-    if (xd, nd) not in SUPPORTED_SHAPES:
-        raise NotImplementedError(
-            f"no kernel instantiation for x_dim={xd}, n_drives={nd} "
-            f"(instantiated: {sorted(SUPPORTED_SHAPES)})"
-        )
     out = torch.empty((P, T) if l1 else (P, T, K, xd), dtype=torch.float32, device=x.device)
     if out.numel():
         strides = _Strides19(*Gd.stride(), *Gv.stride(), *u.stride()[:3], *dt.stride(),
@@ -229,19 +240,19 @@ def _res_launch(order, l1, Gd, Gv, u, dt, x, xn):
         # error 1 (invalid value): P·T·K or a view's offsets beyond 2^31 − 1, or
         # the L1 form's partials beyond the kernel's shared memory
         _build.check_rc(rc, f"{'residual_l1' if l1 else 'residual_action'} on {P} x {T} x {K}")
-        _build.LAUNCHES["residual_l1" if l1 else "residual"] += 1
+        _build.LAUNCHES[_launch_key("residual_l1" if l1 else "residual", xd, nd)] += 1
     return out
 
 
 def residual_action(order: int, Gd, Gv, u, dt, x, xn):
     """Residuals (P, T, K, xd); see module docstring."""
-    if not _route(x):
+    if not _route("residual", x, Gv):
         return residual_action_plain(order, Gd, Gv, u, dt, x, xn)
     return _res_launch(order, False, Gd, Gv, u, dt, x, xn)
 
 
 def residual_l1(order: int, Gd, Gv, u, dt, x, xn):
     """Per-instance ``Σ|residual|`` (P, T); see module docstring."""
-    if not _route(x):
+    if not _route("residual_l1", x, Gv):
         return residual_l1_plain(order, Gd, Gv, u, dt, x, xn)
     return _res_launch(order, True, Gd, Gv, u, dt, x, xn)

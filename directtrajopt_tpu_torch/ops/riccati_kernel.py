@@ -20,16 +20,21 @@ dzv (L,R,N,nv), λ (L,R,N−1,ns).
 of the masked P0 is not positive (or non-finite); the identity is then
 substituted for that factor, as the JAX package's XLA scan does.
 
-Routing: CPU → plain version; CUDA float32 → the kernel
-(``csrc/riccati_kernel.cu``) or raise; float64 → plain version. K2 takes
-up to 40 right-hand sides in one launch; K1 up to 8, and 8 < R ≤ 40 as K1
-on the first 8 columns and K2 on the rest (:func:`split_factor_solve`, two
-launches); beyond 40 both raise. Each takes
-its shape's kernel: a shape in :data:`GROUPED_SHAPES` (K1) or
-:data:`RESOLVE_GROUPED_SHAPES` (K2) runs ``factor_solve_grouped`` /
-``resolve_grouped`` (a thread group per lane, reading and writing the
-lane-major tensors above as they are), any other the generic one-thread-
-per-lane kernel on lanes-minor copies. The plain
+Routing (``_build.route``, the JAX package's ``pallas_eligible`` without its
+VMEM term): CPU → plain version; float64 → plain version; CUDA float32 → the
+kernel (``csrc/riccati_kernel.cu``) within the Pallas kernels' caps,
+1 ≤ n_s, n_v ≤ 24 and R ≤ 40, and the plain version beyond them (counted in
+``_build.PLAIN_CALLS``). K2 takes up to 40 right-hand sides in one launch;
+K1 up to 8, and 8 < R ≤ 40 as K1 on the first 8 columns and K2 on the rest
+(:func:`split_factor_solve`, two launches). Each takes its shape's kernel:
+a shape in :data:`GROUPED_SHAPES` (K1) or :data:`RESOLVE_GROUPED_SHAPES`
+(K2) runs ``factor_solve_grouped`` / ``resolve_grouped`` (a thread group
+per lane, reading and writing the lane-major tensors above as they are),
+any other with n_s ≤ 16 and n_v ≤ 8 (:data:`MAX_SIZES`) the generic
+one-thread-per-lane kernel on lanes-minor copies, and the rest of the caps
+its wide instantiation at n_s, n_v ≤ 24, ``factor_solve_wide`` /
+``resolve_wide``, counted under ``factor_solve_wide`` and
+``resolve_wide``. The plain
 versions are ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over
 knots with batched small matmuls and ``torch.linalg.cholesky_ex``.
 """
@@ -217,23 +222,24 @@ def split_factor_solve(factor, resolve_fn, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
     return (*out[:6], *(torch.cat([h, t], dim=1) for h, t in zip(out[6:], tail)))
 
 
-def _use_kernel(x: torch.Tensor, tensors: dict, sizes: dict,
-                bounds: dict = MAX_SIZES) -> bool:
-    if x.device.type == "cpu" or x.dtype == torch.float64:
+def _use_kernel(key: str, x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
+    """Whether wrapper ``key``'s call takes the kernel (``_build.route``);
+    a float32 call on the card beyond the caps counts in ``PLAIN_CALLS``."""
+    if _build.route("riccati", x.device.type, x.dtype, sizes) == "plain":
+        _build.count_plain(x, key)
         return False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     dev = x.get_device()
     for name, t in tensors.items():
         if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, expected {x.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
-    for k, v in sizes.items():
-        if not 1 <= v <= bounds[k]:
-            raise NotImplementedError(f"{k}={v} exceeds the kernel's bound {bounds[k]} "
-                                      "(ROADMAP Queue 2 item 3)")
     return True
+
+
+def _wide_key(key: str, ns: int, nv: int) -> str:
+    """The launch-count key of the generic (``key``) or wide instantiation."""
+    return f"{key}_wide" if ns > MAX_SIZES["ns"] or nv > MAX_SIZES["nv"] else key
 
 
 def _check_shapes(pairs: dict) -> None:
@@ -253,7 +259,7 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
         "Qvv": (Qvv, (L, N, nv, nv)), "A": (A, (L, N, ns, ns)), "B": (B, (L, N, ns, nv)),
         "qs": (qs, (L, R, N, ns)), "qv": (qv, (L, R, N, nv)), "b": (b, (L, R, N, ns)),
     })
-    if not _use_kernel(Qss, ins, {"ns": ns, "nv": nv, "R": R}, RESOLVE_MAX_SIZES):
+    if not _use_kernel("factor_solve", Qss, ins, {"ns": ns, "nv": nv, "R": R}):
         return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
     if R > MAX_SIZES["R"]:
         return split_factor_solve(factor_solve, resolve, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
@@ -279,8 +285,9 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
         *(t.data_ptr() for t in (P_t, L_t, Kg_t, Mvs_t, L0_t, ok_t, dzs_t, dzv_t, lam_t)),
         _build.stream_ptr(dev),
     )
-    _build.check_rc(rc, "factor_solve")
-    _build.LAUNCHES["factor_solve"] += 1
+    key = _wide_key("factor_solve", ns, nv)
+    _build.check_rc(rc, key)
+    _build.LAUNCHES[key] += 1
     return (
         P_t.permute(3, 0, 1, 2), L_t.permute(3, 0, 1, 2), Kg_t.permute(3, 0, 1, 2),
         Mvs_t.permute(3, 0, 1, 2), L0_t.permute(2, 0, 1), ok_t > 0.5,
@@ -301,7 +308,7 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
         "B": (B, (L, N, ns, nv)), "qs": (qs, (L, R, N, ns)), "qv": (qv, (L, R, N, nv)),
         "b": (b, (L, R, N, ns)),
     })
-    if not _use_kernel(P, ins, {"ns": ns, "nv": nv, "R": R}, RESOLVE_MAX_SIZES):
+    if not _use_kernel("resolve", P, ins, {"ns": ns, "nv": nv, "R": R}):
         return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
     if (ns, nv, R) in RESOLVE_GROUPED_SHAPES:
         return _resolve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
@@ -320,7 +327,8 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
         dzs_t.data_ptr(), dzv_t.data_ptr(), lam_t.data_ptr(),
         _build.stream_ptr(dev),
     )
-    _build.check_rc(rc, "resolve")
-    _build.LAUNCHES["resolve"] += 1
+    key = _wide_key("resolve", ns, nv)
+    _build.check_rc(rc, key)
+    _build.LAUNCHES[key] += 1
     return (dzs_t.permute(3, 1, 0, 2), dzv_t.permute(3, 1, 0, 2),
             lam_t.permute(3, 1, 0, 2)[:, :, : N - 1])

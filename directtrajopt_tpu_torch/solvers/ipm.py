@@ -29,8 +29,7 @@ host monitoring, stop predicates per lane, a host-interactive stop, the
 iterate and telemetry rings and best-score tracking. A hook that is not set
 runs no device operation.
 
-Not ported (``IPMOptions.check_supported`` raises): the "floor"
-regularization.
+Every option of the JAX package's ``IPMOptions`` is ported.
 """
 
 from __future__ import annotations
@@ -339,7 +338,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
     theta_init = c_e0.abs().sum(-1) + (c_i0 + s_init).abs().sum(-1)
     gn = options.hessian_approximation == "gauss_newton"
     sw = (options.hessian_regularization
-          if options.hessian_regularization in ("stagewise", "project", "flip") else False)
+          if options.hessian_regularization in ("stagewise", "project", "flip", "floor")
+          else False)
     lbfgs = options.hessian_approximation == "lbfgs"
     m_l = options.limited_memory_max_history if lbfgs else 0
     n_hist = options.ls_memory if options.ls_memory > 1 else 0

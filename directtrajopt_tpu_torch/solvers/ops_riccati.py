@@ -28,8 +28,8 @@ certificate of the δ_w retry ladder. On top of that core:
   inequalities, and linear inequality rows with global columns, ride the
   border as border inequalities;
 * **per-stage regularization** (``hessian_regularization``): "stagewise"
-  (an estimated λ_min shift per stage) and "project" / "flip" (per-stage
-  spectral modification).
+  (an estimated λ_min shift per stage) and "project" / "flip" / "floor"
+  (per-stage spectral modification).
 
 * **L-BFGS** (``hessian_approximation="lbfgs"``): ``prepare(...,
   skip_hessian=True)`` runs no second-order AD pass; :meth:`set_lbfgs`
@@ -127,13 +127,17 @@ def _stage_min_shift(Q: torch.Tensor, n_iter: int = 12, margin_rel: float = 1e-5
 
 def _stage_project(Q: torch.Tensor, mode: str, eps_rel: float = 1e-6) -> torch.Tensor:
     """Per-stage spectral modification of the stage blocks (B, N, d, d):
-    "project" λ → max(λ, ε), "flip" λ → max(|λ|, ε), with
-    ε = eps_rel · max |λ| over the lane's stages (``_stage_project``)."""
+    "project" λ → max(λ, ε), "flip" λ → max(|λ|, ε), "floor" λ → max(λ, ε)
+    where λ > −ε and λ unchanged elsewhere, with ε = eps_rel · max |λ| over
+    the lane's stages (``_stage_project``)."""
     Qs = 0.5 * (Q + Q.transpose(-1, -2))
     lam, V = torch.linalg.eigh(Qs)
     eps = eps_rel * torch.clamp(lam.abs().amax((-2, -1)), min=1e-30)
     eps = eps.reshape(eps.shape + (1, 1))
-    lam_m = torch.maximum(lam.abs() if mode == "flip" else lam, eps)
+    if mode == "floor":
+        lam_m = torch.where(lam > -eps, torch.maximum(lam, eps), lam)
+    else:
+        lam_m = torch.maximum(lam.abs() if mode == "flip" else lam, eps)
     return torch.einsum("...ij,...j,...kj->...ik", V, lam_m, V)
 
 
@@ -732,7 +736,7 @@ class _RiccatiCtx:
             lv = None
 
         sw_shift = None
-        if self.stagewise in ("project", "flip"):
+        if self.stagewise in ("project", "flip", "floor"):
             # spectral modification of the full stage blocks, once, before
             # the (s, v) sub-blocks are sliced
             Q = _stage_project(Q, self.stagewise)

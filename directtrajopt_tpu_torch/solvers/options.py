@@ -1,10 +1,9 @@
 """Solver options.
 
 Counterpart of ``directtrajopt_tpu/solvers/options.py``: the same field
-names and defaults (see that file for the rationale of each knob). The
-values whose code path the port does not have raise
-``NotImplementedError`` in :meth:`IPMOptions.check_supported`, naming the
-ROADMAP item that records them.
+names and defaults (see that file for the rationale of each knob).
+:meth:`IPMOptions.check_supported` refuses an unknown
+``hessian_regularization``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,9 @@ import numpy as np
 import torch
 
 from ..module import module
+
+# the values of ``hessian_regularization``
+REGULARIZATIONS = ("auto", "inertia", "stagewise", "project", "flip", "floor")
 
 __all__ = ["IPMOptions"]
 
@@ -92,10 +94,8 @@ class IPMOptions:
         return self.replace(**changes)
 
     def check_supported(self, backend: str = "riccati") -> None:
-        """Raise on option values whose code path is not ported: the
-        "floor" regularization, which is not to be ported (ROADMAP Queue 1
-        item 3 records why), on either backend."""
-        if self.hessian_regularization not in ("inertia", "auto", "stagewise", "project", "flip"):
-            raise NotImplementedError(
-                f"hessian_regularization={self.hessian_regularization!r} is not ported to the "
-                "PyTorch solver (ROADMAP Queue 1 item 3 records why 'floor' stays out)")
+        """Raise on an unknown ``hessian_regularization``; every known option
+        value is ported, on either backend."""
+        if self.hessian_regularization not in REGULARIZATIONS:
+            raise ValueError(f"unknown hessian_regularization "
+                             f"{self.hessian_regularization!r}; expected one of {REGULARIZATIONS}")

@@ -54,13 +54,12 @@ def test_integrators_module_names():
 
 
 def test_check_supported_refuses_only_floor_and_dense_lbfgs():
-    """The options the port refuses: "floor" (never to be ported), on
-    either backend. L-BFGS on the dense backend, which this test once
-    listed too, is ported."""
+    """The port refuses no option value of the JAX package's on either
+    backend: "floor" and L-BFGS on the dense backend, which this test once
+    listed as refused, are ported. Only an unknown regularization raises."""
     import pytest
 
-    refused = {("hessian_regularization", "floor", "riccati"),
-               ("hessian_regularization", "floor", "dense")}
+    refused = set()
     values = {"mu_strategy": ("monotone", "mehrotra", "adaptive"),
               "hessian_approximation": ("exact", "gauss_newton", "lbfgs"),
               "hessian_regularization": ("auto", "inertia", "stagewise", "project", "flip",
@@ -76,3 +75,6 @@ def test_check_supported_refuses_only_floor_and_dense_lbfgs():
                         opts.check_supported(backend)
                 else:
                     opts.check_supported(backend)
+    for backend in ("riccati", "dense"):
+        with pytest.raises(ValueError, match="unknown hessian_regularization"):
+            tdx.IPMOptions(hessian_regularization="clip").check_supported(backend)

@@ -232,24 +232,22 @@ def test_options_mirror_jax():
     dict(ls_memory=2),
 ])
 def test_unported_options_raise(kw):
-    """Only the "floor" regularization is left unported: with it a solve
-    raises, naming its ROADMAP item, on either backend. Every other option
-    runs on the dense backend too (three iterations, a finite iterate)."""
+    """No option is left unported: each runs on the dense backend (three
+    iterations, a finite iterate), and the "floor" regularization, the
+    last one ported, on the Riccati backend too."""
     from directtrajopt_tpu_torch import benchmarks as tb
     from directtrajopt_tpu_torch.solvers.solve import solve as tsolve
 
     prob = tb.make_bilinear_problem(N=3, seed=0, device="cpu")
     if kw.get("hessian_regularization") == "floor":
-        for backend in ("dense", "riccati"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tsolve(prob, backend=backend, **kw)
-        return
+        res = tsolve(prob, backend="riccati", max_iter=3, **kw)
+        assert bool(torch.isfinite(res.problem.trajectory.to_zvec()).all())
     res = tsolve(prob, backend="dense", max_iter=3, **kw)
     Z = res.problem.trajectory.to_zvec()
     assert Z.shape == prob.trajectory.to_zvec().shape and bool(torch.isfinite(Z).all())
 
 
-@pytest.mark.parametrize("mode", ["stagewise", "project", "flip", "inertia", "auto"])
+@pytest.mark.parametrize("mode", ["stagewise", "project", "flip", "floor", "inertia", "auto"])
 def test_ported_hessian_regularizations_accepted(mode):
     TIPMOptions(hessian_regularization=mode).check_supported()
 

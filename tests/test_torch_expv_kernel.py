@@ -126,12 +126,19 @@ def test_state_constrained_shape_f32_matches_pallas_interpret(B):
 
 
 def test_kernel_wrapper_rejects_uninstantiated_shapes_only_on_cuda():
-    """On the CPU every shape takes the plain version; the instantiated
-    kernel shapes are the benchmark's (x_dim=4, 2 drives) and the
-    state-constrained family's (x_dim=2, 1 drive)."""
+    """On the CPU every shape takes the plain version; the exact kernel
+    instantiations are the benchmark's (x_dim=4, 2 drives) and the
+    state-constrained family's (x_dim=2, 1 drive). On the card no shape
+    within the caps is rejected any more: the others take the generic
+    kernel, and only x_dim or n_drives beyond 8 take the plain version."""
+    from directtrajopt_tpu_torch.ops import _build
+
     args = _inputs(4, 2, 3, 5, 2, np.float32)
     assert tek.window_jac(4, True, *_t(args)).shape == (2, 3, 5, 8)
     assert tek.SUPPORTED_SHAPES == {(4, 2), (2, 1)}
+    for (xd, nd), want in (((5, 2), "kernel"), ((8, 8), "kernel"), ((9, 2), "plain")):
+        assert _build.route("expv", "cuda", torch.float32, dict(xd=xd, nd=nd)) == want
+        assert tek._launch_key("residual", xd, nd) == "residual_generic"
 
 
 # the two shapes of the paths: path 1's 4-D state, 2 drives and a free Δt in
@@ -187,7 +194,7 @@ def _grid(shape, P, T, N, seed):
 
 def _views(Z, lay, Gd, Gv, dtype, order=12):
     integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=Gd.shape[0], device="cpu",
-                                      dtype=dtype, taylor_order=order)
+                                      dtype=dtype, method="taylor", taylor_order=order)
     Zt = torch.as_tensor(Z, dtype=dtype)
     return integ, Zt, integ._trial_views(lay, Zt)
 
@@ -305,7 +312,7 @@ def test_window_jac_zk_views_f64_matches_xla(shape, P, T):
     order = JAC_SHAPES[shape]["order"]
     Z, lay, Gd, Gv = _grid(shape, P, T, 51, seed=30 + T)
     integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=P, device="cpu",
-                                      dtype=torch.float64, taylor_order=order)
+                                      dtype=torch.float64, method="taylor", taylor_order=order)
     Zt = torch.as_tensor(Z)
     ref = _jax_window_jac_zk(lambda o, f, *a: jax.vmap(lambda *b: _window_jac_xla(o, f, *b))(*a),
                              order, Gd, Gv, Z, lay)
@@ -340,7 +347,7 @@ def test_jacobians_zk_stacked_is_the_scatter_of_window_jac(shape, dtype):
     c = JAC_SHAPES[shape]
     Z, lay, Gd, Gv = _grid(shape, 5, 1, 9, seed=50)
     integ = BilinearIntegrator.create((Gd, Gv), "x", "u", batch=5, device="cpu", dtype=dtype,
-                                      taylor_order=c["order"])
+                                      method="taylor", taylor_order=c["order"])
     zm = torch.as_tensor(Z[:, 0], dtype=dtype)
     cs_x, cs_u = lay.comp_slice("x"), lay.comp_slice("u")
     x, u = zm[:, :-1, cs_x].contiguous(), zm[:, :-1, cs_u].contiguous()
