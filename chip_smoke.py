@@ -93,11 +93,12 @@ Phases, each printing its own lines:
 9. Path 7, the scaling family (``make_batched_scaled_problems``: random
    generators, lane i from seed 42 + i; the JAX package's
    ``bench_sweep.py``) at N=51 in float32 through ``solve_batch_compact``
-   with ``scaled_config()``. 7a: state_dim 8, Padé (K1 generic (10,3,3),
-   K2 (10,3,2)); 7b: state_dim 16, Padé (the wide K1/K2 at (18,3,·)); 7c:
-   state_dim 8 with the Taylor action of order 12 (the generic K3/K4 at
-   (8,2)). Each with its seconds, lockstep passes, iterations, launches
-   and plain calls (0), the converged share against its bar (the JAX
+   with ``scaled_config()``. 7a: state_dim 8, Padé (the grouped K1
+   (10,3,3) and K2 (10,3,2)); 7b: state_dim 16, Padé (the grouped K1/K2 at
+   (18,3,·)); 7c: state_dim 8 with the Taylor action of order 12 (K1/K2 as
+   7a, the generic K3/K4 at (8,2)). Each with its seconds, lockstep
+   passes, iterations, launches (by kernel, and K1/K2 by instantiation: no
+   generic or wide K1/K2) and plain calls (0), the converged share against its bar (the JAX
    package's share on lanes 0-63 less 0.1, ``tools/torch_scaled_bars.py``),
    the KKT error, and |obj/obj* − 1| on lanes 0-3 against the float64
    golden ``tests/golden/torch/scaled.npz``. 7d: state_dim 23 (n_s 25,
@@ -105,9 +106,11 @@ Phases, each printing its own lines:
    versions on the card (``PLAIN_CALLS`` > 0, no launch), the first 5
    iterations' steps and Z as on the CPU, the whole solve certified, and
    no more lanes parting from the CPU's solve than part between two
-   float32 solves. Phase 2 holds the generic K1/K2 and
-   the wide ones on 7a's and 7b's captured calls, the wide ones at the
-   range's corner (24,24,8), the generic K3/K4 on 7c's knot matrix and at
+   float32 solves. Phase 2 holds the grouped K1/K2 on 7a's and 7b's
+   captured calls, and beside them on the same calls the per-lane kernels
+   they replaced there (generic at n_s 10, wide at 18, each device time
+   beside the grouped one's), the wide ones at the range's corner
+   (24,24,8), the generic K3/K4 on 7c's knot matrix and at
    (3,1) and (8,8), and K3/K4 at 9 drives, beyond the caps, on the plain
    version.
 
@@ -821,10 +824,16 @@ def path7(dev) -> dict:
     cfg = benchmarks.scaled_config()
     N7 = cfg["N"]
     gold = np.load(benchmarks.GOLDEN_SCALED)
-    # the kernels each sub-path must launch
-    needs = {"7a": ("factor_solve", "resolve"), "7b": ("factor_solve_wide", "resolve_wide"),
-             "7c": ("factor_solve", "window_jac_generic", "residual_generic",
+    # the kernels each sub-path must launch, and the K1/K2 instantiations
+    # (``_build.INSTANCES``): the grouped ones at the sub-path's n_s, no
+    # generic or wide K1/K2
+    needs = {"7a": ("factor_solve", "resolve"), "7b": ("factor_solve", "resolve"),
+             "7c": ("factor_solve", "resolve", "window_jac_generic", "residual_generic",
                     "residual_l1_generic")}
+    needs_k12 = {tag: (f"factor_solve_grouped<{ns},3,3>", f"resolve_grouped<{ns},3,2>")
+                 for tag, ns in (("7a", 10), ("7b", 18), ("7c", 10))}
+    per_lane_k12 = ("factor_solve_generic", "factor_solve_wide", "resolve_generic",
+                    "resolve_wide")
     expv = ("window_jac", "residual", "residual_l1", "window_jac_generic", "residual_generic",
             "residual_l1_generic")
     launches, t_all = {}, time.perf_counter()
@@ -836,6 +845,7 @@ def path7(dev) -> dict:
         with Timed(solve_mod, "_solve_impl") as tm:
             res = solve_batch_compact(prob, **cfg["solve_kw"])
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        k12 = dict(_build.INSTANCES)
         plain = dict(_build.PLAIN_CALLS)
         c = dict(tm.calls[0], seconds=sum(x["seconds"] for x in tm.calls),
                  passes=sum(x["passes"] for x in tm.calls), launches=counts,
@@ -861,13 +871,16 @@ def path7(dev) -> dict:
               f"{list(HELD_7[tag])}, {len(held)} of them converged here), converged "
               f"{conv[:n].tolist()} beside the golden's {gold[f'p{tag}_converged'].tolist()}, "
               f"iterations {it[:n].tolist()} beside the golden's "
-              f"{gold[f'p{tag}_iterations'].tolist()}; plain calls {json.dumps(plain)}",
-              flush=True)
+              f"{gold[f'p{tag}_iterations'].tolist()}; plain calls {json.dumps(plain)}; "
+              f"K1/K2 launches by kernel {json.dumps(k12)}", flush=True)
         del prob, res
         launches[tag] = counts
         missing = [k for k in needs[tag] if not counts.get(k)]
+        missing += [k for k in needs_k12[tag] if not k12.get(k)]
         if missing:
-            fail(f"path {tag}: {missing} never launched: {counts}")
+            fail(f"path {tag}: {missing} never launched: {counts}, {k12}")
+        if any(k12.get(k) for k in per_lane_k12):
+            fail(f"path {tag}: a per-lane K1/K2 ran where the grouped one should: {k12}")
         if order is None and any(counts.get(k) for k in expv):
             fail(f"path {tag}: the Padé method launched K3/K4: {counts}")
         no_plain_calls(f"path {tag}")
@@ -1272,10 +1285,15 @@ def main() -> None:
         delta = plain_f32_error(plain, args, mask)
         return mask, max(5e-6, 4 * delta), f"; plain float32 within {delta:.2e} of float64"
 
-    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False, reps=20):
+    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False, reps=20,
+                      per_lane=None):
         """K1 and K2 on the first calls captured from a path's own solve
         (rows ``factor_solve_<tag>``, ``resolve_<tag>``), one certified lane
-        made indefinite at stage 20; then every captured call."""
+        made indefinite at stage 20; then every captured call. ``per_lane``
+        (a row suffix): also the one-thread-a-lane kernels on the same
+        calls, lanes and bounds (rows ``factor_solve_<tag>_<per_lane>``,
+        ``resolve_<tag>_<per_lane>``, 3 timed calls each), and the grouped
+        kernels' device time beside theirs and the plain versions'."""
         f_args = list(cap_f.calls[0])
         shape_f = (f_args[1].shape[-1], f_args[3].shape[-1], f_args[6].shape[1])
         ok0 = riccati_kernel.factor_solve_plain(*f_args)[5]
@@ -1323,6 +1341,30 @@ def main() -> None:
               lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
               riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
               prof=f"resolve_{instantiation('resolve', shape_r)}", reps=reps)
+        if per_lane:
+            check(f"factor_solve_{tag}_{per_lane}",
+                  f"K1 factor_solve_{per_lane} (per lane, through dto_factor_solve) on the "
+                  f"same {what} call (n_s,n_v,R)={shape_f}, lane {bad_lane} indefinite",
+                  lambda: riccati_kernel.factor_solve_per_lane(*f_args),
+                  lambda: riccati_kernel.factor_solve_plain(*f_args), tol_f, True, f_args[1:],
+                  riccati_ops(lanes, n_knots, *shape_f, factor=True), ok_equal_lanes,
+                  lanes=well_f, prof=f"factor_solve_{per_lane}", reps=3)
+            check(f"resolve_{tag}_{per_lane}",
+                  f"K2 resolve_{per_lane} (per lane, through dto_resolve) on the same {what} "
+                  f"call (n_s,n_v,R')={shape_r}",
+                  lambda: riccati_kernel.resolve_per_lane(*r_args),
+                  lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
+                  riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
+                  prof=f"resolve_{per_lane}", reps=3)
+            for k in ("factor_solve", "resolve"):
+                new, old = results[f"{k}_{tag}"], results[f"{k}_{tag}_{per_lane}"]
+                ratio = (old["device_ms"] / new["device_ms"]
+                         if new["device_ms"] and old["device_ms"] else math.nan)
+                print(f"[path{tag}] {k}: grouped {new['ms']:.4f} ms a call (device "
+                      f"{new['device_ms']}), {per_lane} {old['ms']:.4f} ms (device "
+                      f"{old['device_ms']}): {ratio:.1f}x sooner in device time; plain "
+                      f"{new['plain_ms']:.4f} ms, {new['plain_ms'] / new['ms']:.1f}x the "
+                      f"grouped kernel's wrapper time", flush=True)
         pipeline_calls(what, cap_f, cap_r, well_only=True)
         return shape_f, shape_r
 
@@ -1470,23 +1512,24 @@ def main() -> None:
     del cap_r5b, smw_calls, r5b
 
     # ---- at the scaling family's shapes (path 7) -------------------------- #
-    # K1 generic (10,3,3) and K2 (10,3,2) on 7a's captured calls, the wide
-    # K1/K2 at (18,3,3) and (18,3,2) on 7b's (the wide K1 is slow: fewer
-    # timed calls), each with one lane made indefinite. Plain float32 is
-    # nowhere within 1e-6 of float64 on these random systems: path 5's rule
-    # (lanes within 1e-3, the bound max(5e-6, 4δ))
+    # The grouped K1 (10,3,3) and K2 (10,3,2) on 7a's captured calls and
+    # K1 (18,3,3), K2 (18,3,2) on 7b's, each with one lane made indefinite;
+    # beside them, on the same calls, the per-lane kernels they replace on
+    # path 7 (generic at n_s 10, wide at 18; slow: fewer timed calls).
+    # Plain float32 is nowhere within 1e-6 of float64 on these random
+    # systems: path 5's rule (lanes within 1e-3, the bound max(5e-6, 4δ))
     s7 = benchmarks.scaled_config()
     N7, B7 = s7["N"], s7["batch"]
     kw7 = {k: v for k, v in s7["solve_kw"].items() if k not in ("phases", "chunk")}
     shapes7 = {}
-    for tag7, reps7 in (("7a", 20), ("7b", 3)):
+    for tag7, per_lane7 in (("7a", "generic"), ("7b", "wide")):
         dim7, order7 = SUB7[tag7]
         prob7 = scaled_batch(B7, N7, dim7, taylor_order=order7, dev=dev)
         with Capture(riccati_kernel, "factor_solve", 3) as cap_f7, \
                 Capture(riccati_kernel, "resolve", 3) as cap_r7:
             solve(prob7, max_iter=3, **kw7)
         shapes7[tag7] = captured_rows(tag7, f"path-{tag7}", cap_f7, cap_r7, B7, N7,
-                                     f32_floor=True, reps=reps7)
+                                     f32_floor=True, per_lane=per_lane7)
         del prob7, cap_f7, cap_r7
     print(f"[path7] captured shapes (K1, K2): {shapes7}", flush=True)
     if shapes7["7a"][0] != (10, 3, 3) or shapes7["7b"][0] != (18, 3, 3):
@@ -2036,14 +2079,21 @@ def main() -> None:
                           launches=launches6b.get(k, 0), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
-    # path 7's rows: K1/K2 generic on 7a (and K1 on 7c, the same shape), the
-    # wide K1/K2 on 7b, the generic K3/K4 on 7c; the seeded rows (the wide
-    # corner, the generic K3/K4 at (3,1) and (8,8)) at shapes no path runs
+    # path 7's rows: the grouped K1/K2 at (10,3,·) on 7a and 7c (the same
+    # shape) and at (18,3,·) on 7b, the generic K3/K4 on 7c; the per-lane
+    # K1/K2 they replace, timed on the same captured calls (no path runs
+    # them now); the seeded rows (the wide corner, the generic K3/K4 at
+    # (3,1) and (8,8)) at shapes no path runs
     rows7 = [("factor_solve_7a", "factor_solve", launches7["7a"], "factor_solve_7a"),
              ("resolve_7a", "resolve", launches7["7a"], "resolve_7a"),
-             ("factor_solve_7b", "factor_solve_wide", launches7["7b"], "factor_solve_7b"),
-             ("resolve_7b", "resolve_wide", launches7["7b"], "resolve_7b"),
+             ("factor_solve_7b", "factor_solve", launches7["7b"], "factor_solve_7b"),
+             ("resolve_7b", "resolve", launches7["7b"], "resolve_7b"),
              ("factor_solve_7c", "factor_solve", launches7["7c"], "factor_solve_7a"),
+             ("resolve_7c", "resolve", launches7["7c"], "resolve_7a"),
+             ("factor_solve_7a_generic", "factor_solve", {}, "factor_solve_7a_generic"),
+             ("resolve_7a_generic", "resolve", {}, "resolve_7a_generic"),
+             ("factor_solve_7b_wide", "factor_solve_wide", {}, "factor_solve_7b_wide"),
+             ("resolve_7b_wide", "resolve_wide", {}, "resolve_7b_wide"),
              ("window_jac_7c", "window_jac_generic", launches7["7c"], "window_jac_7c"),
              ("residual_7c", "residual_generic", launches7["7c"], "residual_7c"),
              ("residual_l1_7c", "residual_l1_generic", launches7["7c"], "residual_l1_7c"),

@@ -195,10 +195,8 @@ def _constraint(con, B, batched, device, dtype, functions, i):
             name=con.name, label=con.label)
     if kind == "GlobalLinearConstraint":
         A = np.array(con.A, dtype=np.float64)
-        if batched:
-            if not np.all(A == A[:1]):
-                raise ValueError("GlobalLinearConstraint: the port shares A across the lanes")
-            A = A[0]
+        if batched:  # one A for all lanes stays static; a per-lane A is (B, rows, g)
+            A = A[0] if np.all(A == A[:1]) else torch.as_tensor(A, dtype=dtype, device=device)
         return C.GlobalLinearConstraint(
             A=A, lb=_lanes(con.lb, B, batched, device, dtype), ub=_lanes(con.ub, B, batched, device, dtype),
             name=con.name, label=con.label, eq_mask=tuple(con.eq_mask),

@@ -42,7 +42,8 @@ class LinearCanon:
     ub_idx: list = field(default_factory=list)
     ub_val: list = field(default_factory=list)
     # affine rows, COO per contribution: (rows, cols, vals, rhs, n_rows) with
-    # rows/cols static numpy, vals numpy (static) or an (nnz,) tensor, rhs (B, n)
+    # rows/cols static numpy, vals numpy (static), an (nnz,) tensor or a per-lane
+    # (B, nnz) one, rhs (B, n)
     eq_rows: list = field(default_factory=list)
     ineq_rows: list = field(default_factory=list)
 
@@ -65,9 +66,10 @@ class LinearCanon:
 
     @staticmethod
     def _vals(vals):
+        """Static numpy values flat; a tensor's (nnz,) or, per lane, (B, nnz)."""
         if isinstance(vals, np.ndarray):
             return vals.astype(np.float64).reshape(-1)
-        return vals.reshape(-1)
+        return vals if vals.ndim == 2 else vals.reshape(-1)
 
     def add_eq_rows(self, rows, cols, vals, rhs, n_rows: int) -> None:
         self.eq_rows.append((np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64),

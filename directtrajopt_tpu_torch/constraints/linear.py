@@ -369,11 +369,12 @@ class L1SlackConstraint(LinearConstraintBase):
 class GlobalLinearConstraint(LinearConstraintBase):
     """``lb ≤ A·g ≤ ub`` on a global component: rows with lb == ub are
     equalities, ±inf sides are skipped, and an all-zero row that cannot be
-    satisfied raises at construction. ``A`` (n_rows, dim) is shared by the
-    lanes (static numpy); ``lb`` / ``ub`` are (B, n_rows). The row
-    classification is taken from the host values at construction."""
+    satisfied raises at construction. ``A`` is shared by the lanes, as
+    static numpy (n_rows, dim), or per lane, as a (B, n_rows, dim) tensor
+    (the JAX package's A under vmap); ``lb`` / ``ub`` are (B, n_rows). The
+    row classification is taken from the host values at construction."""
 
-    A: np.ndarray
+    A: np.ndarray | torch.Tensor
     lb: torch.Tensor
     ub: torch.Tensor
     name: str
@@ -384,18 +385,30 @@ class GlobalLinearConstraint(LinearConstraintBase):
 
     @staticmethod
     def create(name, A, lb, ub=None, *, traj, label=None):
-        """``traj`` gives the lane count, device and dtype of ``lb`` / ``ub``."""
-        A = np.asarray(A, dtype=np.float64)
+        """``traj`` gives the lane count, device and dtype of ``lb`` / ``ub``
+        and of a per-lane ``A`` (a (B, n_rows, dim) tensor)."""
+        per_lane = isinstance(A, torch.Tensor) and A.ndim == 3
+        A_host = (A.detach().cpu().numpy() if isinstance(A, torch.Tensor)
+                  else np.asarray(A)).astype(np.float64)
         lb = np.asarray(lb, dtype=np.float64).reshape(-1)
         ub = lb.copy() if ub is None else np.asarray(ub, dtype=np.float64).reshape(-1)
-        if not (A.shape[0] == len(lb) == len(ub)):
+        if per_lane and A_host.shape[0] != traj.B:
+            raise ValueError(f"a per-lane A has {A_host.shape[0]} lanes, the trajectory {traj.B}")
+        if not (A_host.shape[-2] == len(lb) == len(ub)):
             raise ValueError("row count mismatch between A, lb, ub")
         if not np.all(lb <= ub):
             raise ValueError("lb must be elementwise <= ub")
         eq_mask = tuple(bool(lo == hi) for lo, hi in zip(lb, ub))
-        for r in range(A.shape[0]):
-            if not np.any(A[r]) and ((eq_mask[r] and lb[r] != 0.0) or lb[r] > 0.0 or ub[r] < 0.0):
-                raise ValueError(f"infeasible all-zero row {r} in {name} constraint")
+        for a in A_host.reshape(-1, *A_host.shape[-2:]):
+            for r in range(a.shape[0]):
+                if not np.any(a[r]) and ((eq_mask[r] and lb[r] != 0.0) or lb[r] > 0.0
+                                         or ub[r] < 0.0):
+                    raise ValueError(f"infeasible all-zero row {r} in {name} constraint")
+        if per_lane:
+            ref = traj.data[traj.names[0]]
+            A = A.to(dtype=ref.dtype, device=ref.device)
+        else:
+            A = A_host
         return GlobalLinearConstraint(
             A=A, lb=_lane_values(lb, traj), ub=_lane_values(ub, traj), name=name,
             label=label or f"global linear constraint on {name}", eq_mask=eq_mask,
@@ -406,19 +419,33 @@ class GlobalLinearConstraint(LinearConstraintBase):
     def lower(self, layout: Layout, canon: LinearCanon) -> None:
         gs = layout.global_z_slice(self.name)
         g_cols = np.arange(gs.start, gs.stop)
-        n_rows, g_dim = self.A.shape
+        n_rows, g_dim = self.A.shape[-2:]
+        if isinstance(self.A, torch.Tensor):  # per lane: (B, nnz) values
+
+            def take(r, sign=1.0):
+                return sign * self.A[:, r].reshape(self.A.shape[0], -1)
+
+            def join(a, b):
+                return torch.cat([a, b], dim=1)
+        else:
+
+            def take(r, sign=1.0):
+                return sign * self.A[r].reshape(-1)
+
+            def join(a, b):
+                return np.concatenate([a, b])
         finite_lb = self.finite_lb or (True,) * n_rows
         finite_ub = self.finite_ub or (True,) * n_rows
         eq_r = [r for r in range(n_rows) if self.eq_mask[r]]
         if eq_r:
             canon.add_eq_rows(np.repeat(np.arange(len(eq_r)), g_dim), np.tile(g_cols, len(eq_r)),
-                              self.A[eq_r].reshape(-1), self.lb[:, eq_r], len(eq_r))
+                              take(eq_r), self.lb[:, eq_r], len(eq_r))
         # a·g ≤ ub and −a·g ≤ −lb for the finite sides
         up_r = [r for r in range(n_rows) if not self.eq_mask[r] and finite_ub[r]]
         lo_r = [r for r in range(n_rows) if not self.eq_mask[r] and finite_lb[r]]
         n_in = len(up_r) + len(lo_r)
         if n_in:
-            vals = np.concatenate([self.A[up_r].reshape(-1), -self.A[lo_r].reshape(-1)])
+            vals = join(take(up_r), take(lo_r, -1.0))
             rhs = torch.cat([self.ub[:, up_r], -self.lb[:, lo_r]], dim=1)
             canon.add_ineq_rows(np.repeat(np.arange(n_in), g_dim), np.tile(g_cols, n_in), vals,
                                 rhs, n_in)

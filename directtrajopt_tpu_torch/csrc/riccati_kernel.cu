@@ -20,24 +20,33 @@
 // (ops/riccati_kernel.py: GROUPED_SHAPES for K1, RESOLVE_GROUPED_SHAPES for
 // K2):
 //
-// * factor_solve_grouped<NS, NV, R> — a group of G = NS threads per lane,
-//   32/G lanes to a warp, 64-thread blocks. Thread i owns row i of P and
-//   entry i of each p_r and s_r; the products P·A, P·B, AᵀPA + MvsᵀKg and
-//   the right-hand-side updates are row- or column-parallel over the group,
-//   which trades PA, PB, w, Kg, P and s through shared memory under
-//   __syncwarp. Hvv (NV×NV), its Cholesky, the kff solves and the masked
-//   Cholesky of P0 are computed by every thread of the group from the same
-//   shared data, so `ok` and the factors agree across the group. Each knot's
-//   blocks (Qss, Qsv, Qvv, A, B, qs, qv, b; in the forward sweep P, Kg, A,
-//   B, b and the stashed p, kff) are double-buffered in shared memory with
-//   cp.async: knot k±1's copies are in flight while knot k computes. Input
+// * factor_solve_grouped<NS, NV, R> — a group of G threads per lane (G =
+//   NS up to n_s = 8; beyond, the least power of two ≥ NS, so 16 at n_s =
+//   10 and 32 at 18, the threads past NS owning no row: GroupLayout),
+//   32/G lanes to a warp, 64-thread blocks. Thread i owns
+//   row i of P and entry i of each p_r and s_r; the products P·A, P·B,
+//   AᵀPA + MvsᵀKg and the right-hand-side updates are row- or
+//   column-parallel over the group, which trades PA, PB, w, Kg, P and s
+//   through shared memory under __syncwarp. Hvv (NV×NV), its Cholesky and
+//   the kff solves are computed by every thread of the group from the same
+//   shared data, so `ok` and the factors agree across the group; so is the
+//   masked Cholesky of P0 up to n_s = 8, in registers. Beyond, where P0 and
+//   L0 would be 2·n_s² registers a thread, the group factors P0 in the
+//   lane's shared memory, column by column (chol_shared: every thread sums
+//   each pivot, each owner its row), and the forward sweeps read L0 there.
+//   Each knot's blocks (Qss, Qsv, Qvv, A, B, qs, qv, b; in the forward
+//   sweep P, Kg, A, B, b and the stashed p, kff) are double-buffered in
+//   shared memory with cp.async: knot k±1's copies are in flight while
+//   knot k computes. Input
 //   and output are lane-major, as the port holds them ((L, N, r, c) stage
 //   stacks, (L, R, N, d) right-hand sides), so a group reads each block at
 //   contiguous addresses and the wrapper copies nothing. Every loop bound
 //   is a compile-time constant: no register array is indexed at run time.
-//   Instantiated at (8,3,3) (path 1), (2,1,3) (path 2) and (2,1,7) (path 3,
+//   Instantiated at (8,3,3) (path 1), (2,1,3) (path 2), (2,1,7) (path 3,
 //   the global-phase family: 4 border columns, 2 arrowhead columns and the
-//   main system; its lane's shared memory is 196 floats, 25 KB a block).
+//   main system; its lane's shared memory is 196 floats, 25 KB a block), and
+//   (10,3,3) and (18,3,3) (path 7, the scaling family at state_dim 8 and
+//   16: 1,040 and 2,688 floats a lane, 16.6 and 21.5 KB a block).
 //   Bound on the card (H100 SXM, 3.35 TB/s; the FLOP bound is 5-10× lower):
 //   each input byte read once and each output byte written once is 85.8 KB
 //   per lane at (8,3,3), N=51 — 22.0 MB, 6.6 µs at 256 lanes and 703 MB,
@@ -54,8 +63,10 @@
 //   cp.async; the initial-state solve and the forward sweep are K1's own
 //   (initial_and_forward, one device function for both). Lane-major in and
 //   out: K1's outputs are read as K1 wrote them. Instantiated at (8,3,2)
-//   (path 1's fused SOC + restoration) and (2,1,2) (path 2's). Bound (each
-//   input byte read once, each output byte written once): 58.3 KB per lane
+//   (path 1's fused SOC + restoration), (2,1,2) (path 2's), and (10,3,2)
+//   and (18,3,2) (path 7's; L0 copied into the lane's shared memory).
+//   Bound (each input byte read once, each output byte written once):
+//   58.3 KB per lane
 //   at (8,3,2), N=51 — 14.9 MB, 4.5 µs at 256 lanes — and 58.5 MB, 17.5 µs
 //   at (2,1,2), 8192 lanes; like K1 it waits on each knot's dependent
 //   chain, not on its loads.
@@ -70,8 +81,8 @@
 //   stored factors: a tile computes exactly as a launch of its 8 columns.
 // * factor_solve_wide / resolve_wide — the same one-thread-per-lane bodies
 //   instantiated at n_s, n_v ≤ 24 (the Pallas kernels' shape caps), for
-//   the shapes beyond the generic kernels' 16 and 8 (the scaling family's
-//   (18, 3) at state dimension 16). A 24 × 24 block is 576 floats a
+//   the shapes beyond the generic kernels' 16 and 8 that have no grouped
+//   instantiation. A 24 × 24 block is 576 floats a
 //   thread: the stage blocks live in local memory, read through L1/L2,
 //   in blocks of one warp (kWideThreads). R and the tiles as for the
 //   generic kernels.
@@ -618,8 +629,10 @@ __device__ __forceinline__ void resolve_lane(
 constexpr int kGroupBlock = 64;  // threads per block
 // Resident blocks per SM the register budget is cut for: 8 → 128 registers,
 // so at (8,3,3) 8 blocks × 8 lanes × 132 SMs = 8,448 lanes run in one wave
-// (8 × 23.8 KB of shared memory fits the SM's 227 KB).
-constexpr int kGroupMinBlocks = 8;
+// (8 × 23.8 KB of shared memory fits the SM's 227 KB). Beyond n_s = 8, 4 →
+// 255 registers: at 128 they spill at n_s = 18 (a 408-byte stack frame);
+// path 7's 128 lanes fill 64 blocks at n_s = 18 and 32 at 10, one an SM.
+constexpr int kGroupMinBlocks = 8, kGroupMinBlocksWide = 4;
 // Knot buffers in the ring (2: double-buffered). Rings of 3 and 4 gained at
 // most 8 % at either shape on the H100, about the spread of two timings of
 // one build (tools/torch_k1_rings.py): the sweep waits on its arithmetic,
@@ -627,6 +640,10 @@ constexpr int kGroupMinBlocks = 8;
 constexpr int kStages = 2;
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
 
 // Floats per cp.async copy (16, 8 or 4 bytes) for a block of S floats that
 // starts a multiple of S floats from a 16-byte-aligned base.
@@ -637,10 +654,16 @@ __host__ __device__ constexpr int chunk_floats(int S) {
 // Shared memory of one lane, in floats: a ring of kStages knot buffers,
 // then the group's scratch. Every block starts on 16 bytes. The lane stride
 // is ≡ max(G, 4) (mod 32 banks), so the groups of a warp broadcast from
-// distinct banks.
+// distinct banks. A group of G threads serves a lane, G the least power of
+// two ≥ NS (NS itself up to n_s = 8); thread gi owns row gi of P where gi <
+// NS. One row a thread ran K1 (18,3,3) × 128 lanes in 0.39 ms of device
+// time on the H100, against 0.61 ms for two rows a thread in 16-thread
+// groups: each lane's chain of dependent knots, not the card's occupancy,
+// sets the time.
 template <int NS, int NV, int R>
 struct GroupLayout {
-  static constexpr int G = NS, lanes = kGroupBlock / NS;
+  static constexpr int G = pow2_at_least(NS), lanes = kGroupBlock / G,
+                       min_blocks = NS > 8 ? kGroupMinBlocksWide : kGroupMinBlocks;
   // backward buffer: knot k's input blocks
   static constexpr int Qss = 0, Qsv = align4(Qss + NS * NS), Qvv = align4(Qsv + NS * NV),
                        A = align4(Qvv + NV * NV), B = align4(A + NS * NS),
@@ -655,13 +678,16 @@ struct GroupLayout {
                        fp = align4(fb + R * NS), fkff = align4(fp + R * NS),
                        fwd = align4(fkff + R * NV);
   static constexpr int buf = bwd > fwd ? bwd : fwd;
-  // scratch
+  // scratch (beyond n_s = 8 Pn holds the masked P0 and then its factor L0)
   static constexpr int PA = kStages * buf, PB = align4(PA + NS * NS), W = align4(PB + NS * NV),
                        Kg = align4(W + R * NS), Pn = align4(Kg + NV * NS),
                        S = align4(Pn + NS * NS), end = align4(S + R * NS);
   static constexpr int pad = G < 4 ? 4 : G;
   static constexpr int stride = end + (pad - end % 32 + 32) % 32;
   static_assert(32 % G == 0, "a group must not straddle two warps");
+  static_assert(lanes * stride * 4 <= 48 * 1024, "a block's static shared memory");
+  // whether thread gi owns a row of P
+  static __device__ __forceinline__ bool owns(int gi) { return G == NS || gi < NS; }
 };
 
 // The group's share of the cp.async copies of NSEG segments of S floats,
@@ -692,17 +718,18 @@ template <int NS, int NV, int R>
 __device__ __forceinline__ void load_backward(float* buf, const FactorIn& in, int l, int N,
                                               int k, int gi) {
   using Lay = GroupLayout<NS, NV, R>;
+  constexpr int G = Lay::G;
   const long st = (long)l * N + k;      // (l, k) of an (L, N, r, c) stack
   const long rh = (long)l * R * N + k;  // (l, 0, k) of an (L, R, N, d) stack
   const long rs = N;                    // between r and r + 1, in rows of d
-  copy_async<NS * NS, 1, NS>(buf + Lay::Qss, in.Qss + st * NS * NS, 0, gi);
-  copy_async<NS * NV, 1, NS>(buf + Lay::Qsv, in.Qsv + st * NS * NV, 0, gi);
-  copy_async<NV * NV, 1, NS>(buf + Lay::Qvv, in.Qvv + st * NV * NV, 0, gi);
-  copy_async<NS * NS, 1, NS>(buf + Lay::A, in.A + st * NS * NS, 0, gi);
-  copy_async<NS * NV, 1, NS>(buf + Lay::B, in.B + st * NS * NV, 0, gi);
-  copy_async<NS, R, NS>(buf + Lay::qs, in.qs + rh * NS, rs * NS, gi);
-  copy_async<NV, R, NS>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
-  copy_async<NS, R, NS>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
+  copy_async<NS * NS, 1, G>(buf + Lay::Qss, in.Qss + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, G>(buf + Lay::Qsv, in.Qsv + st * NS * NV, 0, gi);
+  copy_async<NV * NV, 1, G>(buf + Lay::Qvv, in.Qvv + st * NV * NV, 0, gi);
+  copy_async<NS * NS, 1, G>(buf + Lay::A, in.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, G>(buf + Lay::B, in.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, G>(buf + Lay::qs, in.qs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, G>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
+  copy_async<NS, R, G>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
 }
 
 // What the forward sweep reads and writes: P_k and Kg_k (K1's outputs, or
@@ -720,34 +747,106 @@ template <int NS, int NV, int R>
 __device__ __forceinline__ void load_forward(float* buf, const ForwardIO& io, int l, int N, int k,
                                              int gi) {
   using Lay = GroupLayout<NS, NV, R>;
+  constexpr int G = Lay::G;
   const long st = (long)l * N + k;
   const long rh = (long)l * R * N + k;
   const long rs = N;
-  copy_async<NS * NS, 1, NS>(buf + Lay::fP, io.P + st * NS * NS, 0, gi);
-  copy_async<NV * NS, 1, NS>(buf + Lay::fKg, io.Kg + st * NV * NS, 0, gi);
-  copy_async<NS * NS, 1, NS>(buf + Lay::fA, io.A + st * NS * NS, 0, gi);
-  copy_async<NS * NV, 1, NS>(buf + Lay::fB, io.B + st * NS * NV, 0, gi);
-  copy_async<NS, R, NS>(buf + Lay::fb, io.b + rh * NS, rs * NS, gi);
-  copy_async<NS, R, NS>(buf + Lay::fp, io.dzs + rh * NS, rs * NS, gi);
-  copy_async<NV, R, NS>(buf + Lay::fkff, io.dzv + rh * NV, rs * NV, gi);
+  copy_async<NS * NS, 1, G>(buf + Lay::fP, io.P + st * NS * NS, 0, gi);
+  copy_async<NV * NS, 1, G>(buf + Lay::fKg, io.Kg + st * NV * NS, 0, gi);
+  copy_async<NS * NS, 1, G>(buf + Lay::fA, io.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, G>(buf + Lay::fB, io.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, G>(buf + Lay::fb, io.b + rh * NS, rs * NS, gi);
+  copy_async<NS, R, G>(buf + Lay::fp, io.dzs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, G>(buf + Lay::fkff, io.dzv + rh * NV, rs * NV, gi);
+}
+
+// x ← (L0 L0ᵀ)⁻¹ x with L0 in registers (n_s ≤ 8: cho_solve) or, beyond,
+// row-major in the lane's shared memory (the same order of summation).
+template <int NS>
+__device__ __forceinline__ void solve_l0(const float (&L0)[NS][NS], float (&x)[NS]) {
+  cho_solve<NS>(L0, x, NS);
+}
+
+template <int NS>
+__device__ __forceinline__ void solve_l0(const float* L0, float (&x)[NS]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    float s = x[i];
+#pragma unroll
+    for (int t = 0; t < i; ++t) s -= L0[i * NS + t] * x[t];
+    x[i] = s / L0[i * NS + i];
+  }
+#pragma unroll
+  for (int i = NS - 1; i >= 0; --i) {
+    float s = x[i];
+#pragma unroll
+    for (int t = i + 1; t < NS; ++t) s -= L0[t * NS + i] * x[t];
+    x[i] = s / L0[i * NS + i];
+  }
+}
+
+// The masked P0 (row-major in the lane's shared memory M) factored in place
+// by the group, column by column: every thread sums column c's pivot from
+// the same shared data (so `ok` agrees across the group), each owner of a
+// row below it that row's entry; __syncwarp between the reads of column c
+// and its writes, and after them. The lower triangle then holds L0, as
+// chol_or_identity leaves it (the identity where a pivot is ≤ 0 or an
+// entry not finite); the upper triangle is left as it was. For n_s > 8,
+// whose register copy of P0 and L0 would be 2·n_s² floats a thread.
+template <int NS, int NV, int R>
+__device__ __forceinline__ bool chol_shared(float* M, int gi) {
+  using Lay = GroupLayout<NS, NV, R>;
+  bool ok = true;
+#pragma unroll
+  for (int c = 0; c < NS; ++c) {
+    float d = M[c * NS + c];
+#pragma unroll
+    for (int t = 0; t < c; ++t) d -= M[c * NS + t] * M[c * NS + t];
+    if (!(d > 0.0f)) ok = false;
+    const float s = sqrtf(d);
+    float v = s;
+    if (Lay::owns(gi) && gi > c) {
+      float acc = M[gi * NS + c];
+#pragma unroll
+      for (int t = 0; t < c; ++t) acc -= M[gi * NS + t] * M[c * NS + t];
+      v = acc / s;
+    }
+    __syncwarp();
+    if (Lay::owns(gi) && gi >= c) M[gi * NS + c] = v;
+    __syncwarp();
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      if (!isfinite(M[i * NS + j])) ok = false;
+  __syncwarp();
+  if (!ok && Lay::owns(gi)) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) M[gi * NS + j] = (gi == j) ? 1.0f : 0.0f;
+  }
+  __syncwarp();
+  return ok;
 }
 
 // The initial-state solve and the forward sweep of lane l, shared by K1 and
 // K2 (the same arithmetic, in the same order of summation, as
-// forward_sweep). On entry every thread of the group holds the masked
-// initial factor L0 and entry gi of each p_0, and the group has stashed
-// p_k, kff_k in dzs, dzv. Threads of a ragged lane (store false) read lane
-// ls and store nothing.
-template <int NS, int NV, int R>
-__device__ __forceinline__ void initial_and_forward(float* sh, const float (&L0)[NS][NS],
-                                                    const float (&p)[R], const ForwardIO& io,
-                                                    int l, int ls, bool store, int N,
-                                                    unsigned s0mask, int gi) {
+// forward_sweep). On entry every thread of the group can read the masked
+// initial factor L0 (a register array up to n_s = 8, the lane's shared Pn
+// beyond) and holds entry gi of each p_0, and the group has stashed p_k,
+// kff_k in dzs, dzv. Threads of a ragged lane (store false) read lane ls and
+// store nothing.
+template <int NS, int NV, int R, class L0T>
+__device__ __forceinline__ void initial_and_forward(float* sh, const L0T& L0, const float (&p)[R],
+                                                    const ForwardIO& io, int l, int ls, bool store,
+                                                    int N, unsigned s0mask, int gi) {
   using Lay = GroupLayout<NS, NV, R>;
-  constexpr int G = NS, D = kStages;
+  constexpr int G = Lay::G, D = kStages;
   float* const sS = sh + Lay::S;
+  if (Lay::owns(gi)) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) sS[r * NS + gi] = p[r];
+    for (int r = 0; r < R; ++r) sS[r * NS + gi] = p[r];
+  }
   __syncwarp();
   float s[R];  // entry gi of s_0, per right-hand side
 #pragma unroll
@@ -755,7 +854,7 @@ __device__ __forceinline__ void initial_and_forward(float* sh, const float (&L0)
     float x[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) x[i] = ((s0mask >> i) & 1u) ? sS[r * NS + i] : 0.0f;
-    cho_solve<NS>(L0, x, NS);
+    solve_l0<NS>(L0, x);
     s[r] = 0.0f;
 #pragma unroll
     for (int i = 0; i < NS; ++i)
@@ -765,8 +864,10 @@ __device__ __forceinline__ void initial_and_forward(float* sh, const float (&L0)
   // reads them back
   __threadfence_block();
   __syncwarp();
+  if (Lay::owns(gi)) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) sS[r * NS + gi] = s[r];
+    for (int r = 0; r < R; ++r) sS[r * NS + gi] = s[r];
+  }
 
 #pragma unroll
   for (int q = 0; q < D - 1; ++q) {
@@ -792,13 +893,6 @@ __device__ __forceinline__ void initial_and_forward(float* sh, const float (&L0)
     for (int r = 0; r < R; ++r) {
       const float* sr = sS + r * NS;
       const long rk = ((long)l * R + r) * N + k;
-      if (k >= 1) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) acc += fP[gi * NS + j] * sr[j];
-        if (store)
-          io.lam[(((long)l * R + r) * (N - 1) + k - 1) * NS + gi] = -(acc + fp[r * NS + gi]);
-      }
       float v[NV];
 #pragma unroll
       for (int a = 0; a < NV; ++a) {
@@ -807,34 +901,46 @@ __device__ __forceinline__ void initial_and_forward(float* sh, const float (&L0)
         for (int j = 0; j < NS; ++j) acc += sr[j] * fKg[a * NS + j];
         v[a] = acc + fkff[r * NV + a];
       }
-      float acc = 0.0f;
+      if (Lay::owns(gi)) {
+        if (k >= 1) {
+          float acc = 0.0f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) acc += sr[j] * fA[gi * NS + j];
-      float acc2 = 0.0f;
+          for (int j = 0; j < NS; ++j) acc += fP[gi * NS + j] * sr[j];
+          if (store)
+            io.lam[(((long)l * R + r) * (N - 1) + k - 1) * NS + gi] = -(acc + fp[r * NS + gi]);
+        }
+        float acc = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NV; ++a) acc2 += v[a] * fB[gi * NV + a];
-      sn[r] = acc + acc2 + fb[r * NS + gi];
+        for (int j = 0; j < NS; ++j) acc += sr[j] * fA[gi * NS + j];
+        float acc2 = 0.0f;
+#pragma unroll
+        for (int a = 0; a < NV; ++a) acc2 += v[a] * fB[gi * NV + a];
+        sn[r] = acc + acc2 + fb[r * NS + gi];
+        if (store) io.dzs[rk * NS + gi] = sr[gi];
+      }
       if (store) {
-        io.dzs[rk * NS + gi] = sr[gi];
 #pragma unroll
         for (int a = 0; a < NV; ++a)
           if ((r * NV + a) % G == gi) io.dzv[rk * NV + a] = v[a];
       }
     }
     __syncwarp();
+    if (Lay::owns(gi)) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) sS[r * NS + gi] = sn[r];
+      for (int r = 0; r < R; ++r) sS[r * NS + gi] = sn[r];
+    }
   }
 }
 
 // The same arithmetic, in the same order of summation, as factor_solve_lane.
 // Threads of a last, ragged lane (l ≥ L) load from lane L − 1, take part in
-// every __syncwarp, and store nothing.
+// every __syncwarp, and store nothing; so do a group's threads past NS,
+// which own no row.
 template <int NS, int NV, int R>
-__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
+__global__ void __launch_bounds__(kGroupBlock, GroupLayout<NS, NV, R>::min_blocks)
     factor_solve_grouped(int L, int N, unsigned s0mask, FactorIn in, FactorOut out) {
   using Lay = GroupLayout<NS, NV, R>;
-  constexpr int G = NS;
+  constexpr int G = Lay::G;
   __shared__ __align__(16) float smem[Lay::lanes * Lay::stride];
   const int grp = threadIdx.x / G, gi = threadIdx.x % G;
   const int l = blockIdx.x * Lay::lanes + grp;
@@ -882,26 +988,28 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
     const float* rb = cur + Lay::b;
 
     // row gi of PA = P·A and PB = P·B; entry gi of w_r = P·b_r + p_r
+    if (Lay::owns(gi)) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      float acc = 0.0f;
+      for (int j = 0; j < NS; ++j) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) acc += Prow[t] * A[t * NS + j];
-      sPA[gi * NS + j] = acc;
-    }
+        for (int t = 0; t < NS; ++t) acc += Prow[t] * A[t * NS + j];
+        sPA[gi * NS + j] = acc;
+      }
 #pragma unroll
-    for (int a = 0; a < NV; ++a) {
-      float acc = 0.0f;
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) acc += Prow[t] * B[t * NV + a];
-      sPB[gi * NV + a] = acc;
-    }
+        for (int t = 0; t < NS; ++t) acc += Prow[t] * B[t * NV + a];
+        sPB[gi * NV + a] = acc;
+      }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float acc = 0.0f;
+      for (int r = 0; r < R; ++r) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) acc += rb[r * NS + j] * Prow[j];
-      sW[r * NS + gi] = acc + p[r];
+        for (int j = 0; j < NS; ++j) acc += rb[r * NS + j] * Prow[j];
+        sW[r * NS + gi] = acc + p[r];
+      }
     }
     __syncwarp();
 
@@ -927,22 +1035,25 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
         if (e % G == gi) out.Lv[st * NV * NV + e] = Lv[e / NV][e % NV];
     }
     // column gi of Mvs = Qsvᵀ + BᵀPA and of Kg = −Hvv⁻¹Mvs
-    float mcol[NV], kcol[NV];
+    float mcol[NV];
+    if (Lay::owns(gi)) {
+      float kcol[NV];
 #pragma unroll
-    for (int a = 0; a < NV; ++a) {
-      float acc = 0.0f;
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) acc += B[t * NV + a] * sPA[t * NS + gi];
-      mcol[a] = Qsv[gi * NV + a] + acc;
-      kcol[a] = mcol[a];
-    }
-    cho_solve<NV>(Lv, kcol, NV);
+        for (int t = 0; t < NS; ++t) acc += B[t * NV + a] * sPA[t * NS + gi];
+        mcol[a] = Qsv[gi * NV + a] + acc;
+        kcol[a] = mcol[a];
+      }
+      cho_solve<NV>(Lv, kcol, NV);
 #pragma unroll
-    for (int a = 0; a < NV; ++a) {
-      sKg[a * NS + gi] = -kcol[a];
-      if (store) {
-        out.Kg[(st * NV + a) * NS + gi] = -kcol[a];
-        out.Mvs[(st * NV + a) * NS + gi] = mcol[a];
+      for (int a = 0; a < NV; ++a) {
+        sKg[a * NS + gi] = -kcol[a];
+        if (store) {
+          out.Kg[(st * NV + a) * NS + gi] = -kcol[a];
+          out.Mvs[(st * NV + a) * NS + gi] = mcol[a];
+        }
       }
     }
     // right-hand sides: kff_r (every thread) and entry gi of p_r
@@ -959,16 +1070,18 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
       cho_solve<NV>(Lv, kff, NV);
 #pragma unroll
       for (int a = 0; a < NV; ++a) kff[a] = -kff[a];
-      float acc = 0.0f;
+      const long rk = ((long)l * R + r) * N + k;
+      if (Lay::owns(gi)) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) acc += sW[r * NS + t] * A[t * NS + gi];
-      float acc2 = 0.0f;
+        for (int t = 0; t < NS; ++t) acc += sW[r * NS + t] * A[t * NS + gi];
+        float acc2 = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NV; ++a) acc2 += kff[a] * mcol[a];
-      p[r] = (qs[r * NS + gi] + acc) + acc2;
+        for (int a = 0; a < NV; ++a) acc2 += kff[a] * mcol[a];
+        p[r] = (qs[r * NS + gi] + acc) + acc2;
+        if (store) out.dzs[rk * NS + gi] = p[r];  // stash p_k
+      }
       if (store) {
-        const long rk = ((long)l * R + r) * N + k;
-        out.dzs[rk * NS + gi] = p[r];  // stash p_k
 #pragma unroll
         for (int a = 0; a < NV; ++a)
           if ((r * NV + a) % G == gi) out.dzv[rk * NV + a] = kff[a];  // stash kff_k
@@ -977,49 +1090,75 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
     __syncwarp();
 
     // row gi of P_k = sym(Qss + AᵀPA + MvsᵀKg)
+    if (Lay::owns(gi)) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      float acc = 0.0f;
+      for (int j = 0; j < NS; ++j) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) acc += A[t * NS + gi] * sPA[t * NS + j];
-      float acc2 = 0.0f;
+        for (int t = 0; t < NS; ++t) acc += A[t * NS + gi] * sPA[t * NS + j];
+        float acc2 = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NV; ++a) acc2 += mcol[a] * sKg[a * NS + j];
-      sPn[gi * NS + j] = (Qss[gi * NS + j] + acc) + acc2;
+        for (int a = 0; a < NV; ++a) acc2 += mcol[a] * sKg[a * NS + j];
+        sPn[gi * NS + j] = (Qss[gi * NS + j] + acc) + acc2;
+      }
     }
     __syncwarp();
+    if (Lay::owns(gi)) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      Prow[j] = 0.5f * (sPn[gi * NS + j] + sPn[j * NS + gi]);
-      if (store) out.P[(st * NS + gi) * NS + j] = Prow[j];
+      for (int j = 0; j < NS; ++j) {
+        Prow[j] = 0.5f * (sPn[gi * NS + j] + sPn[j * NS + gi]);
+        if (store) out.P[(st * NS + gi) * NS + j] = Prow[j];
+      }
     }
   }
 
-  // ---- masked Cholesky of P0 (every thread), then the forward sweep ----
+  // ---- masked Cholesky of P0, then the forward sweep ----
+  // P0m = P0∘(s0 s0ᵀ) + diag(1 − s0), as initial_factor
+  const ForwardIO io{out.P, out.Kg, in.A, in.B, in.b, out.dzs, out.dzv, out.lam};
   __syncwarp();
+  if constexpr (NS <= 8) {  // every thread, in registers
 #pragma unroll
-  for (int j = 0; j < NS; ++j) sPn[gi * NS + j] = Prow[j];
-  __syncwarp();
-  float P0m[NS][NS], L0[NS][NS];  // P0m = P0∘(s0 s0ᵀ) + diag(1 − s0), as initial_factor
-#pragma unroll
-  for (int i = 0; i < NS; ++i)
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-      P0m[i][j] = (((s0mask >> i) & (s0mask >> j) & 1u) != 0) ? sPn[i * NS + j]
-                                                             : ((i == j) ? 1.0f : 0.0f);
-  ok = chol_or_identity<NS>(P0m, L0, NS) && ok;
-  if (store) {
+    for (int j = 0; j < NS; ++j) sPn[gi * NS + j] = Prow[j];
+    __syncwarp();
+    float P0m[NS][NS], L0[NS][NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i)
-      if (i == gi) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        P0m[i][j] = (((s0mask >> i) & (s0mask >> j) & 1u) != 0) ? sPn[i * NS + j]
+                                                               : ((i == j) ? 1.0f : 0.0f);
+    ok = chol_or_identity<NS>(P0m, L0, NS) && ok;
+    if (store) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (i == gi) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            out.L0[((long)l * NS + i) * NS + j] = (j <= i) ? L0[i][j] : 0.0f;
+        }
+      if (gi == 0) out.ok[l] = ok ? 1.0f : 0.0f;
+    }
+    initial_and_forward<NS, NV, R>(sh, L0, p, io, l, ls, store, N, s0mask, gi);
+  } else {  // by the group, in the lane's shared memory (Pn)
+    if (Lay::owns(gi)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        sPn[gi * NS + j] = (((s0mask >> gi) & (s0mask >> j) & 1u) != 0)
+                               ? Prow[j] : ((gi == j) ? 1.0f : 0.0f);
+    }
+    __syncwarp();
+    ok = chol_shared<NS, NV, R>(sPn, gi) && ok;
+    if (store) {
+      if (Lay::owns(gi)) {
 #pragma unroll
         for (int j = 0; j < NS; ++j)
-          out.L0[((long)l * NS + i) * NS + j] = (j <= i) ? L0[i][j] : 0.0f;
+          out.L0[((long)l * NS + gi) * NS + j] = (j <= gi) ? sPn[gi * NS + j] : 0.0f;
       }
-    if (gi == 0) out.ok[l] = ok ? 1.0f : 0.0f;
+      if (gi == 0) out.ok[l] = ok ? 1.0f : 0.0f;
+    }
+    const float* sL0 = sPn;
+    initial_and_forward<NS, NV, R>(sh, sL0, p, io, l, ls, store, N, s0mask, gi);
   }
-  const ForwardIO io{out.P, out.Kg, in.A, in.B, in.b, out.dzs, out.dzv, out.lam};
-  initial_and_forward<NS, NV, R>(sh, L0, p, io, l, ls, store, N, s0mask, gi);
 }
 
 // ---- resolve_grouped: K2 on K1's thread-group design ---------------------
@@ -1034,30 +1173,31 @@ template <int NS, int NV, int R>
 __device__ __forceinline__ void load_resolve(float* buf, const ResolveIn& in, int l, int N, int k,
                                              int gi) {
   using Lay = GroupLayout<NS, NV, R>;
+  constexpr int G = Lay::G;
   const long st = (long)l * N + k;
   const long rh = (long)l * R * N + k;
   const long rs = N;
-  if (k + 1 < N) copy_async<NS * NS, 1, NS>(buf + Lay::rP, in.P + (st + 1) * NS * NS, 0, gi);
-  copy_async<NV * NS, 1, NS>(buf + Lay::rMvs, in.Mvs + st * NV * NS, 0, gi);
-  copy_async<NV * NV, 1, NS>(buf + Lay::rLv, in.Lv + st * NV * NV, 0, gi);
-  copy_async<NS * NS, 1, NS>(buf + Lay::A, in.A + st * NS * NS, 0, gi);
-  copy_async<NS * NV, 1, NS>(buf + Lay::B, in.B + st * NS * NV, 0, gi);
-  copy_async<NS, R, NS>(buf + Lay::qs, in.qs + rh * NS, rs * NS, gi);
-  copy_async<NV, R, NS>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
-  copy_async<NS, R, NS>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
+  if (k + 1 < N) copy_async<NS * NS, 1, G>(buf + Lay::rP, in.P + (st + 1) * NS * NS, 0, gi);
+  copy_async<NV * NS, 1, G>(buf + Lay::rMvs, in.Mvs + st * NV * NS, 0, gi);
+  copy_async<NV * NV, 1, G>(buf + Lay::rLv, in.Lv + st * NV * NV, 0, gi);
+  copy_async<NS * NS, 1, G>(buf + Lay::A, in.A + st * NS * NS, 0, gi);
+  copy_async<NS * NV, 1, G>(buf + Lay::B, in.B + st * NS * NV, 0, gi);
+  copy_async<NS, R, G>(buf + Lay::qs, in.qs + rh * NS, rs * NS, gi);
+  copy_async<NV, R, G>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
+  copy_async<NS, R, G>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
 }
 
 // The same arithmetic, in the same order of summation, as resolve_lane, on
-// K1's design: NS threads per lane, thread gi owns entry gi of w_r and p_r
-// (w row-parallel, p column-parallel), and every thread of the group sums
+// K1's design: thread gi owns entry gi of w_r and p_r (w
+// row-parallel, p column-parallel), and every thread of the group sums
 // mv_r = qv_r + Bᵀw_r in order from shared memory and solves it against
 // Lv_k. Each knot's blocks are double-buffered in shared memory with
 // cp.async; the initial-state solve and the forward sweep are K1's.
 template <int NS, int NV, int R>
-__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
+__global__ void __launch_bounds__(kGroupBlock, GroupLayout<NS, NV, R>::min_blocks)
     resolve_grouped(int L, int N, unsigned s0mask, ResolveIn in, ForwardIO io) {
   using Lay = GroupLayout<NS, NV, R>;
-  constexpr int G = NS, D = kStages;
+  constexpr int G = Lay::G, D = kStages;
   __shared__ __align__(16) float smem[Lay::lanes * Lay::stride];
   const int grp = threadIdx.x / G, gi = threadIdx.x % G;
   const int l = blockIdx.x * Lay::lanes + grp;
@@ -1095,14 +1235,16 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
     const float* rb = cur + Lay::b;
 
     // entry gi of w_r = P_{k+1}·b_r + p_r (P_N = 0)
+    if (Lay::owns(gi)) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float acc = 0.0f;
-      if (k < N - 1) {
+      for (int r = 0; r < R; ++r) {
+        float acc = 0.0f;
+        if (k < N - 1) {
 #pragma unroll
-        for (int j = 0; j < NS; ++j) acc += rb[r * NS + j] * Pn[gi * NS + j];
+          for (int j = 0; j < NS; ++j) acc += rb[r * NS + j] * Pn[gi * NS + j];
+        }
+        sW[r * NS + gi] = acc + p[r];
       }
-      sW[r * NS + gi] = acc + p[r];
     }
     __syncwarp();
     float Lv[NV][NV];
@@ -1124,16 +1266,18 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
       cho_solve<NV>(Lv, kff, NV);
 #pragma unroll
       for (int a = 0; a < NV; ++a) kff[a] = -kff[a];
-      float acc = 0.0f;
+      const long rk = ((long)l * R + r) * N + k;
+      if (Lay::owns(gi)) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) acc += sW[r * NS + t] * A[t * NS + gi];
-      float acc2 = 0.0f;
+        for (int t = 0; t < NS; ++t) acc += sW[r * NS + t] * A[t * NS + gi];
+        float acc2 = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NV; ++a) acc2 += kff[a] * Mvs[a * NS + gi];
-      p[r] = (qs[r * NS + gi] + acc) + acc2;
+        for (int a = 0; a < NV; ++a) acc2 += kff[a] * Mvs[a * NS + gi];
+        p[r] = (qs[r * NS + gi] + acc) + acc2;
+        if (store) io.dzs[rk * NS + gi] = p[r];  // stash p_k
+      }
       if (store) {
-        const long rk = ((long)l * R + r) * N + k;
-        io.dzs[rk * NS + gi] = p[r];  // stash p_k
 #pragma unroll
         for (int a = 0; a < NV; ++a)
           if ((r * NV + a) % G == gi) io.dzv[rk * NV + a] = kff[a];  // stash kff_k
@@ -1141,17 +1285,31 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
     }
   }
 
-  float L0[NS][NS];  // the stored masked initial factor (lower triangle)
+  // the stored masked initial factor (lower triangle)
+  if constexpr (NS <= 8) {  // in registers
+    float L0[NS][NS];
 #pragma unroll
-  for (int i = 0; i < NS; ++i)
+    for (int i = 0; i < NS; ++i)
 #pragma unroll
-    for (int j = 0; j < NS; ++j) L0[i][j] = (j <= i) ? in.L0[((long)ls * NS + i) * NS + j] : 0.0f;
-  initial_and_forward<NS, NV, R>(sh, L0, p, io, l, ls, store, N, s0mask, gi);
+      for (int j = 0; j < NS; ++j)
+        L0[i][j] = (j <= i) ? in.L0[((long)ls * NS + i) * NS + j] : 0.0f;
+    initial_and_forward<NS, NV, R>(sh, L0, p, io, l, ls, store, N, s0mask, gi);
+  } else {  // in the lane's shared memory (Pn), each thread its row
+    float* const sL0 = sh + Lay::Pn;
+    if (Lay::owns(gi)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        sL0[gi * NS + j] = (j <= gi) ? in.L0[((long)ls * NS + gi) * NS + j] : 0.0f;
+    }
+    __syncwarp();
+    const float* cL0 = sL0;
+    initial_and_forward<NS, NV, R>(sh, cL0, p, io, l, ls, store, N, s0mask, gi);
+  }
 }
 
-template <int NS>
+template <int NS, int NV, int R>
 unsigned grouped_grid(int L) {
-  constexpr int lanes = kGroupBlock / NS;
+  constexpr int lanes = GroupLayout<NS, NV, R>::lanes;
   return (unsigned)((L + lanes - 1) / lanes);
 }
 
@@ -1255,11 +1413,20 @@ extern "C" int dto_factor_solve_grouped(int L, int N, int ns, int nv, int R, uns
   const FactorOut out{(float*)P,  (float*)Lv,  (float*)Kg,  (float*)Mvs, (float*)L0,
                       (float*)ok, (float*)dzs, (float*)dzv, (float*)lam};
   if (ns == 8 && nv == 3 && R == 3)
-    factor_solve_grouped<8, 3, 3><<<grouped_grid<8>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+    factor_solve_grouped<8, 3, 3>
+        <<<grouped_grid<8, 3, 3>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
   else if (ns == 2 && nv == 1 && R == 3)
-    factor_solve_grouped<2, 1, 3><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+    factor_solve_grouped<2, 1, 3>
+        <<<grouped_grid<2, 1, 3>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
   else if (ns == 2 && nv == 1 && R == 7)
-    factor_solve_grouped<2, 1, 7><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+    factor_solve_grouped<2, 1, 7>
+        <<<grouped_grid<2, 1, 7>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+  else if (ns == 10 && nv == 3 && R == 3)
+    factor_solve_grouped<10, 3, 3>
+        <<<grouped_grid<10, 3, 3>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+  else if (ns == 18 && nv == 3 && R == 3)
+    factor_solve_grouped<18, 3, 3>
+        <<<grouped_grid<18, 3, 3>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -1306,9 +1473,17 @@ extern "C" int dto_resolve_grouped(int L, int N, int ns, int nv, int R, unsigned
   const ForwardIO io{(const float*)P, (const float*)Kg, (const float*)A, (const float*)B,
                      (const float*)rb, (float*)dzs, (float*)dzv, (float*)lam};
   if (ns == 8 && nv == 3 && R == 2)
-    resolve_grouped<8, 3, 2><<<grouped_grid<8>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+    resolve_grouped<8, 3, 2>
+        <<<grouped_grid<8, 3, 2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
   else if (ns == 2 && nv == 1 && R == 2)
-    resolve_grouped<2, 1, 2><<<grouped_grid<2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+    resolve_grouped<2, 1, 2>
+        <<<grouped_grid<2, 1, 2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+  else if (ns == 10 && nv == 3 && R == 2)
+    resolve_grouped<10, 3, 2>
+        <<<grouped_grid<10, 3, 2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+  else if (ns == 18 && nv == 3 && R == 2)
+    resolve_grouped<18, 3, 2>
+        <<<grouped_grid<18, 3, 2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -12,7 +12,9 @@ on correctly rounded division and square root (nvcc's defaults
 ``-prec-div=true -prec-sqrt=true -ftz=false``).
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show that its main path went through the kernels. :func:`route` decides, as
+show that its main path went through the kernels; :data:`INSTANCES` counts
+the K1/K2 launches a second time, by CUDA kernel, and so overlaps
+:data:`LAUNCHES` (see there). :func:`route` decides, as
 the JAX package's ``pallas_eligible`` and ``window_jac_eligible`` do without
 their VMEM terms, whether a call takes the kernel or its plain PyTorch
 version; :data:`PLAIN_CALLS` counts the float32 calls on the card that the
@@ -30,8 +32,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "route", "library", "build_info",
-           "stream_ptr"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "INSTANCES", "reset_launches", "count_launch", "route",
+           "library", "build_info", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -51,6 +53,14 @@ LAUNCHES = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
 # float32 calls on the card that the shape caps sent to the plain version, by wrapper
 PLAIN_CALLS = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
                "residual_l1": 0}
+# K1/K2 launches by CUDA kernel, as -Xptxas -v names it: the grouped ones with
+# their template arguments (``factor_solve_grouped<10,3,3>``), and
+# ``factor_solve_generic``, ``factor_solve_wide``, ``resolve_generic``,
+# ``resolve_wide``; counted beside LAUNCHES, by the same launches. The two
+# overlap: LAUNCHES's ``factor_solve_wide`` / ``resolve_wide`` are the same
+# counts as INSTANCES's, and its ``factor_solve`` / ``resolve`` the sum of
+# the grouped and generic instances'.
+INSTANCES: dict = {}
 
 # The Pallas kernels' shape caps (directtrajopt_tpu/ops/riccati_kernel.py
 # pallas_eligible, ops/expv_kernel.py window_jac_eligible), without their
@@ -75,10 +85,19 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    """Set every count of :data:`LAUNCHES` and :data:`PLAIN_CALLS` to 0."""
+    """Set every count of :data:`LAUNCHES` and :data:`PLAIN_CALLS` to 0, and
+    empty :data:`INSTANCES`."""
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
+    INSTANCES.clear()
+
+
+def count_launch(key: str, kernel: str) -> None:
+    """Count one launch of CUDA kernel ``kernel`` under :data:`LAUNCHES`'s
+    ``key`` and :data:`INSTANCES`'s ``kernel``."""
+    LAUNCHES[key] += 1
+    INSTANCES[kernel] = INSTANCES.get(kernel, 0) + 1
 
 
 def route(kind: str, device_type: str, dtype, sizes: dict) -> str:

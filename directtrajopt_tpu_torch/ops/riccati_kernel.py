@@ -34,7 +34,9 @@ any other with n_s ≤ 16 and n_v ≤ 8 (:data:`MAX_SIZES`) the generic
 one-thread-per-lane kernel on lanes-minor copies, and the rest of the caps
 its wide instantiation at n_s, n_v ≤ 24, ``factor_solve_wide`` /
 ``resolve_wide``, counted under ``factor_solve_wide`` and
-``resolve_wide``. The plain
+``resolve_wide`` (:func:`factor_solve_per_lane`, :func:`resolve_per_lane`).
+Each launch also counts in ``_build.INSTANCES`` under its CUDA kernel's
+name (``factor_solve_grouped<10,3,3>``, ``resolve_generic``, …). The plain
 versions are ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over
 knots with batched small matmuls and ``torch.linalg.cholesky_ex``.
 """
@@ -46,9 +48,9 @@ import torch
 
 from . import _build
 
-__all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain",
-           "split_factor_solve", "MAX_SIZES", "RESOLVE_MAX_SIZES", "GROUPED_SHAPES",
-           "RESOLVE_GROUPED_SHAPES"]
+__all__ = ["factor_solve", "factor_solve_plain", "factor_solve_per_lane", "resolve",
+           "resolve_plain", "resolve_per_lane", "split_factor_solve", "MAX_SIZES",
+           "RESOLVE_MAX_SIZES", "GROUPED_SHAPES", "RESOLVE_GROUPED_SHAPES"]
 
 # kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, and
 # kRMax for K1's R, kRResolveMax for K2's, the Pallas kernels' R ≤ 40). K1
@@ -57,12 +59,13 @@ __all__ = ["factor_solve", "factor_solve_plain", "resolve", "resolve_plain",
 MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
 RESOLVE_MAX_SIZES = {"ns": 16, "nv": 8, "R": 40}
 # (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
-# gate problem, path 2's state-constrained family and path 3's global-phase
-# family (R = 4 border + 2 arrowhead columns + the main system)
-GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3), (2, 1, 7)})
+# gate problem, path 2's state-constrained family, path 3's global-phase
+# family (R = 4 border + 2 arrowhead columns + the main system) and the
+# scaling family at state_dim 8 and 16 (path 7)
+GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3), (2, 1, 7), (10, 3, 3), (18, 3, 3)})
 # (n_s, n_v, R') instantiations of K2's resolve_grouped: the fused SOC +
-# restoration resolve of both paths; other shapes run resolve_generic
-RESOLVE_GROUPED_SHAPES = frozenset({(8, 3, 2), (2, 1, 2)})
+# restoration resolve of the same paths; other shapes run resolve_generic
+RESOLVE_GROUPED_SHAPES = frozenset({(8, 3, 2), (2, 1, 2), (10, 3, 2), (18, 3, 2)})
 
 
 def _chol_or_identity(H: torch.Tensor):
@@ -182,7 +185,7 @@ def _launch_grouped(entry, key, s0m, ins, outs, L, N, ns, nv, R):
         _build.stream_ptr(dev),
     )
     _build.check_rc(rc, key)
-    _build.LAUNCHES[key] += 1
+    _build.count_launch(key, f"{key}_grouped<{ns},{nv},{R}>")
     return outs
 
 
@@ -237,9 +240,13 @@ def _use_kernel(key: str, x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
     return True
 
 
-def _wide_key(key: str, ns: int, nv: int) -> str:
-    """The launch-count key of the generic (``key``) or wide instantiation."""
-    return f"{key}_wide" if ns > MAX_SIZES["ns"] or nv > MAX_SIZES["nv"] else key
+def _per_lane_keys(key: str, ns: int, nv: int) -> tuple[str, str]:
+    """The launch-count key and CUDA kernel of wrapper ``key``'s per-lane
+    launch: the generic instantiation (counted under ``key``) or the wide
+    one (under ``key_wide``)."""
+    if ns > MAX_SIZES["ns"] or nv > MAX_SIZES["nv"]:
+        return f"{key}_wide", f"{key}_wide"
+    return key, f"{key}_generic"
 
 
 def _check_shapes(pairs: dict) -> None:
@@ -265,6 +272,18 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
         return split_factor_solve(factor_solve, resolve, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
     if (ns, nv, R) in GROUPED_SHAPES:
         return _factor_solve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
+    return factor_solve_per_lane(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+
+
+def factor_solve_per_lane(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
+    """K1's one-thread-a-lane kernel on lanes-minor copies of float32 CUDA
+    inputs, R ≤ 8: ``factor_solve_generic`` up to :data:`MAX_SIZES`, else
+    ``factor_solve_wide``. :func:`factor_solve` takes it for the shapes
+    that have no grouped instantiation; called directly, it times the
+    per-lane kernel at a grouped shape."""
+    L, N, ns, _ = Qss.shape
+    nv = Qvv.shape[-1]
+    R = qs.shape[1]
     dev = Qss.device
     kw = dict(dtype=torch.float32, device=dev)
     stage = [_lanes_minor_stage(t) for t in (Qss, Qsv, Qvv, A, B)]
@@ -285,9 +304,9 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
         *(t.data_ptr() for t in (P_t, L_t, Kg_t, Mvs_t, L0_t, ok_t, dzs_t, dzv_t, lam_t)),
         _build.stream_ptr(dev),
     )
-    key = _wide_key("factor_solve", ns, nv)
+    key, kernel = _per_lane_keys("factor_solve", ns, nv)
     _build.check_rc(rc, key)
-    _build.LAUNCHES[key] += 1
+    _build.count_launch(key, kernel)
     return (
         P_t.permute(3, 0, 1, 2), L_t.permute(3, 0, 1, 2), Kg_t.permute(3, 0, 1, 2),
         Mvs_t.permute(3, 0, 1, 2), L0_t.permute(2, 0, 1), ok_t > 0.5,
@@ -312,6 +331,17 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
         return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
     if (ns, nv, R) in RESOLVE_GROUPED_SHAPES:
         return _resolve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
+    return resolve_per_lane(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
+
+
+def resolve_per_lane(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
+    """K2's one-thread-a-lane kernel (tiles of 8 right-hand sides) on
+    lanes-minor copies of float32 CUDA inputs, R ≤ 40: ``resolve_generic``
+    up to :data:`MAX_SIZES`, else ``resolve_wide``; as
+    :func:`factor_solve_per_lane`."""
+    L, N, ns, _ = P.shape
+    nv = Lv.shape[-1]
+    R = qs.shape[1]
     dev = P.device
     kw = dict(dtype=torch.float32, device=dev)
     stage = [_lanes_minor_stage(t) for t in (P, Lv, Kg, Mvs)]
@@ -327,8 +357,8 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
         dzs_t.data_ptr(), dzv_t.data_ptr(), lam_t.data_ptr(),
         _build.stream_ptr(dev),
     )
-    key = _wide_key("resolve", ns, nv)
+    key, kernel = _per_lane_keys("resolve", ns, nv)
     _build.check_rc(rc, key)
-    _build.LAUNCHES[key] += 1
+    _build.count_launch(key, kernel)
     return (dzs_t.permute(3, 1, 0, 2), dzv_t.permute(3, 1, 0, 2),
             lam_t.permute(3, 1, 0, 2)[:, :, : N - 1])

@@ -181,6 +181,23 @@ def test_global_constraint_constructors():
     assert tt.layout.global_z_slice("theta") == slice(27, 30)
 
 
+def test_per_lane_global_linear_constructor():
+    """``GlobalLinearConstraint.create`` takes a (B, rows, g) tensor as a
+    per-lane A (on the trajectory's dtype and device), refuses one of
+    another lane count, and checks every lane's all-zero rows."""
+    jt = _traj()
+    tt = from_numpy_problem(dtx.DirectTrajOptProblem.create(
+        jt, dtx.QuadraticRegularizer.create("u", jt, 1.0), []), "cpu").trajectory
+    A = torch.arange(6, dtype=torch.float32).reshape(1, 2, 3)
+    c = tdx.GlobalLinearConstraint.create("theta", A, lb=[0.0, -1.0], ub=[0.0, 1.0], traj=tt)
+    assert c.A.shape == (1, 2, 3) and c.A.dtype == tt.data["x"].dtype
+    assert c.eq_mask == (True, False)
+    with pytest.raises(ValueError, match="lanes"):
+        tdx.GlobalLinearConstraint.create("theta", torch.ones(2, 1, 3), lb=[0.0], traj=tt)
+    with pytest.raises(ValueError, match="infeasible"):
+        tdx.GlobalLinearConstraint.create("theta", torch.zeros(1, 1, 3), lb=[1.0], traj=tt)
+
+
 # ---------------- the arrowhead border --------------------------------------- #
 
 
@@ -302,6 +319,30 @@ def test_global_phase_solve_matches_jax(hessian):
     assert np.max(np.abs(Zj - tr.problem.trajectory.to_zvec().numpy())) < 1e-8
     th = tr.problem.trajectory.global_data["theta"].numpy()
     assert np.max(np.abs(th.sum(1) - 0.2)) < 1e-9
+
+
+def test_per_lane_global_linear_a_matches_jax():
+    """A per-lane ``GlobalLinearConstraint.A`` (lane ℓ: θ[0] + (1 + 0.25ℓ)·θ[1]
+    = 0.2) on four lanes of path 3's family at N=12, f64, tol 1e-9: the
+    bridge carries A as a (B, rows, g) tensor, the canon's values are per
+    lane, and the solve takes the JAX package's iterations lane for lane to
+    its Z (1e-8), each lane on its own row."""
+    A = [np.array([[1.0, 1.0 + 0.25 * lane]]) for lane in range(4)]
+    jp, fns = global_phase(4, 12, A_lanes=A)
+    tp = from_numpy_problem(jp, "cpu", functions=fns)
+    con = next(c for c in tp.constraints if isinstance(c, tdx.GlobalLinearConstraint))
+    assert isinstance(con.A, torch.Tensor) and tuple(con.A.shape) == (4, 1, 2)
+    nlp = t_make_nlp(tp)
+    assert nlp.A_eq.vals.shape[0] == 4 and not torch.equal(nlp.A_eq.vals[0], nlp.A_eq.vals[1])
+    kw = dict(max_iter=200, tol=1e-9)
+    jr = dtx.solve_batch(jp, **kw)
+    tr = tdx.solve(tp, **kw)
+    assert np.array_equal(np.asarray(jr.iterations), tr.iterations.numpy())
+    assert tr.converged.all() and np.asarray(jr.converged).all()
+    Zj = np.asarray(jr.problem.trajectory.to_zvec())
+    assert np.max(np.abs(Zj - tr.problem.trajectory.to_zvec().numpy())) < 1e-8
+    th = tr.problem.trajectory.global_data["theta"].numpy()
+    assert np.max(np.abs((th * np.concatenate(A)).sum(1) - 0.2)) < 1e-9
 
 
 def test_fix_global_variable_solves():

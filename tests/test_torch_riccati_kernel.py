@@ -172,6 +172,84 @@ def test_path2_shape_n51_f32_matches_pallas_interpret():
             assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
 
 
+@pytest.mark.parametrize("ns,which", [(10, "factor"), (10, "resolve"), (18, "factor"),
+                                       (18, "resolve")])
+def test_scaling_family_shapes_n51_f32_match_jax(ns, which):
+    """The scaling family's grouped shapes (path 7: state_dim 8 and 16), N=51,
+    float32, the first two initial states pinned, lane 1 indefinite at
+    stage 30: the plain K1 at (n_s, 3, 3) against the JAX package's factor
+    and the plain K2 at (n_s, 3, 2) against its resolve on those factors;
+    5e-6 relative on the certified lanes, ``ok`` equal. At n_s = 10 the
+    reference is the Pallas kernel in interpret mode; at 18, whose
+    interpreted trace takes 9 s (factor) and 5 s (resolve) on the CPU, the
+    f32 XLA scans ``_factor_solve_xla`` / ``_resolve_xla``. There the JAX
+    package's own f32 factor is up to 3.6e-6 from its f64 one, and two f32
+    evaluations each within δ of f64 differ by up to 2δ: the bound is
+    max(5e-6, 4δ), δ the JAX f32 version's worst deviation from f64 on the
+    certified lanes (the rule of the card's rows at these shapes)."""
+    nv, N = 3, 51
+    s0m = _s0m(ns)
+    a64 = _stage_data(11, B=4, N=N, ns=ns, nv=nv, R=3)
+    a64[2][1, 30] = -1e6 * np.eye(nv)
+    args = [a.astype(np.float32) for a in a64]
+    interpret = ns <= 10
+    if interpret and which == "factor":
+        fac = rk._factor_solve_pallas(s0m, *map(jnp.asarray, args), interpret=True)
+    else:
+        fac = _jax_xla(s0m, args)
+    tol = 5e-6
+    if not interpret:
+        fac64 = _jax_xla(s0m, a64)
+        ok64 = np.asarray(fac64[5])
+        if which == "factor":
+            ref64, ref32 = fac64, fac
+        else:
+            rhs64 = _stage_data(12, B=4, N=N, ns=ns, nv=nv, R=2)[5:]
+            ref64 = jax.vmap(lambda *a: rk._resolve_xla(s0m, *a))(
+                *map(jnp.asarray, [np.asarray(t) for t in fac64[:5]] + a64[3:5] + rhs64))
+            ref32 = jax.vmap(lambda *a: rk._resolve_xla(s0m, *a))(*map(jnp.asarray, (
+                [np.asarray(t) for t in fac[:5]] + args[3:5]
+                + [a.astype(np.float32) for a in rhs64])))
+        delta = max(_rel(np.asarray(x)[ok64], np.asarray(y)[ok64])
+                    for x, y in zip(ref64, ref32) if np.asarray(x).dtype != bool)
+        tol = max(tol, 4 * delta)
+    ok = np.asarray(fac[5])
+    assert ok.tolist() == [True, False, True, True]
+    assert (ns, nv, 3) in trk.GROUPED_SHAPES and (ns, nv, 2) in trk.RESOLVE_GROUPED_SHAPES
+    if which == "factor":
+        out = trk.factor_solve(s0m, *(torch.as_tensor(a) for a in args))
+        assert (ok == out[5].numpy()).all()
+        for name, x, y in zip(NAMES, fac, out):
+            if name != "ok":
+                assert y.shape == np.asarray(x).shape, name
+                assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < tol, name
+        return
+    fac = [np.asarray(t) for t in fac[:5]]
+    rhs = [a.astype(np.float32) for a in _stage_data(12, B=4, N=N, ns=ns, nv=nv, R=2)[5:]]
+    ins = fac + args[3:5] + rhs
+    if interpret:
+        ref = rk._resolve_pallas(s0m, *map(jnp.asarray, ins), interpret=True)
+    else:
+        ref = jax.vmap(lambda *a: rk._resolve_xla(s0m, *a))(*map(jnp.asarray, ins))
+    out = trk.resolve(s0m, *(torch.as_tensor(a) for a in ins))
+    for name, x, y in zip(["dzs", "dzv", "lam"], ref, out):
+        assert y.shape == np.asarray(x).shape, name
+        assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < tol, name
+
+
+def test_launches_are_counted_by_kernel_and_instantiation():
+    """``count_launch`` adds one to the wrapper's key and one to the CUDA
+    kernel's name; ``reset_launches`` sets both to nothing."""
+    _build.reset_launches()
+    _build.count_launch("factor_solve", "factor_solve_grouped<18,3,3>")
+    _build.count_launch("factor_solve", "factor_solve_grouped<18,3,3>")
+    _build.count_launch("resolve_wide", "resolve_wide")
+    assert _build.LAUNCHES["factor_solve"] == 2 and _build.LAUNCHES["resolve_wide"] == 1
+    assert _build.INSTANCES == {"factor_solve_grouped<18,3,3>": 2, "resolve_wide": 1}
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values()) and _build.INSTANCES == {}
+
+
 def test_instantiated_shapes_match_the_kernel_source():
     """``GROUPED_SHAPES`` are exactly the shapes ``dto_factor_solve_grouped``
     dispatches to ``factor_solve_grouped``, and ``RESOLVE_GROUPED_SHAPES``

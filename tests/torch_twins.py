@@ -233,7 +233,7 @@ def riccati_globals(with_border_ineq=False):
     return prob, fns
 
 
-def global_phase(B=1, N=12, seed0=0, fix_theta=None):
+def global_phase(B=1, N=12, seed0=0, fix_theta=None, A_lanes=None):
     """The global-phase family: the 2-D transfer with Δt = 0.12, |u| ≤ 0.8,
     x_1 = (1, 0) and x_N the final state of the rollout of
     u = 0.3·sin(linspace(0, 4, N)); a global θ ∈ ℝ² with |θ| ≤ 3; objective
@@ -241,7 +241,9 @@ def global_phase(B=1, N=12, seed0=0, fix_theta=None):
     u_3 − 0.5·θ[0] − 0.1 = 0 and θ[0] + θ[1] = 0.2. Lane ℓ starts from the
     rollout plus 0.02·N(0,1) on x and from θ = (0.4, −0.2) plus 0.2·N(0,1),
     both from ``np.random.default_rng(seed0 + ℓ)``. ``fix_theta``: pin θ
-    there instead (``fix_global_variable``). Batched when B > 1."""
+    there instead (``fix_global_variable``); ``A_lanes``: lane ℓ's row of the
+    linear constraint A_lanes[ℓ]·θ = 0.2 (default (1, 1)). Batched when
+    B > 1."""
     dt = 0.12
     u = 0.3 * np.sin(np.linspace(0, 4, N))[:, None]
     xs = rollout([1.0, 0.0], u, dt)
@@ -269,8 +271,8 @@ def global_phase(B=1, N=12, seed0=0, fix_theta=None):
         cons = [dtx.NonlinearGlobalKnotPointConstraint.create(g_con, "u", "theta", traj,
                                                               times=[3])]
         if fix_theta is None:
-            cons.append(dtx.GlobalLinearConstraint.create("theta", np.array([[1.0, 1.0]]),
-                                                          lb=[0.2], ub=[0.2]))
+            A = np.array([[1.0, 1.0]]) if A_lanes is None else np.asarray(A_lanes[lane])
+            cons.append(dtx.GlobalLinearConstraint.create("theta", A, lb=[0.2], ub=[0.2]))
         else:
             traj, pin = dtx.fix_global_variable(traj, "theta", np.asarray(fix_theta))
             cons.append(pin)

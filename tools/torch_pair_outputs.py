@@ -16,6 +16,7 @@ of the outputs of each row:
   of path 1's problem at 256 and 8192 lanes and of path 2's at 8192 (its
   output, the z_k-wide Jacobian, is the same function in every version);
 - K1 at (8,3,3) on random stage data for 256 lanes and for 8192 (lane 77
+  indefinite), at (2,1,7) on random stage data for 8192 (lane 77
   indefinite), and at (2,1,3) on the first call captured from path 2's own
   solve (one certified lane made indefinite);
 - K2 at (8,3,2) for 256 lanes against K1's factors, and at (2,1,2) on the
@@ -127,6 +128,10 @@ def fingerprint(root: Path) -> dict:
     st = cs.stage_data(0, BIG, N, dev, 8, 3, 3)
     st[2][77, 20] = -1e6 * torch.eye(3, device=dev)
     row(f"K1 (8,3,3) B={BIG}, lane 77 indefinite", st, lambda: rk.factor_solve(s0, *st))
+    st = cs.stage_data(2, BIG, N, dev, 2, 1, 7)
+    st[2][77, 20] = -1e6
+    row(f"K1 (2,1,7) B={BIG}, lane 77 indefinite", st,
+        lambda: rk.factor_solve(np.arange(2) >= 1, *st))
     st = cs.stage_data(1, 256, N, dev, 8, 3, 2)
     fac = rk.factor_solve_plain(s0, *st)
     ins = list(fac[:5]) + st[3:]
