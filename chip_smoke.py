@@ -56,10 +56,11 @@ Phases, each printing its own lines:
    ``GeneralIntegrator``, N=40, x 4, u 1, fixed Δt, lane i from seed i) at
    B=8192 in float32 in one lockstep chunk. 5a: the exact Hessian
    (``cartpole_config()``: ``torch.func`` Jacobians and Hessians of the RK4
-   step at full width, K1 generic (4,1,1), K2 generic (4,1,2)); 5b: L-BFGS
+   step at full width, K1 grouped (4,1,1), K2 grouped (4,1,2)); 5b: L-BFGS
    with m = 20 (``cartpole_lbfgs_config()``: no AD Hessian, σI in the stage
-   blocks and the SMW correction through K2 at (4,1,40) once an
-   iteration). Each with its seconds, lockstep passes and launches, the
+   blocks and the SMW correction through K2 at (4,1,40), the column kernel
+   ``resolve_columns<4,1>``, once an iteration). Each with its seconds,
+   lockstep passes and launches (K1/K2 by kernel: no generic K1/K2), the
    converged share and, over the converged lanes, the KKT error,
    |obj/obj* − 1| and RMS(u − u*) against ``tests/golden/cartpole_n40_
    seed0.npz``. 5c: lanes 0-255 of path 1's batch with the seek's options,
@@ -68,9 +69,11 @@ Phases, each printing its own lines:
    refinement), each with its seconds, converged count, iterations and K1 /
    K2 launches; every lane must end finite. Phase 2 holds K1 (4,1,1) and K2
    (4,1,2) on 5a's captured calls and K2 (4,1,40) on 5b's (the SMW columns
-   of a later iteration), and on stage data at 256 lanes the K1 split at
-   R = 9 (K1 on 8 columns, K2 on the ninth) and K2 at R = 40 (bitwise the
-   same as five launches of 8 columns; R = 41 raises).
+   of a later iteration), and beside them, on the same calls, the generic
+   kernels they replace; and on stage data at 256 lanes the K1 split at
+   R = 9 (K1 on 8 columns, K2 on the ninth), the column K2 at (4,1,40)
+   (bitwise the same as five launches of 8 columns; R = 41 takes the plain
+   version) and the generic K2 at (5,2,40) (bitwise its five tiles).
 
 8. Path 6, the dense KKT backend (``chip_smoke.path6``). 6a: the order-1
    time-dependent family (``make_batched_td_problems``: the 4-D Pauli state
@@ -552,8 +555,8 @@ def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
     """(kernel, registers, stack frame and spills, shared memory) per kernel
     from ``nvcc -Xptxas -v`` output."""
     kernels = ("factor_solve_grouped", "factor_solve_generic", "factor_solve_wide",
-               "resolve_grouped", "resolve_generic", "resolve_wide", "window_jac_kernel",
-               "residual_grid_kernel")
+               "resolve_grouped", "resolve_columns", "resolve_generic", "resolve_wide",
+               "window_jac_kernel", "residual_grid_kernel")
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -992,11 +995,13 @@ def main() -> None:
     ptxas = ptxas_summary(info.get("log", ""))
     for name, regs, frame, smem in ptxas:
         print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
-    # the grouped K1 and K2 and the K3 and K4 kernels at their exact shapes
-    # keep every array in registers or shared memory (the generic K3/K4,
-    # <8,8,·>, and the generic and wide K1/K2 may use local memory)
+    # the grouped and column K1 and K2 and the K3 and K4 kernels at their
+    # exact shapes keep every array in registers or shared memory (the
+    # generic K3/K4, <8,8,·>, and the generic and wide K1/K2 may use local
+    # memory)
     for kname, count in (("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES)),
                          ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES)),
+                         ("resolve_columns", len(riccati_kernel.RESOLVE_COLUMN_SHAPES)),
                          ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES)),
                          ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES))):
         found = [(name, frame) for name, _, frame, _ in ptxas
@@ -1089,14 +1094,6 @@ def main() -> None:
             keep[bad] = False
         return keep
 
-    def instantiation(name, shape):
-        grouped = (riccati_kernel.GROUPED_SHAPES if name == "factor_solve"
-                   else riccati_kernel.RESOLVE_GROUPED_SHAPES)
-        if shape in grouped:
-            return "grouped"
-        small = riccati_kernel.MAX_SIZES
-        return "generic" if shape[0] <= small["ns"] and shape[1] <= small["nv"] else "wide"
-
     for key, lanes, shape, bad in (
         ("factor_solve", 256, (8, 3, 3), None),
         ("factor_solve_big", 8192, (8, 3, 3), 77),
@@ -1104,12 +1101,13 @@ def main() -> None:
         ("factor_solve_generic_small", 256, (5, 2, 2), 5),
     ):
         s0, st = riccati_inputs(0, lanes, *shape, bad)
-        check(key, f"K1 factor_solve ({instantiation('factor_solve', shape)}) B={lanes} "
+        inst = riccati_kernel.design("factor_solve", *shape)
+        check(key, f"K1 factor_solve ({inst}) B={lanes} "
                    f"(n_s,n_v,R)={shape}" + (f", lane {bad} indefinite" if bad is not None else ""),
               lambda: riccati_kernel.factor_solve(s0, *st),
               lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
               riccati_ops(lanes, N, *shape, factor=True), ok_equal, lanes=but_lane(lanes, bad),
-              prof=f"factor_solve_{instantiation('factor_solve', shape)}")
+              prof=f"factor_solve_{inst}")
     for key, shape in (
         ("resolve", (8, 3, 2)),
         ("resolve_generic", (8, 3, 1)),
@@ -1117,7 +1115,7 @@ def main() -> None:
     ):
         s0, st = riccati_inputs(1, 256, *shape)
         fac = riccati_kernel.factor_solve_plain(s0, *st)
-        inst = instantiation("resolve", shape)
+        inst = riccati_kernel.design("resolve", *shape)
         check(key, f"K2 resolve ({inst}) B=256 (n_s,n_v,R')={shape}",
               lambda: riccati_kernel.resolve(s0, *fac[:5], *st[3:]),
               lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
@@ -1321,8 +1319,9 @@ def main() -> None:
 
         well_f, tol_f, note_f = compare_lanes(riccati_kernel.factor_solve_plain, f_args,
                                               f32_floor)
+        inst_f = riccati_kernel.design("factor_solve", *shape_f)
         check(f"factor_solve_{tag}",
-              f"K1 factor_solve ({instantiation('factor_solve', shape_f)}) on {what} inputs "
+              f"K1 factor_solve ({inst_f}) on {what} inputs "
               f"B={lanes} (n_s,n_v,R)={shape_f}, lane {bad_lane} indefinite; certificate "
               f"equal on it and the {int(well_c.sum()) - 1} lanes where plain float32 is within "
               f"1e-3 of float64 (differs on {n_diff} others); factors compared on "
@@ -1330,17 +1329,18 @@ def main() -> None:
               lambda: riccati_kernel.factor_solve(*f_args),
               lambda: riccati_kernel.factor_solve_plain(*f_args), tol_f, True, f_args[1:],
               riccati_ops(lanes, n_knots, *shape_f, factor=True), ok_equal_lanes, lanes=well_f,
-              prof=f"factor_solve_{instantiation('factor_solve', shape_f)}", reps=reps)
+              prof=f"factor_solve_{inst_f}", reps=reps)
         r_args = cap_r.calls[0]
         shape_r = (r_args[1].shape[-1], r_args[2].shape[-1], r_args[8].shape[1])
         well_r, tol_r, note_r = compare_lanes(riccati_kernel.resolve_plain, r_args, f32_floor)
-        check(f"resolve_{tag}", f"K2 resolve ({instantiation('resolve', shape_r)}) on {what} "
+        inst_r = riccati_kernel.design("resolve", *shape_r)
+        check(f"resolve_{tag}", f"K2 resolve ({inst_r}) on {what} "
                                 f"inputs B={lanes} (n_s,n_v,R')={shape_r} "
                                 f"(compared on {int(well_r.sum())} lanes{note_r})",
               lambda: riccati_kernel.resolve(*r_args),
               lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
               riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
-              prof=f"resolve_{instantiation('resolve', shape_r)}", reps=reps)
+              prof=f"resolve_{inst_r}", reps=reps)
         if per_lane:
             check(f"factor_solve_{tag}_{per_lane}",
                   f"K1 factor_solve_{per_lane} (per lane, through dto_factor_solve) on the "
@@ -1449,32 +1449,43 @@ def main() -> None:
           lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
           riccati_ops(256, N, 1, 1, 9, factor=True), ok_equal, lanes=but_lane(256, 5),
           prof="factor_solve_generic")
-    # K2 at the Pallas resolve's bound, R = 40, in one launch
-    s0, st = riccati_inputs(5, 256, 4, 1, 40)
-    fac = riccati_kernel.factor_solve_plain(s0, *st)
-    r_in = (s0, *fac[:5], st[3], st[4])
-    check("resolve_r40", "K2 resolve (generic, 5 tiles of 8 in one launch) B=256 "
-                         "(n_s,n_v,R')=(4, 1, 40)",
-          lambda: riccati_kernel.resolve(*r_in, *st[5:]),
-          lambda: riccati_kernel.resolve_plain(*r_in, *st[5:]), 5e-6, True,
-          list(fac[:5]) + st[3:], riccati_ops(256, N, 4, 1, 40, factor=False),
-          prof="resolve_generic")
-    whole = riccati_kernel.resolve(*r_in, *st[5:])
-    tiles = [riccati_kernel.resolve(*r_in, *(x[:, i:i + 8] for x in st[5:]))
-             for i in range(0, 40, 8)]
-    same = all(torch.equal(w, torch.cat([t[j] for t in tiles], 1)) for j, w in enumerate(whole))
+    # K2 at the Pallas resolve's bound, R = 40, in one launch: the column
+    # kernel at (4,1), a thread per lane and column, whose columns do not
+    # depend on the others of the launch; and the generic kernel at (5,2),
+    # a shape with no column instance, its 8-column tiles on grid rows
+    r40 = {}
+    for key, shape in (("resolve_r40", (4, 1, 40)), ("resolve_r40_generic", (5, 2, 40))):
+        s0, st = riccati_inputs(5, 256, *shape)
+        fac = riccati_kernel.factor_solve_plain(s0, *st)
+        r_in = (s0, *fac[:5], st[3], st[4])
+        inst = riccati_kernel.design("resolve", *shape)
+        check(key, f"K2 resolve ({inst}, R' in one launch) B=256 (n_s,n_v,R')={shape}",
+              lambda: riccati_kernel.resolve(*r_in, *st[5:]),
+              lambda: riccati_kernel.resolve_plain(*r_in, *st[5:]), 5e-6, True,
+              list(fac[:5]) + st[3:], riccati_ops(256, N, *shape, factor=False),
+              prof=f"resolve_{inst}")
+        _build.reset_launches()
+        whole = riccati_kernel.resolve(*r_in, *st[5:])
+        tiles = [riccati_kernel.resolve(*r_in, *(x[:, i:i + 8] for x in st[5:]))
+                 for i in range(0, 40, 8)]
+        r40[inst] = (all(torch.equal(w, torch.cat([t[j] for t in tiles], 1))
+                         for j, w in enumerate(whole)), dict(_build.INSTANCES))
     # beyond the caps (R' = 41) the plain version runs on the card, counted
     r41 = (*r_in, *(torch.cat([x, x[:, :1]], 1) for x in st[5:]))
     _build.reset_launches()
     out41 = riccati_kernel.resolve(*r41)
     plain41 = (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES))
     same41 = all(torch.equal(a, b) for a, b in zip(out41, riccati_kernel.resolve_plain(*r41)))
-    print(f"[kernel] K2 at R'=40: bitwise equal to five launches of 8 columns: {same}; "
-          f"R'=41 takes the plain version: plain calls {json.dumps(plain41[0])}, launches "
+    print(f"[kernel] K2 at R'=40 bitwise equal to five launches of 8 columns: column kernel "
+          f"(4,1) {r40['columns'][0]} (launches {json.dumps(r40['columns'][1])}), generic "
+          f"(5,2) {r40['generic'][0]} (launches {json.dumps(r40['generic'][1])}); R'=41 "
+          f"(5,2) takes the plain version: plain calls {json.dumps(plain41[0])}, launches "
           f"{sum(plain41[1].values())}, bitwise the plain version's: {same41}", flush=True)
-    if not (same and same41 and plain41[0]["resolve"] == 1 and not any(plain41[1].values())):
-        fail("K2 at 40 right-hand sides differs from its tiles, or R'=41 did not take the "
-             "plain version")
+    if not (r40["columns"] == (True, {"resolve_columns<4,1>": 6})
+            and r40["generic"] == (True, {"resolve_generic": 6})):
+        fail("K2 at 40 right-hand sides differs from its 8-column pieces, or another kernel ran")
+    if not (same41 and plain41[0]["resolve"] == 1 and not any(plain41[1].values())):
+        fail("K2 at R'=41 did not take the plain version")
     del s0, st, fac, r_in, whole, tiles, r41, out41
     # K1 (4,1,1) and K2 (4,1,2) on calls captured from 5a's own solve (its
     # problem, all B5 lanes in one chunk, its options, 3 iterations), and K2
@@ -1490,7 +1501,8 @@ def main() -> None:
     with Capture(riccati_kernel, "factor_solve", 16) as cap_f5, \
             Capture(riccati_kernel, "resolve", 16) as cap_r5:
         solve(prob_cp, max_iter=3, **kw5a)
-    shape_f5, shape_r5 = captured_rows("cp", "path-5a", cap_f5, cap_r5, B5, N5, f32_floor=True)
+    shape_f5, shape_r5 = captured_rows("cp", "path-5a", cap_f5, cap_r5, B5, N5, f32_floor=True,
+                                       per_lane="generic")
     del cap_f5, cap_r5
     with Capture(riccati_kernel, "resolve", 8) as cap_r5b:
         solve(prob_cp, max_iter=4, **kw5b)
@@ -1502,13 +1514,28 @@ def main() -> None:
         fail("5b's captured SMW columns are zero")
     shape_r5b = (r5b[1].shape[-1], r5b[2].shape[-1], r5b[8].shape[1])
     well5b, tol5b, note5b = compare_lanes(riccati_kernel.resolve_plain, r5b, True)
-    check("resolve_lbfgs", f"K2 resolve ({instantiation('resolve', shape_r5b)}) on path-5b "
+    des5b = riccati_kernel.design("resolve", *shape_r5b)
+    check("resolve_lbfgs", f"K2 resolve ({des5b}) on path-5b "
                            f"inputs B={B5} (n_s,n_v,R')={shape_r5b}: the SMW columns of "
                            f"iteration {len(smw_calls) - 1} (compared on {int(well5b.sum())} "
                            f"lanes{note5b})",
           lambda: riccati_kernel.resolve(*r5b), lambda: riccati_kernel.resolve_plain(*r5b),
           tol5b, True, r5b[1:], riccati_ops(B5, N5, *shape_r5b, factor=False), lanes=well5b,
-          prof="resolve_generic")
+          prof=f"resolve_{des5b}")
+    # the generic kernel it replaced, on the same call (lanes-minor copies,
+    # five tiles of 8 columns on grid rows)
+    check("resolve_lbfgs_generic", f"K2 resolve_generic (per lane, through dto_resolve) on the "
+                                   f"same path-5b call (n_s,n_v,R')={shape_r5b}",
+          lambda: riccati_kernel.resolve_per_lane(*r5b),
+          lambda: riccati_kernel.resolve_plain(*r5b), tol5b, True, r5b[1:],
+          riccati_ops(B5, N5, *shape_r5b, factor=False), lanes=well5b, prof="resolve_generic",
+          reps=3)
+    new, old = results["resolve_lbfgs"], results["resolve_lbfgs_generic"]
+    ratio = (old["device_ms"] / new["device_ms"]
+             if new["device_ms"] and old["device_ms"] else math.nan)
+    print(f"[pathlbfgs] resolve (4,1,40): columns {new['ms']:.4f} ms a call (device "
+          f"{new['device_ms']}), generic {old['ms']:.4f} ms (device {old['device_ms']}): "
+          f"{ratio:.1f}x sooner in device time; plain {new['plain_ms']:.4f} ms", flush=True)
     del cap_r5b, smw_calls, r5b
 
     # ---- at the scaling family's shapes (path 7) -------------------------- #
@@ -1934,15 +1961,18 @@ def main() -> None:
     def riccati_launches(counts):
         return {k: counts.get(k, 0) for k in ("factor_solve", "resolve")}
 
-    def run5(tag, what, cfg5, kkt_bar, obj_bar, rms_bar):
+    def run5(tag, what, cfg5, kkt_bar, obj_bar, rms_bar, needs_k12):
         """Solve path 5's batch with ``cfg5`` in one chunk; print and
-        certify. Returns the launches."""
+        certify, and fail unless each K1/K2 kernel of ``needs_k12`` ran and
+        no generic K1/K2 did. Returns the launches, the objectives and the
+        K1/K2 launches by kernel (``_build.INSTANCES``)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _build.reset_launches()
         with Timed(solve_mod, "_solve_impl") as tm:
             res = solve_batch_compact(prob_cp, **cfg5["solve_kw"])
         counts = dict(_build.LAUNCHES)
+        k12 = dict(_build.INSTANCES)
         no_plain_calls(tag)
         conv5 = res.converged.cpu().numpy()
         kkt5 = res.kkt_error.cpu().numpy()
@@ -1959,24 +1989,33 @@ def main() -> None:
               f"max |obj/obj* - 1| {worst(obj_err):.3e} (bound {obj_bar:g}), RMS(u - u*) median "
               f"{np.median(rms5[ln5]) if len(ln5) else float('nan'):.3e} max {worst(rms5):.3e} "
               f"(bound {rms_bar:g}; {int((rms5[ln5] > 1e-3).sum())} lanes above 1e-3); peak "
-              f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+              f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; K1/K2 "
+              f"launches by kernel {json.dumps(k12)}", flush=True)
         st5 = res.status.cpu().numpy()
         for i in np.nonzero(~conv5)[0][:16]:
             print(f"[{tag}] unconverged lane {i}: {it5[i]} iterations, kkt {kkt5[i]:.3e}, "
                   f"status {st5[i]}")
         if any(v == 0 for v in riccati_launches(counts).values()):
             fail(f"{tag}: a kernel of the path was never launched: {counts}")
+        missing = [k for k in needs_k12 if not k12.get(k)]
+        if missing:
+            fail(f"{tag}: {missing} never launched: {k12}")
+        if k12.get("factor_solve_generic") or k12.get("resolve_generic"):
+            fail(f"{tag}: a generic K1/K2 ran where the grouped or column one should: {k12}")
         if len(ln5) < MIN_CONVERGED * B5:
             fail(f"{tag}: only {len(ln5)}/{B5} lanes converged")
         if not (worst(kkt5) <= kkt_bar and worst(obj_err) <= obj_bar and worst(rms5) <= rms_bar):
             fail(f"{tag}: a converged lane is not certified")
-        return counts, res.objective.detach().to("cpu", torch.float64).numpy()
+        return counts, res.objective.detach().to("cpu", torch.float64).numpy(), k12
 
-    launches5a, _ = run5("path5a", f"cartpole B={B5} N={N5} float32, exact Hessian", cp_cfg,
-                      KKT_5A, OBJ_5A, RMS_5A)
-    launches5b, obj5b = run5("path5b", f"cartpole B={B5} N={N5} float32, L-BFGS m="
-                                f"{lb_cfg['solve_kw']['limited_memory_max_history']}", lb_cfg,
-                      KKT_5B, OBJ_5B, float("inf"))
+    k1_5, k2_5, k2_5b = (f"factor_solve_grouped<{shape_f5[0]},{shape_f5[1]},{shape_f5[2]}>",
+                         f"resolve_grouped<{shape_r5[0]},{shape_r5[1]},{shape_r5[2]}>",
+                         f"resolve_columns<{shape_r5b[0]},{shape_r5b[1]}>")
+    _, _, inst5a = run5("path5a", f"cartpole B={B5} N={N5} float32, exact Hessian", cp_cfg,
+                        KKT_5A, OBJ_5A, RMS_5A, (k1_5, k2_5))
+    _, obj5b, inst5b = run5("path5b", f"cartpole B={B5} N={N5} float32, L-BFGS m="
+                                      f"{lb_cfg['solve_kw']['limited_memory_max_history']}",
+                            lb_cfg, KKT_5B, OBJ_5B, float("inf"), (k1_5, k2_5b))
 
     # ---- 5c: the other IPM options on lanes 0-255 of path 1's batch -------- #
     prob5c = tree_take(prob_big, torch.arange(LANES_5C, device=dev))
@@ -2053,21 +2092,28 @@ def main() -> None:
                           launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
-    # path 5's rows: K1 (4,1,1) and K2 (4,1,2) in 5a and 5b, K2 (4,1,40) in
-    # 5b (its count is all of 5b's K2 launches: the SMW columns once an
-    # iteration, and SOC + restoration); 5c's runs at path 1's shapes (K2 at
-    # (8,3,1): Mehrotra's main step by resolve)
-    path5 = [("factor_solve_cp", "factor_solve", launches5a, "factor_solve_cp"),
-             ("resolve_cp", "resolve", launches5a, "resolve_cp"),
-             ("factor_solve_lbfgs", "factor_solve", launches5b, "factor_solve_cp"),
-             ("resolve_lbfgs", "resolve", launches5b, "resolve_lbfgs")]
-    path5 += [(f"{k}_options", k, launches5c, "resolve_generic" if k == "resolve" else k)
-              for k in BASE_KERNELS]
-    for name, key, counts, res_key in path5:
+    # path 5's rows, launches by kernel (``_build.INSTANCES``): K1 (4,1,1)
+    # and K2 (4,1,2) in 5a and 5b (5b's K2 (4,1,2): SOC + restoration), K2
+    # (4,1,40) in 5b (the SMW columns once an iteration); the generic
+    # kernels they replaced, timed on the same captured calls, and the
+    # seeded R' = 40 rows (no path runs them); 5c's runs at path 1's shapes
+    # (K2 at (8,3,1): Mehrotra's main step by resolve)
+    path5 = [("factor_solve_cp", "factor_solve", inst5a.get(k1_5, 0), "factor_solve_cp"),
+             ("resolve_cp", "resolve", inst5a.get(k2_5, 0), "resolve_cp"),
+             ("factor_solve_lbfgs", "factor_solve", inst5b.get(k1_5, 0), "factor_solve_cp"),
+             ("resolve_lbfgs", "resolve", inst5b.get(k2_5b, 0), "resolve_lbfgs"),
+             ("resolve_lbfgs_soc", "resolve", inst5b.get(k2_5, 0), "resolve_cp")]
+    path5 += [(name, key, 0, name) for name, key in (
+        ("factor_solve_cp_generic", "factor_solve"), ("resolve_cp_generic", "resolve"),
+        ("resolve_lbfgs_generic", "resolve"), ("resolve_r40", "resolve"),
+        ("resolve_r40_generic", "resolve"))]
+    path5 += [(f"{k}_options", k, launches5c.get(k, 0),
+               "resolve_generic" if k == "resolve" else k) for k in BASE_KERNELS]
+    for name, key, n_launch, res_key in path5:
         route, src, replaces = KERNELS[key]
         r = results[res_key]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
-                          launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
+                          launches=n_launch, max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     # path 6b's rows: K4 on the dense backend's line search at path 1's

@@ -5,7 +5,7 @@
 //   * _fused_kernel (:342; wrapper _factor_solve_pallas)
 //       -> factor_solve_grouped, factor_solve_generic, factor_solve_wide
 //   * _resolve_kernel (:488; wrapper _resolve_pallas)
-//       -> resolve_grouped, resolve_generic, resolve_wide
+//       -> resolve_grouped, resolve_columns, resolve_generic, resolve_wide
 //
 // Per lane: a backward sweep over the N stages (PB = P·B, PA = P·A,
 // Hvv = Qvv + BᵀPB, its Cholesky, Mvs = Qsvᵀ + BᵀPA, Kg = −Hvv⁻¹Mvs,
@@ -44,9 +44,10 @@
 //   is a compile-time constant: no register array is indexed at run time.
 //   Instantiated at (8,3,3) (path 1), (2,1,3) (path 2), (2,1,7) (path 3,
 //   the global-phase family: 4 border columns, 2 arrowhead columns and the
-//   main system; its lane's shared memory is 196 floats, 25 KB a block), and
+//   main system; its lane's shared memory is 196 floats, 25 KB a block),
 //   (10,3,3) and (18,3,3) (path 7, the scaling family at state_dim 8 and
-//   16: 1,040 and 2,688 floats a lane, 16.6 and 21.5 KB a block).
+//   16: 1,040 and 2,688 floats a lane, 16.6 and 21.5 KB a block), and
+//   (4,1,1) (path 5, the cartpole family: G = 4, 16 lanes a block).
 //   Bound on the card (H100 SXM, 3.35 TB/s; the FLOP bound is 5-10× lower):
 //   each input byte read once and each output byte written once is 85.8 KB
 //   per lane at (8,3,3), N=51 — 22.0 MB, 6.6 µs at 256 lanes and 703 MB,
@@ -63,13 +64,37 @@
 //   cp.async; the initial-state solve and the forward sweep are K1's own
 //   (initial_and_forward, one device function for both). Lane-major in and
 //   out: K1's outputs are read as K1 wrote them. Instantiated at (8,3,2)
-//   (path 1's fused SOC + restoration), (2,1,2) (path 2's), and (10,3,2)
-//   and (18,3,2) (path 7's; L0 copied into the lane's shared memory).
+//   (path 1's fused SOC + restoration), (2,1,2) (path 2's), (10,3,2)
+//   and (18,3,2) (path 7's; L0 copied into the lane's shared memory), and
+//   (4,1,2) (path 5's).
 //   Bound (each input byte read once, each output byte written once):
 //   58.3 KB per lane
 //   at (8,3,2), N=51 — 14.9 MB, 4.5 µs at 256 lanes — and 58.5 MB, 17.5 µs
 //   at (2,1,2), 8192 lanes; like K1 it waits on each knot's dependent
 //   chain, not on its loads.
+// * resolve_columns<NS, NV> (K2 for many right-hand sides) — one thread per
+//   (lane, column), R (1 … 40) at run time: once the factors are stored
+//   the R columns of a resolve are independent, so the card runs them side
+//   by side (327,680 threads at 8192 lanes and R = 40, the L-BFGS SMW
+//   correction's 2m columns) where resolve_grouped would run R columns in
+//   turn on a lane's group (and its ring of R columns would not fit a
+//   block's static shared memory). The (lane, column) pairs are flattened
+//   across 128-thread blocks, so warps stay full at any R, and a block
+//   sweeps the knots in chunks of 8: each chunk's right-hand-side rows of
+//   the block's columns (contiguous in the (L, R, N, d) stacks) and its
+//   lanes' stored blocks (≤ 127/R + 2 lanes; P, Lv, Mvs, A, B backward, P,
+//   Kg, A, B forward, and L0) arrive by cp.async into dynamic shared
+//   memory, double-buffered, while the previous chunk computes; each thread
+//   keeps one column's p or s in registers and writes its results over the
+//   rows it read, and the block stores the chunk's results together: read
+//   straight from global memory, each thread's rows lie 640 bytes from its
+//   neighbour's, a half-used sector a row, which held (4,1,40) × 8192 to
+//   resolve_generic's time. The order of summation is resolve_lane's, so a column's
+//   result does not depend on R or on the other columns of the launch.
+//   Lane-major in and out, as resolve_grouped. Instantiated at (4,1) (path
+//   5b). Bound: 998 MB, 0.298 ms at (4,1,40) × 8192, N=40 (the right-hand
+//   sides and solutions are 95 % of it); the stashed p_k, kff_k make the
+//   round trip through dzs, dzv, and b is read in both sweeps (1.73 GB).
 // * factor_solve_generic / resolve_generic — one thread per lane for any
 //   n_s ≤ 16, n_v ≤ 8, and R ≤ 8 (K1) or R ≤ 40 (K2, the Pallas resolve's
 //   bound), stage stacks lanes-minor ((N, rows, cols, L), the Pallas
@@ -1307,6 +1332,372 @@ __global__ void __launch_bounds__(kGroupBlock, GroupLayout<NS, NV, R>::min_block
   }
 }
 
+// ---- resolve_columns: K2 with a thread per (lane, right-hand side) -------
+
+// Threads (columns) a block, where shared memory allows, and knots a chunk;
+// tools/torch_resolve_columns.py builds other values with
+// -DDTO_COLUMN_BLOCK / -DDTO_COLUMN_KNOTS to time them.
+#ifndef DTO_COLUMN_BLOCK
+#define DTO_COLUMN_BLOCK 128
+#endif
+#ifndef DTO_COLUMN_KNOTS
+#define DTO_COLUMN_KNOTS 8
+#endif
+constexpr int kColumnBlock = DTO_COLUMN_BLOCK, kColumnKnots = DTO_COLUMN_KNOTS;
+constexpr int kColumnSmem = 227 * 1024;  // a block's shared memory on the H100
+
+// Shared memory of resolve_columns, in floats, for T columns (threads) and
+// `lanes` lanes a block: a ring of kStages chunk stages, then each lane's
+// L0. A stage holds, for the kColumnKnots knots k0 … k0 + KC − 1 of one
+// chunk, three row tiles of the block's columns — column j's row at knot
+// k0 + kk at j·S + kk·d, S = KC·d + pad (pad: the floats of one copy, so
+// rows stay aligned for it and a warp's row reads fall on distinct banks)
+// — and each lane's stored blocks of those knots (P for KC + 1).
+template <int NS, int NV>
+struct ColumnLayout {
+  static constexpr int KC = kColumnKnots;
+  static constexpr int SS = KC * NS + chunk_floats(NS), SV = KC * NV + chunk_floats(NV);
+  // a lane's blocks, knot-major as in global memory
+  static constexpr int P = 0, Lv = align4(P + (KC + 1) * NS * NS),
+                       MK = align4(Lv + KC * NV * NV), A = align4(MK + KC * NV * NS),
+                       B = align4(A + KC * NS * NS), lane = align4(B + KC * NS * NV);
+  // offsets, for T columns and `lanes` lanes
+  static __host__ __device__ constexpr int T2(int T) { return T * SS; }
+  static __host__ __device__ constexpr int TV(int T) { return 2 * T * SS; }
+  static __host__ __device__ constexpr int lanes_at(int T) { return align4(2 * T * SS + T * SV); }
+  static __host__ __device__ constexpr int stage(int T, int lanes) {
+    return lanes_at(T) + lanes * lane;
+  }
+  static __host__ __device__ constexpr int L0(int T, int lanes) {
+    return kStages * stage(T, lanes);
+  }
+  // the most lanes T consecutive (lane, column) pairs touch
+  static int lanes(int T, int R) {
+    const int n = (T - 1) / R + 2;
+    return n < T ? n : T;
+  }
+  static size_t bytes(int T, int R) {
+    return (size_t)(L0(T, lanes(T, R)) + lanes(T, R) * align4(NS * NS)) * sizeof(float);
+  }
+};
+
+// cp.async copies of the rows k0 … k0 + nk − 1 (d floats each) of the
+// block's nc columns c0 … c0 + nc − 1 of an (·, N, d) stack into a row
+// tile: consecutive threads take consecutive rows of a column, so a warp
+// reads whole sectors.
+template <int d>
+__device__ __forceinline__ void load_rows(float* tile, const float* src, long c0, int nc, int N,
+                                          int k0, int nk) {
+  constexpr int C = chunk_floats(d), per = d / C, S = kColumnKnots * d + C;
+  for (int e = threadIdx.x; e < nc * kColumnKnots * per; e += blockDim.x) {
+    const int j = e / (kColumnKnots * per), rem = e - j * (kColumnKnots * per);
+    const int kk = rem / per, q = rem - kk * per;
+    if (kk < nk)
+      __pipeline_memcpy_async(tile + j * S + kk * d + q * C,
+                              src + ((c0 + j) * N + k0 + kk) * d + q * C, C * sizeof(float));
+  }
+}
+
+// The same rows from a tile back to an (·, Nd, d) stack, knot k0 + kk at
+// row k0 + kk − off; rows before 0 (λ's row −1) are skipped.
+template <int d>
+__device__ __forceinline__ void store_rows(float* dst, const float* tile, long c0, int nc, int Nd,
+                                           int k0, int nk, int off) {
+  constexpr int C = chunk_floats(d), per = d / C, S = kColumnKnots * d + C;
+  for (int e = threadIdx.x; e < nc * kColumnKnots * per; e += blockDim.x) {
+    const int j = e / (kColumnKnots * per), rem = e - j * (kColumnKnots * per);
+    const int kk = rem / per, q = rem - kk * per;
+    const int k = k0 + kk - off;
+    if (kk >= nk || k < 0) continue;
+    const float* x = tile + j * S + kk * d + q * C;
+    float* y = dst + ((c0 + j) * Nd + k) * d + q * C;
+    if constexpr (C == 4) {
+      *reinterpret_cast<float4*>(y) = *reinterpret_cast<const float4*>(x);
+    } else if constexpr (C == 2) {
+      *reinterpret_cast<float2*>(y) = *reinterpret_cast<const float2*>(x);
+    } else {
+      *y = *x;
+    }
+  }
+}
+
+// cp.async copies of nb consecutive S-float blocks of each of nl lanes
+// (lane l0 + j's first at src + j·gstride) to dst + j·sstride.
+template <int S>
+__device__ __forceinline__ void load_blocks(float* dst, int sstride, const float* src,
+                                            long gstride, int nl, int nb) {
+  constexpr int C = chunk_floats(S), per = S / C, most = (kColumnKnots + 1) * per;
+  for (int e = threadIdx.x; e < nl * most; e += blockDim.x) {
+    const int j = e / most, q = e - j * most;
+    if (q < nb * per)
+      __pipeline_memcpy_async(dst + j * sstride + q * C, src + j * gstride + q * C,
+                              C * sizeof(float));
+  }
+}
+
+// One stage's copies: knots k0 … k0 + nk − 1 of the block's columns (the
+// backward sweep's qs, b, qv; the forward's b, stashed p, stashed kff) and
+// of its lanes (P for knots k0 … k0 + nk, clipped to N − 1; Lv and Mvs
+// backward, Kg forward; A, B).
+template <int NS, int NV, bool FORWARD>
+__device__ __forceinline__ void load_chunk(float* stage, int T, int nl, const ResolveIn& in,
+                                           const ForwardIO& io, long c0, int nc, int l0, int N,
+                                           int k0, int nk) {
+  using Lay = ColumnLayout<NS, NV>;
+  if (FORWARD) {
+    load_rows<NS>(stage, in.b, c0, nc, N, k0, nk);
+    load_rows<NS>(stage + Lay::T2(T), io.dzs, c0, nc, N, k0, nk);
+    load_rows<NV>(stage + Lay::TV(T), io.dzv, c0, nc, N, k0, nk);
+  } else {
+    load_rows<NS>(stage, in.qs, c0, nc, N, k0, nk);
+    load_rows<NS>(stage + Lay::T2(T), in.b, c0, nc, N, k0, nk);
+    load_rows<NV>(stage + Lay::TV(T), in.qv, c0, nc, N, k0, nk);
+  }
+  float* ln = stage + Lay::lanes_at(T);
+  const long st = (long)l0 * N + k0, ls = N;
+  const int nP = (k0 + nk + 1 <= N ? nk + 1 : nk);
+  load_blocks<NS * NS>(ln + Lay::P, Lay::lane, in.P + st * NS * NS, ls * NS * NS, nl, nP);
+  if (FORWARD) {
+    load_blocks<NV * NS>(ln + Lay::MK, Lay::lane, in.Kg + st * NV * NS, ls * NV * NS, nl, nk);
+  } else {
+    load_blocks<NV * NV>(ln + Lay::Lv, Lay::lane, in.Lv + st * NV * NV, ls * NV * NV, nl, nk);
+    load_blocks<NV * NS>(ln + Lay::MK, Lay::lane, in.Mvs + st * NV * NS, ls * NV * NS, nl, nk);
+  }
+  load_blocks<NS * NS>(ln + Lay::A, Lay::lane, in.A + st * NS * NS, ls * NS * NS, nl, nk);
+  load_blocks<NS * NV>(ln + Lay::B, Lay::lane, in.B + st * NS * NV, ls * NS * NV, nl, nk);
+}
+
+// One row of M floats from shared memory (16 bytes at a time where M is a
+// multiple of 4: the row tiles keep such rows on 16 bytes).
+template <int M>
+__device__ __forceinline__ void load_row(float (&x)[M], const float* src) {
+  if constexpr (M % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < M; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + q);
+      x[q] = v.x, x[q + 1] = v.y, x[q + 2] = v.z, x[q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) x[i] = src[i];
+  }
+}
+
+template <int M>
+__device__ __forceinline__ void store_row(float* dst, const float (&x)[M]) {
+  if constexpr (M % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < M; q += 4)
+      *reinterpret_cast<float4*>(dst + q) = make_float4(x[q], x[q + 1], x[q + 2], x[q + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) dst[i] = x[i];
+  }
+}
+
+// The arithmetic, in the order of summation, of resolve_lane for one
+// column. Thread g of the launch serves column c = g of the (L·R) columns,
+// r = c mod R of lane l = c / R. The block runs its columns through the
+// knots in chunks of kColumnKnots: each chunk's rows and stored blocks
+// arrive by cp.async while the previous chunk computes; each thread reads
+// its rows from the stage and writes its results into the slots it read
+// (p over qs and kff over qv backward; λ over b, s over p, v over kff
+// forward), and the block stores the chunk's results to global memory
+// together, a warp on whole sectors. Threads past L·R (the last block's)
+// take part in every __syncthreads and copy, and compute on what they find.
+template <int NS, int NV>
+__global__ void __launch_bounds__(kColumnBlock)
+    resolve_columns(int L, int N, int R, int lanes, unsigned s0mask, ResolveIn in, ForwardIO io) {
+  using Lay = ColumnLayout<NS, NV>;
+  constexpr int D = kStages, KC = kColumnKnots;
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x;
+  const long LR = (long)L * R, c0 = (long)blockIdx.x * T, c = c0 + threadIdx.x;
+  const int nc = (int)(c0 + T < LR ? T : LR - c0);  // columns of this block
+  const long cc = c < LR ? c : LR - 1;
+  const int l0 = (int)(c0 / R), j = (int)(cc / R) - l0;
+  const int nl = (int)((c0 + nc - 1) / R) - l0 + 1;  // lanes of this block
+  const int stage = Lay::stage(T, lanes);
+  const int nq = (N + KC - 1) / KC;  // chunks
+  const int t = threadIdx.x;
+  float* const sL0 = smem + Lay::L0(T, lanes);
+
+  // ---- backward sweep: w, kff, p; p_k and kff_k stashed in dzs, dzv ----
+  float p[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) p[i] = 0.0f;
+  load_chunk<NS, NV, false>(smem, T, nl, in, io, c0, nc, l0, N, (nq - 1) * KC,
+                            N - (nq - 1) * KC);
+  __pipeline_commit();
+  for (int it = 0; it < nq; ++it) {
+    const int q = nq - 1 - it, k0 = q * KC, nk = N - k0 < KC ? N - k0 : KC;
+    float* const cur = smem + (it % D) * stage;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (q >= 1)
+      load_chunk<NS, NV, false>(smem + ((it + 1) % D) * stage, T, nl, in, io, c0, nc, l0, N,
+                                k0 - KC, KC);
+    __pipeline_commit();
+    float* const tq = cur + t * Lay::SS;               // qs, then p
+    const float* const tb = cur + Lay::T2(T) + t * Lay::SS;  // b
+    float* const tv = cur + Lay::TV(T) + t * Lay::SV;  // qv, then kff
+    const float* const ln = cur + Lay::lanes_at(T) + j * Lay::lane;
+    for (int kk = nk - 1; kk >= 0; --kk) {
+      const int k = k0 + kk;
+      const float* Pn = ln + Lay::P + (kk + 1) * NS * NS;
+      const float* Lvk = ln + Lay::Lv + kk * NV * NV;
+      const float* Mvs = ln + Lay::MK + kk * NV * NS;
+      const float* A = ln + Lay::A + kk * NS * NS;
+      const float* B = ln + Lay::B + kk * NS * NV;
+      float qs[NS], qv[NV], b[NS];
+      load_row(qs, tq + kk * NS);
+      load_row(qv, tv + kk * NV);
+      load_row(b, tb + kk * NS);
+      // w = P_{k+1}·b + p (P_N = 0)
+      float w[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float acc = 0.0f;
+        if (k < N - 1) {
+#pragma unroll
+          for (int e = 0; e < NS; ++e) acc += b[e] * Pn[i * NS + e];
+        }
+        w[i] = acc + p[i];
+      }
+      float Lv[NV][NV];
+#pragma unroll
+      for (int a = 0; a < NV; ++a)
+#pragma unroll
+        for (int e = 0; e < NV; ++e) Lv[a][e] = Lvk[a * NV + e];
+      float kff[NV];
+#pragma unroll
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) acc += w[i] * B[i * NV + a];
+        kff[a] = qv[a] + acc;
+      }
+      cho_solve<NV>(Lv, kff, NV);
+#pragma unroll
+      for (int a = 0; a < NV; ++a) kff[a] = -kff[a];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NS; ++e) acc += w[e] * A[e * NS + i];
+        float acc2 = 0.0f;
+#pragma unroll
+        for (int a = 0; a < NV; ++a) acc2 += kff[a] * Mvs[a * NS + i];
+        p[i] = (qs[i] + acc) + acc2;
+      }
+      store_row(tq + kk * NS, p);    // stash p_k
+      store_row(tv + kk * NV, kff);  // stash kff_k
+    }
+    __syncthreads();
+    store_rows<NS>(io.dzs, cur, c0, nc, N, k0, nk, 0);
+    store_rows<NV>(io.dzv, cur + Lay::TV(T), c0, nc, N, k0, nk, 0);
+  }
+  // the stashes stored, and every thread's reads of the ring done, before
+  // the forward sweep reads them back and refills the ring
+  __syncthreads();
+
+  // ---- the initial-state solve and the forward sweep ----
+  load_blocks<NS * NS>(sL0, align4(NS * NS), in.L0 + (long)l0 * NS * NS, NS * NS, nl, 1);
+  load_chunk<NS, NV, true>(smem, T, nl, in, io, c0, nc, l0, N, 0, N < KC ? N : KC);
+  __pipeline_commit();
+  float s[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.0f;
+  for (int q = 0; q < nq; ++q) {
+    const int k0 = q * KC, nk = N - k0 < KC ? N - k0 : KC;
+    float* const cur = smem + (q % D) * stage;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (q + 1 < nq)
+      load_chunk<NS, NV, true>(smem + ((q + 1) % D) * stage, T, nl, in, io, c0, nc, l0, N,
+                               k0 + KC, N - k0 - KC < KC ? N - k0 - KC : KC);
+    __pipeline_commit();
+    if (q == 0) {  // s_0 from the masked initial factor and p_0
+      float x[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) x[i] = ((s0mask >> i) & 1u) ? p[i] : 0.0f;
+      solve_l0<NS>(sL0 + j * align4(NS * NS), x);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = ((s0mask >> i) & 1u) ? -x[i] : 0.0f;
+    }
+    float* const tb = cur + t * Lay::SS;               // b, then λ
+    float* const tp = cur + Lay::T2(T) + t * Lay::SS;  // stashed p, then s
+    float* const tv = cur + Lay::TV(T) + t * Lay::SV;  // stashed kff, then v
+    const float* const ln = cur + Lay::lanes_at(T) + j * Lay::lane;
+    for (int kk = 0; kk < nk; ++kk) {
+      const int k = k0 + kk;
+      const float* fP = ln + Lay::P + kk * NS * NS;
+      const float* fKg = ln + Lay::MK + kk * NV * NS;
+      const float* fA = ln + Lay::A + kk * NS * NS;
+      const float* fB = ln + Lay::B + kk * NS * NV;
+      float b[NS], ps[NS], kf[NV];
+      load_row(b, tb + kk * NS);
+      load_row(ps, tp + kk * NS);
+      load_row(kf, tv + kk * NV);
+      if (k >= 1) {
+        float lam[NS];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int e = 0; e < NS; ++e) acc += fP[i * NS + e] * s[e];
+          lam[i] = -(acc + ps[i]);
+        }
+        store_row(tb + kk * NS, lam);
+      }
+      float v[NV];
+#pragma unroll
+      for (int a = 0; a < NV; ++a) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NS; ++e) acc += s[e] * fKg[a * NS + e];
+        v[a] = acc + kf[a];
+      }
+      float sn[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NS; ++e) acc += s[e] * fA[i * NS + e];
+        float acc2 = 0.0f;
+#pragma unroll
+        for (int a = 0; a < NV; ++a) acc2 += v[a] * fB[i * NV + a];
+        sn[i] = acc + acc2 + b[i];
+      }
+      store_row(tp + kk * NS, s);
+      store_row(tv + kk * NV, v);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = sn[i];
+    }
+    __syncthreads();
+    store_rows<NS>(io.lam, cur, c0, nc, N - 1, k0, nk, 1);
+    store_rows<NS>(io.dzs, cur + Lay::T2(T), c0, nc, N, k0, nk, 0);
+    store_rows<NV>(io.dzv, cur + Lay::TV(T), c0, nc, N, k0, nk, 0);
+  }
+}
+
+template <int NS, int NV>
+int launch_resolve_columns(int L, int N, int R, unsigned s0mask, const ResolveIn& in,
+                           const ForwardIO& io, cudaStream_t s) {
+  using Lay = ColumnLayout<NS, NV>;
+  int T = kColumnBlock;  // fewer columns a block where a lane's stages would not fit (R = 1)
+  while (T > 32 && Lay::bytes(T, R) > (size_t)kColumnSmem) T /= 2;
+  const size_t bytes = Lay::bytes(T, R);
+  if (bytes > (size_t)kColumnSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      resolve_columns<NS, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long threads = (long)L * R;
+  resolve_columns<NS, NV><<<(unsigned)((threads + T - 1) / T), T, bytes, s>>>(
+      L, N, R, Lay::lanes(T, R), s0mask, in, io);
+  return (int)cudaGetLastError();
+}
+
 template <int NS, int NV, int R>
 unsigned grouped_grid(int L) {
   constexpr int lanes = GroupLayout<NS, NV, R>::lanes;
@@ -1427,6 +1818,9 @@ extern "C" int dto_factor_solve_grouped(int L, int N, int ns, int nv, int R, uns
   else if (ns == 18 && nv == 3 && R == 3)
     factor_solve_grouped<18, 3, 3>
         <<<grouped_grid<18, 3, 3>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
+  else if (ns == 4 && nv == 1 && R == 1)
+    factor_solve_grouped<4, 1, 1>
+        <<<grouped_grid<4, 1, 1>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -1484,7 +1878,29 @@ extern "C" int dto_resolve_grouped(int L, int N, int ns, int nv, int R, unsigned
   else if (ns == 18 && nv == 3 && R == 2)
     resolve_grouped<18, 3, 2>
         <<<grouped_grid<18, 3, 2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
+  else if (ns == 4 && nv == 1 && R == 2)
+    resolve_grouped<4, 1, 2>
+        <<<grouped_grid<4, 1, 2>(L), kGroupBlock, 0, s>>>(L, N, s0mask, in, io);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// K2 with a thread per (lane, column), 1 ≤ R ≤ 40, on resolve_grouped's
+// lane-major tensors (contiguous, 16-byte aligned).
+extern "C" int dto_resolve_columns(int L, int N, int ns, int nv, int R, unsigned s0mask,
+                                   const void* P, const void* Lv, const void* Kg,
+                                   const void* Mvs, const void* L0, const void* A,
+                                   const void* B, const void* qs, const void* qv,
+                                   const void* rb, void* dzs, void* dzv, void* lam,
+                                   void* stream) {
+  if (L < 1 || N < 1 || R < 1 || R > kRResolveMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ResolveIn in{(const float*)P,  (const float*)Lv, (const float*)Kg, (const float*)Mvs,
+                     (const float*)L0, (const float*)A,  (const float*)B,  (const float*)qs,
+                     (const float*)qv, (const float*)rb};
+  const ForwardIO io{(const float*)P, (const float*)Kg, (const float*)A, (const float*)B,
+                     (const float*)rb, (float*)dzs, (float*)dzv, (float*)lam};
+  if (ns == 4 && nv == 1) return launch_resolve_columns<4, 1>(L, N, R, s0mask, in, io, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -44,22 +44,23 @@ NVCC_FLAGS = [
 ]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
-# launches by kernel: K1 and K2 up to n_s 16, n_v 8 (grouped or generic) and
-# their wide instantiations beyond; K3 and K4 at their exact shapes and
-# their generic instantiations
+# launches by kernel: K1 and K2 up to n_s 16, n_v 8 (grouped, column or
+# generic) and their wide instantiations beyond; K3 and K4 at their exact
+# shapes and their generic instantiations
 LAUNCHES = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
             "residual_l1": 0, "factor_solve_wide": 0, "resolve_wide": 0,
             "window_jac_generic": 0, "residual_generic": 0, "residual_l1_generic": 0}
 # float32 calls on the card that the shape caps sent to the plain version, by wrapper
 PLAIN_CALLS = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
                "residual_l1": 0}
-# K1/K2 launches by CUDA kernel, as -Xptxas -v names it: the grouped ones with
-# their template arguments (``factor_solve_grouped<10,3,3>``), and
-# ``factor_solve_generic``, ``factor_solve_wide``, ``resolve_generic``,
-# ``resolve_wide``; counted beside LAUNCHES, by the same launches. The two
-# overlap: LAUNCHES's ``factor_solve_wide`` / ``resolve_wide`` are the same
-# counts as INSTANCES's, and its ``factor_solve`` / ``resolve`` the sum of
-# the grouped and generic instances'.
+# K1/K2 launches by CUDA kernel, as -Xptxas -v names it: the grouped and
+# column ones with their template arguments (``factor_solve_grouped<10,3,3>``,
+# ``resolve_columns<4,1>``), and ``factor_solve_generic``,
+# ``factor_solve_wide``, ``resolve_generic``, ``resolve_wide``; counted
+# beside LAUNCHES, by the same launches. The two overlap: LAUNCHES's
+# ``factor_solve_wide`` / ``resolve_wide`` are the same counts as
+# INSTANCES's, and its ``factor_solve`` / ``resolve`` the sum of the
+# grouped, column and generic instances'.
 INSTANCES: dict = {}
 
 # The Pallas kernels' shape caps (directtrajopt_tpu/ops/riccati_kernel.py
@@ -81,6 +82,7 @@ _SIGNATURES = {
     "dto_factor_solve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
     "dto_resolve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
     "dto_resolve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
+    "dto_resolve_columns": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
 }
 
 

@@ -26,19 +26,23 @@ kernel (``csrc/riccati_kernel.cu``) within the Pallas kernels' caps,
 1 ≤ n_s, n_v ≤ 24 and R ≤ 40, and the plain version beyond them (counted in
 ``_build.PLAIN_CALLS``). K2 takes up to 40 right-hand sides in one launch;
 K1 up to 8, and 8 < R ≤ 40 as K1 on the first 8 columns and K2 on the rest
-(:func:`split_factor_solve`, two launches). Each takes its shape's kernel:
-a shape in :data:`GROUPED_SHAPES` (K1) or :data:`RESOLVE_GROUPED_SHAPES`
-(K2) runs ``factor_solve_grouped`` / ``resolve_grouped`` (a thread group
-per lane, reading and writing the lane-major tensors above as they are),
-any other with n_s ≤ 16 and n_v ≤ 8 (:data:`MAX_SIZES`) the generic
-one-thread-per-lane kernel on lanes-minor copies, and the rest of the caps
-its wide instantiation at n_s, n_v ≤ 24, ``factor_solve_wide`` /
-``resolve_wide``, counted under ``factor_solve_wide`` and
-``resolve_wide`` (:func:`factor_solve_per_lane`, :func:`resolve_per_lane`).
-Each launch also counts in ``_build.INSTANCES`` under its CUDA kernel's
-name (``factor_solve_grouped<10,3,3>``, ``resolve_generic``, …). The plain
-versions are ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over
-knots with batched small matmuls and ``torch.linalg.cholesky_ex``.
+(:func:`split_factor_solve`, two launches). Each takes its shape's design
+(:func:`design`, a pure function of the kind and shape): a shape in
+:data:`GROUPED_SHAPES` (K1) or :data:`RESOLVE_GROUPED_SHAPES` (K2) runs
+``factor_solve_grouped`` / ``resolve_grouped`` (a thread group per lane,
+reading and writing the lane-major tensors above as they are); a K2 at
+(n_s, n_v) in :data:`RESOLVE_COLUMN_SHAPES` with any other R runs
+``resolve_columns`` (a thread per lane and right-hand side, the same
+tensors, no copy); any other with n_s ≤ 16 and n_v ≤ 8
+(:data:`MAX_SIZES`) the generic one-thread-per-lane kernel on lanes-minor
+copies, and the rest of the caps its wide instantiation at n_s, n_v ≤ 24,
+``factor_solve_wide`` / ``resolve_wide``, counted under
+``factor_solve_wide`` and ``resolve_wide`` (:func:`factor_solve_per_lane`,
+:func:`resolve_per_lane`). Each launch also counts in ``_build.INSTANCES``
+under its CUDA kernel's name (``factor_solve_grouped<10,3,3>``,
+``resolve_columns<4,1>``, ``resolve_generic``, …). The plain versions are
+ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over knots with
+batched small matmuls and ``torch.linalg.cholesky_ex``.
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ import torch
 from . import _build
 
 __all__ = ["factor_solve", "factor_solve_plain", "factor_solve_per_lane", "resolve",
-           "resolve_plain", "resolve_per_lane", "split_factor_solve", "MAX_SIZES",
-           "RESOLVE_MAX_SIZES", "GROUPED_SHAPES", "RESOLVE_GROUPED_SHAPES"]
+           "resolve_plain", "resolve_per_lane", "split_factor_solve", "design", "MAX_SIZES",
+           "RESOLVE_MAX_SIZES", "GROUPED_SHAPES", "RESOLVE_GROUPED_SHAPES",
+           "RESOLVE_COLUMN_SHAPES"]
 
 # kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, and
 # kRMax for K1's R, kRResolveMax for K2's, the Pallas kernels' R ≤ 40). K1
@@ -60,12 +65,38 @@ MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
 RESOLVE_MAX_SIZES = {"ns": 16, "nv": 8, "R": 40}
 # (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
 # gate problem, path 2's state-constrained family, path 3's global-phase
-# family (R = 4 border + 2 arrowhead columns + the main system) and the
-# scaling family at state_dim 8 and 16 (path 7)
-GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3), (2, 1, 7), (10, 3, 3), (18, 3, 3)})
+# family (R = 4 border + 2 arrowhead columns + the main system), the
+# scaling family at state_dim 8 and 16 (path 7) and the cartpole family
+# (path 5)
+GROUPED_SHAPES = frozenset({(8, 3, 3), (2, 1, 3), (2, 1, 7), (10, 3, 3), (18, 3, 3),
+                            (4, 1, 1)})
 # (n_s, n_v, R') instantiations of K2's resolve_grouped: the fused SOC +
-# restoration resolve of the same paths; other shapes run resolve_generic
-RESOLVE_GROUPED_SHAPES = frozenset({(8, 3, 2), (2, 1, 2), (10, 3, 2), (18, 3, 2)})
+# restoration resolve of the same paths
+RESOLVE_GROUPED_SHAPES = frozenset({(8, 3, 2), (2, 1, 2), (10, 3, 2), (18, 3, 2), (4, 1, 2)})
+# (n_s, n_v) instantiations of K2's resolve_columns, for every R' ≤ 40 not in
+# RESOLVE_GROUPED_SHAPES: the cartpole family's L-BFGS SMW columns (path 5b,
+# R' = 2m = 40)
+RESOLVE_COLUMN_SHAPES = frozenset({(4, 1)})
+
+
+def design(kind: str, ns: int, nv: int, R: int) -> str:
+    """The kernel design a float32 call on the card takes within the caps:
+    for ``kind`` "factor_solve" (K1) "grouped", "split" (R > 8: K1 on 8
+    columns, K2 on the rest), "generic" or "wide"; for "resolve" (K2)
+    "grouped", "columns", "generic" or "wide"."""
+    if kind == "factor_solve":
+        if R > MAX_SIZES["R"]:
+            return "split"
+        if (ns, nv, R) in GROUPED_SHAPES:
+            return "grouped"
+    elif kind == "resolve":
+        if (ns, nv, R) in RESOLVE_GROUPED_SHAPES:
+            return "grouped"
+        if (ns, nv) in RESOLVE_COLUMN_SHAPES:
+            return "columns"
+    else:
+        raise ValueError(f"unknown kernel {kind!r}")
+    return "wide" if ns > MAX_SIZES["ns"] or nv > MAX_SIZES["nv"] else "generic"
 
 
 def _chol_or_identity(H: torch.Tensor):
@@ -174,9 +205,9 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_grouped(entry, key, s0m, ins, outs, L, N, ns, nv, R):
-    """Launch a thread-group kernel (K1's or K2's C ``entry``) on lane-major
-    inputs, writing the contiguous ``outs``."""
+def _launch_lane_major(entry, key, kernel, s0m, ins, outs, L, N, ns, nv, R):
+    """Launch a lane-major kernel (C ``entry``, counted as CUDA ``kernel``)
+    on the inputs as they lie, writing the contiguous ``outs``."""
     dev = ins[0].device
     ins = [_aligned(t) for t in ins]
     rc = getattr(_build.library(), entry)(
@@ -185,7 +216,7 @@ def _launch_grouped(entry, key, s0m, ins, outs, L, N, ns, nv, R):
         _build.stream_ptr(dev),
     )
     _build.check_rc(rc, key)
-    _build.count_launch(key, f"{key}_grouped<{ns},{nv},{R}>")
+    _build.count_launch(key, kernel)
     return outs
 
 
@@ -199,17 +230,23 @@ def _factor_solve_grouped(s0m, ins, L, N, ns, nv, R):
         torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
         torch.empty((L, R, N - 1, ns), **kw),
     )
-    P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam = _launch_grouped(
-        "dto_factor_solve_grouped", "factor_solve", s0m, ins, outs, L, N, ns, nv, R)
+    P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam = _launch_lane_major(
+        "dto_factor_solve_grouped", "factor_solve", f"factor_solve_grouped<{ns},{nv},{R}>",
+        s0m, ins, outs, L, N, ns, nv, R)
     return P, Lv, Kg, Mvs, L0, ok > 0.5, dzs, dzv, lam
 
 
-def _resolve_grouped(s0m, ins, L, N, ns, nv, R):
-    """Launch ``resolve_grouped`` on lane-major inputs; contiguous outputs."""
+def _resolve_lane_major(which, s0m, ins, L, N, ns, nv, R):
+    """Launch ``resolve_grouped`` (``which`` "grouped") or
+    ``resolve_columns`` ("columns") on lane-major inputs; contiguous
+    outputs."""
     kw = dict(dtype=torch.float32, device=ins[0].device)
     outs = (torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
             torch.empty((L, R, N - 1, ns), **kw))
-    return _launch_grouped("dto_resolve_grouped", "resolve", s0m, ins, outs, L, N, ns, nv, R)
+    kernel = (f"resolve_grouped<{ns},{nv},{R}>" if which == "grouped"
+              else f"resolve_columns<{ns},{nv}>")
+    return _launch_lane_major(f"dto_resolve_{which}", "resolve", kernel, s0m, ins, outs,
+                              L, N, ns, nv, R)
 
 
 def split_factor_solve(factor, resolve_fn, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
@@ -268,9 +305,10 @@ def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
     })
     if not _use_kernel("factor_solve", Qss, ins, {"ns": ns, "nv": nv, "R": R}):
         return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
-    if R > MAX_SIZES["R"]:
+    which = design("factor_solve", ns, nv, R)
+    if which == "split":
         return split_factor_solve(factor_solve, resolve, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
-    if (ns, nv, R) in GROUPED_SHAPES:
+    if which == "grouped":
         return _factor_solve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
     return factor_solve_per_lane(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
 
@@ -329,8 +367,9 @@ def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
     })
     if not _use_kernel("resolve", P, ins, {"ns": ns, "nv": nv, "R": R}):
         return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
-    if (ns, nv, R) in RESOLVE_GROUPED_SHAPES:
-        return _resolve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
+    which = design("resolve", ns, nv, R)
+    if which in ("grouped", "columns"):
+        return _resolve_lane_major(which, s0m, list(ins.values()), L, N, ns, nv, R)
     return resolve_per_lane(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
 
 

@@ -18,8 +18,9 @@ then K2 on 4 (``split_factor_solve``, the card's route) equals one K1 call
 bitwise; K2 on 40 right-hand sides equals five calls of 8 to 1e-14
 relative in float64 and within the card rows' 5e-6 in float32 (not
 bitwise: the CPU's batched matmul rounds a 40-row product
-differently from an 8-row one; the card's K2 runs the same code per tile
-of 8, so there it is bitwise, which ``chip_smoke.py`` checks).
+differently from an 8-row one; the card's K2 runs the same code for each
+column (the column kernel) or tile of 8 (the generic one), so there it is
+bitwise, which ``chip_smoke.py`` checks).
 
 Whole solves against the JAX package's, stored by
 ``tests/golden/torch/make_lbfgs_cartpole.py``: L-BFGS at the options of

@@ -252,22 +252,57 @@ def test_launches_are_counted_by_kernel_and_instantiation():
 
 def test_instantiated_shapes_match_the_kernel_source():
     """``GROUPED_SHAPES`` are exactly the shapes ``dto_factor_solve_grouped``
-    dispatches to ``factor_solve_grouped``, and ``RESOLVE_GROUPED_SHAPES``
+    dispatches to ``factor_solve_grouped``, ``RESOLVE_GROUPED_SHAPES``
     those ``dto_resolve_grouped`` dispatches to ``resolve_grouped`` (each
-    condition naming the template arguments it launches)."""
+    condition naming the template arguments it launches), and
+    ``RESOLVE_COLUMN_SHAPES`` the (n_s, n_v) ``dto_resolve_columns``
+    dispatches to ``resolve_columns``."""
     src = (Path(trk.__file__).parent.parent / "csrc" / "riccati_kernel.cu").read_text()
+
+    def entry(entry_name):
+        body = src[src.index(f'extern "C" int {entry_name}('):]
+        return body[: body.index("\n}\n")]
+
     for entry_name, kernel, shapes in (
         ("dto_factor_solve_grouped", "factor_solve_grouped", trk.GROUPED_SHAPES),
         ("dto_resolve_grouped", "resolve_grouped", trk.RESOLVE_GROUPED_SHAPES),
     ):
-        entry = src[src.index(f'extern "C" int {entry_name}('):]
-        entry = entry[: entry.index("\n}\n")]
+        body = entry(entry_name)
         pairs = re.findall(r"if \(ns == (\d+) && nv == (\d+) && R == (\d+)\)\s*"
-                           + kernel + r"<(\d+), (\d+), (\d+)>", entry)
+                           + kernel + r"<(\d+), (\d+), (\d+)>", body)
         assert all(p[:3] == p[3:] for p in pairs)
         assert {tuple(map(int, p[:3])) for p in pairs} == set(shapes)
-        assert len(re.findall(kernel + "<", entry)) == len(shapes)
+        assert len(re.findall(kernel + "<", body)) == len(shapes)
+    body = entry("dto_resolve_columns")
+    pairs = re.findall(r"if \(ns == (\d+) && nv == (\d+)\)\s*return "
+                       r"launch_resolve_columns<(\d+), (\d+)>", body)
+    assert all(p[:2] == p[2:] for p in pairs)
+    assert {tuple(map(int, p[:2])) for p in pairs} == set(trk.RESOLVE_COLUMN_SHAPES)
+    assert len(re.findall("launch_resolve_columns<", body)) == len(trk.RESOLVE_COLUMN_SHAPES)
     assert "resolve_fixed" not in src
+
+
+@pytest.mark.parametrize("kind,shape,want", [
+    ("factor_solve", (8, 3, 3), "grouped"),
+    ("factor_solve", (4, 1, 1), "grouped"),
+    ("factor_solve", (4, 1, 2), "generic"),
+    ("factor_solve", (4, 1, 9), "split"),
+    ("factor_solve", (18, 3, 2), "wide"),
+    ("resolve", (4, 1, 2), "grouped"),
+    ("resolve", (4, 1, 40), "columns"),
+    ("resolve", (4, 1, 1), "columns"),
+    ("resolve", (5, 2, 40), "generic"),
+    ("resolve", (8, 3, 1), "generic"),
+    ("resolve", (24, 24, 8), "wide"),
+])
+def test_design_is_chosen_by_shape(kind, shape, want):
+    """The wrapper's kernel design for a float32 call on the card, a pure
+    function of the kind and (n_s, n_v, R): grouped at the grouped shapes,
+    the column K2 at its (n_s, n_v) for every other R, the generic or wide
+    one-thread-a-lane kernels elsewhere, K1 split beyond 8 columns."""
+    assert trk.design(kind, *shape) == want
+    with pytest.raises(ValueError, match="unknown"):
+        trk.design("residual", *shape)
 
 
 @pytest.mark.parametrize("ns,nv,s0", [(8, 3, "free"), (2, 1, "pinned")])
@@ -289,6 +324,40 @@ def test_resolve_path_shapes_n51_f32_matches_pallas_interpret(ns, nv, s0):
     ref = rk._resolve_pallas(s0m, *map(jnp.asarray, fac + args[3:5] + rhs), interpret=True)
     out = trk.resolve(s0m, *(torch.as_tensor(a) for a in fac + args[3:5] + rhs))
     assert (ns, nv, 2) in trk.RESOLVE_GROUPED_SHAPES
+    for name, x, y in zip(["dzs", "dzv", "lam"], ref, out):
+        assert y.shape == np.asarray(x).shape, name
+        assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
+
+
+@pytest.mark.parametrize("which,R", [("factor", 1), ("resolve", 2), ("resolve", 40)])
+def test_cartpole_shapes_n40_f32_match_pallas_interpret(which, R):
+    """Path 5's shapes (the cartpole family: n_s 4, n_v 1, N = 40, the
+    initial state pinned), float32, 3 lanes, lane 1 indefinite: the plain
+    K1 at (4,1,1) against ``_factor_solve_pallas`` and the plain K2 at
+    (4,1,2) (SOC + restoration) and (4,1,40) (the L-BFGS SMW columns)
+    against ``_resolve_pallas`` on the Pallas factors, both in interpret
+    mode; 5e-6 relative on the certified lanes, ``ok`` equal."""
+    ns, nv, N = 4, 1, 40
+    s0m = np.zeros(ns)
+    args = [a.astype(np.float32) for a in _stage_data(13, B=3, N=N, ns=ns, nv=nv, R=1)]
+    args[2][1, 25] = -1e6
+    fac = rk._factor_solve_pallas(s0m, *map(jnp.asarray, args), interpret=True)
+    ok = np.asarray(fac[5])
+    assert ok.tolist() == [True, False, True]
+    if which == "factor":
+        assert trk.design("factor_solve", ns, nv, R) == "grouped"
+        out = trk.factor_solve(s0m, *(torch.as_tensor(a) for a in args))
+        assert (ok == out[5].numpy()).all()
+        for name, x, y in zip(NAMES, fac, out):
+            if name != "ok":
+                assert y.shape == np.asarray(x).shape, name
+                assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name
+        return
+    assert trk.design("resolve", ns, nv, R) == ("grouped" if R == 2 else "columns")
+    rhs = [a.astype(np.float32) for a in _stage_data(14, B=3, N=N, ns=ns, nv=nv, R=R)[5:]]
+    ins = [np.asarray(t) for t in fac[:5]] + args[3:5] + rhs
+    ref = rk._resolve_pallas(s0m, *map(jnp.asarray, ins), interpret=True)
+    out = trk.resolve(s0m, *(torch.as_tensor(a) for a in ins))
     for name, x, y in zip(["dzs", "dzv", "lam"], ref, out):
         assert y.shape == np.asarray(x).shape, name
         assert _rel(np.asarray(x)[ok], y.numpy()[ok]) < 5e-6, name

@@ -20,7 +20,15 @@ of the outputs of each row:
   indefinite), and at (2,1,3) on the first call captured from path 2's own
   solve (one certified lane made indefinite);
 - K2 at (8,3,2) for 256 lanes against K1's factors, and at (2,1,2) on the
-  first call captured from path 2's solve.
+  first call captured from path 2's solve;
+- on random stage data at N=51, 128 lanes (path 7's chunk), lane 5
+  indefinite for K1: the grouped K1 at (10,3,3), (18,3,3) and K2 at
+  (10,3,2), (18,3,2); the generic K1 at (5,2,2) and K2 at (5,2,40) (five
+  tiles); the wide K1 and K2 at (24,24,8) on 32 lanes; and, at N=40, 8192
+  lanes (path 5's batch), K1 (4,1,1) and K2 (4,1,2) and (4,1,40), whose
+  kernels a version may have changed;
+- the generic K3/K4 (``window_jac`` / ``residual_action`` /
+  ``residual_l1``) at (3,1), 256 lanes × 50 windows, free Δt.
 
 The second form prints, row by row, whether two such files agree on the
 inputs and on the outputs, bit for bit. Run both forms in one call on the
@@ -148,6 +156,37 @@ def fingerprint(root: Path) -> dict:
     row("K1 (2,1,3) path-2 call, one lane indefinite", f_args[1:],
         lambda: rk.factor_solve(*f_args))
     row("K2 (2,1,2) path-2 call", r_args[1:], lambda: rk.resolve(*r_args))
+    del cap_f, cap_r, f_args, r_args
+
+    # the other K1/K2 instantiations on random stage data
+    for lanes, n_knots, ns, nv, R, R2 in ((128, N, 10, 3, 3, 2), (128, N, 18, 3, 3, 2),
+                                          (128, N, 5, 2, 2, 40), (32, N, 24, 24, 8, 8),
+                                          (BIG, 40, 4, 1, 1, 2), (BIG, 40, 4, 1, 1, 40)):
+        s0n = np.arange(ns) >= 2
+        st = cs.stage_data(30 + ns, lanes, n_knots, dev, ns, nv, R)
+        st[2][5, 20] = -1e6 * torch.eye(nv, device=dev)
+        if R2 == 2:  # one K1 row a shape
+            row(f"K1 ({ns},{nv},{R}) B={lanes}, lane 5 indefinite", st,
+                lambda: rk.factor_solve(s0n, *st))
+        st2 = cs.stage_data(40 + ns, lanes, n_knots, dev, ns, nv, R2)
+        fac = rk.factor_solve_plain(s0n, *st2[:5], *(x[:, :1] for x in st2[5:]))
+        ins = list(fac[:5]) + st2[3:]
+        row(f"K2 ({ns},{nv},{R2}) B={lanes}", ins, lambda: rk.resolve(s0n, *ins))
+        del st, st2, fac, ins
+
+    # the generic K3/K4 at (3,1)
+    from directtrajopt_tpu_torch.ops import expv_kernel as ek
+
+    g = np.random.default_rng(31)
+    Gd, Gv, u, dt, x, xn = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        0.5 * g.normal(size=(256, 3, 3)), 0.5 * g.normal(size=(256, 1, 3, 3)),
+        0.3 * g.normal(size=(256, 50, 1)), 0.1 + 0.05 * g.random((256, 50)),
+        g.normal(size=(256, 50, 3)), g.normal(size=(256, 50, 3))))
+    ins4 = (Gd, Gv, u[:, None], dt[:, None], x[:, None], xn[:, None])
+    row("K3 generic (3,1) B=256 x 50", (Gd, Gv, u, dt, x),
+        lambda: ek.window_jac(12, True, Gd, Gv, u, dt, x))
+    row("K4 vector generic (3,1) B=256 x 50", ins4, lambda: ek.residual_action(12, *ins4))
+    row("K4 L1 generic (3,1) B=256 x 50", ins4, lambda: ek.residual_l1(12, *ins4))
     return dict(root=str(root), device=torch.cuda.get_device_name(0), rows=rows)
 
 
