@@ -117,12 +117,35 @@ Phases, each printing its own lines:
    (3,1) and (8,8), and K3/K4 at 9 drives, beyond the caps, on the plain
    version.
 
+10. Path 8, path 1's pipeline sharded over two processes that share the
+   card (``chip_smoke.path8``): ``torch.multiprocessing.spawn`` starts two
+   ranks, which join a gloo group (``file://`` rendezvous in a temporary
+   directory); each builds path 1's batch, takes its 4096 lanes and runs
+   the seek and the polish with path 1's options through
+   ``parallel.solve_batch_compact_sharded``, whose one gather gives both
+   ranks the whole result. Held to path 1's result of this run: per-lane
+   iterations of both stages and converged flags equal, Z bitwise; path 1's
+   certificate; on each rank K1-K4 launched and no plain call. Its seconds
+   and certified solves/s beside path 1's, then ``parallel.weak_scaling``
+   at 1 and 2 ranks on the seek's lockstep solve (its options, its first
+   phase's 20 iterations), 1024 lanes a rank.
+11. The z_k gates of ``integrators/base.py``: ``stack_hessians_zk`` on the
+   calls captured from path 1's polish (256 lanes: the bilinear integrator
+   and two derivative integrators) and from path 2 (8192 lanes), under
+   the default, ``DTX_ZK_CUSTOM_HESS``, ``DTX_ZK_READCOLS`` and both: wall
+   ms (CUDA events, median of 20) and device ms (profiler, 3 calls) a
+   prepare, each
+   setting within 1e-5 of the call's largest entry of the default; then
+   path 2 with both gates on, beside its default run, certified on every
+   converged lane.
+
 Exits non-zero if there is no CUDA device, if any kernel fails to build,
 launch or agree, if a kernel of a path was never launched during it (or a
-Riccati kernel was on path 6), if a float32 call on paths 1-7c took a
+Riccati kernel was on path 6), if a float32 call on paths 1-8 took a
 plain version, if path 6b's two runs differ or 6a's fallback warning is
-missing, or if a path's result does not meet its certificate. The last line is
-``{"ok": true, "device": {...}}``.
+missing, if path 8's result is not path 1's, if a rank of path 8 fails, if
+a z_k gate disagrees with the default, or if a path's result does not meet
+its certificate. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -958,6 +981,258 @@ def path7d(dev) -> None:
              "solves")
     del runs, r_d, r_c, s_d, s_c
 
+# path 8: path 1's pipeline sharded over PATH8_RANKS processes that share
+# the card (gloo: NCCL refuses two ranks on one GPU), then weak_scaling on
+# the seek's lockstep solve at 1 and 2 ranks, WEAK_LANES lanes a rank
+PATH8_RANKS, WEAK_LANES = 2, 1024
+
+
+def path8_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of path 8 (started by ``torch.multiprocessing.spawn``): the
+    seek and the polish of path 1's batch through
+    ``solve_batch_compact_sharded``, each rank on its half, after a short
+    warm-up on one chunk; then ``weak_scaling``. Writes its launches, times
+    and (rank 0) the gathered result to ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.module import tree_take
+    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                  solve_batch_compact_sharded, weak_scaling)
+    from directtrajopt_tpu_torch.solvers.solve import cast_problem, solve_batch_compact
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    init_distributed(num_processes=world, process_id=rank, backend="gloo",
+                     init_method=f"file://{os.path.join(tmp, 'init')}")
+    mesh = make_mesh(dev)
+    cfg = benchmarks.headline_config()
+
+    def batch(lanes):
+        return cast_problem(benchmarks.make_batched_bilinear_problems(
+            lanes, N=cfg["N"], feasible_start=True, taylor_order=cfg["taylor_order"],
+            device=dev, dtype=torch.float64), torch.float32)
+
+    prob = batch(cfg["batch"])
+    w = solve_batch_compact(tree_take(prob, torch.arange(cfg["phase1_kw"]["chunk"], device=dev)),
+                            **dict(cfg["phase1_kw"], phases=((2, None),)))
+    solve_batch_compact(w.problem, warm=w.ipm.state.best_kkt_warm,
+                        **dict(cfg["polish_kw"], phases=((1, None),)))
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    seek = solve_batch_compact_sharded(prob, mesh=mesh, **cfg["phase1_kw"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pol = solve_batch_compact_sharded(seek.problem, mesh=mesh,
+                                      warm=seek.ipm.state.best_kkt_warm, **cfg["polish_kw"])
+    torch.cuda.synchronize()
+    dist.barrier()
+    t2 = time.perf_counter()
+    out = dict(seek_s=t1 - t0, polish_s=t2 - t1, launches=dict(_build.LAUNCHES),
+               plain=dict(_build.PLAIN_CALLS), instances=dict(_build.INSTANCES))
+    if rank == 0:
+        lanes = np.nonzero(pol.converged.cpu().numpy())[0]
+        out.update(it1=seek.iterations.cpu(), it2=pol.iterations.cpu(),
+                   conv=pol.converged.cpu(), Z1=seek.problem.trajectory.to_zvec().cpu(),
+                   Z=pol.problem.trajectory.to_zvec().cpu(), kkt=pol.kkt_error.cpu(),
+                   rms=benchmarks.rms_u_vs_golden(pol, lanes))
+    del prob, seek, pol, w
+    torch.cuda.empty_cache()
+    # the seek's options on its lockstep solve, its first phase's budget
+    seek_kw = {k: v for k, v in cfg["phase1_kw"].items() if k not in ("phases", "chunk")}
+    batch.per_device = WEAK_LANES
+    out["weak"] = weak_scaling(batch, [1, 2], repeats=3, devices=dev,
+                               **dict(seek_kw, max_iter=cfg["phase1_kw"]["phases"][0][0]))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def path8(path1: dict) -> list:
+    """Path 8: path 1's pipeline on two processes that share the card
+    (``path8_rank``), held to path 1's own result of this run (``path1``:
+    its per-lane seek and polish iterations, converged flags and Z, on the
+    host): iterations and converged equal and Z bitwise, path 1's
+    certificate on every converged lane, K1-K4 launched on both ranks and
+    no plain call. Prints its seconds and certified solves/s beside path
+    1's, and the weak-scaling records. Returns each rank's launches."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="dto_path8_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(path8_rank, args=(PATH8_RANKS, tmp), nprocs=PATH8_RANKS)
+        t_all = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(PATH8_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    o = outs[0]
+    conv = o["conv"].numpy()
+    lanes = np.nonzero(conv)[0]
+    kkt_max = float(o["kkt"].numpy()[lanes].max()) if len(lanes) else float("nan")
+    rms_max = float(o["rms"].max()) if len(lanes) else float("nan")
+    t8 = o["seek_s"] + o["polish_s"]
+    t1 = path1["seconds"]
+    same = {k: torch.equal(o[k], path1[k]) for k in ("it1", "it2", "conv", "Z1", "Z")}
+    diff = (o["Z"] != path1["Z"]).any(1)
+    print(f"[path8] path 1's pipeline sharded over {PATH8_RANKS} processes sharing the card "
+          f"(gloo, file:// rendezvous), {len(conv) // PATH8_RANKS} lanes a rank, chunk "
+          f"{path1['chunk']}: seek {o['seek_s']:.2f} s, polish {o['polish_s']:.2f} s, total "
+          f"{t8:.2f} s in rank 0 after a warm-up (path 1: {t1:.2f} s); spawn to join "
+          f"{t_all:.2f} s", flush=True)
+    print(f"[path8] certified {len(lanes)}/{len(conv)} lanes: {len(lanes) / t8:.1f} certified "
+          f"solves/s (path 1: {path1['certified']}/{len(conv)}, {path1['certified'] / t1:.1f}); "
+          f"max kkt {kkt_max:.3e} (bound {KKT_CERT:g}), max RMS(u) vs golden {rms_max:.3e} "
+          f"(bound {GOLDEN_RMS:g})", flush=True)
+    print(f"[path8] against path 1 of this run: seek iterations equal {same['it1']}, polish "
+          f"iterations equal {same['it2']}, converged equal {same['conv']}, seek Z bitwise "
+          f"{same['Z1']}, polish Z bitwise {same['Z']} ({int(diff.sum())} lanes differ"
+          f"{', max |dZ| %.3e' % float((o['Z'] - path1['Z']).abs().max()) if diff.any() else ''})",
+          flush=True)
+    for r, x in enumerate(outs):
+        print(f"[path8] rank {r}: seek {x['seek_s']:.2f} s, polish {x['polish_s']:.2f} s; kernel "
+              f"launches {json.dumps(x['launches'])}; by kernel {json.dumps(x['instances'])}; "
+              f"plain calls {json.dumps(x['plain'])}", flush=True)
+    for rec in o["weak"]:
+        print(f"[path8] weak_scaling (the seek's options, its first phase's "
+              f"{path1['weak_iter']} iterations in one lockstep): {json.dumps(rec)}", flush=True)
+    for r, x in enumerate(outs):
+        if any(v == 0 for v in base_counts(x["launches"]).values()):
+            fail(f"path 8: a kernel was never launched on rank {r}: {x['launches']}")
+        if any(x["plain"].values()):
+            fail(f"path 8: rank {r} took a plain version: {x['plain']}")
+    if not all(same.values()):
+        fail(f"path 8's gathered result differs from path 1's: {same}")
+    if len(lanes) < MIN_CONVERGED * len(conv) or not (kkt_max <= KKT_CERT
+                                                     and rms_max < GOLDEN_RMS):
+        fail("path 8: a converged lane is not certified, or too few converged")
+    if outs[1]["weak"] != o["weak"]:
+        fail("path 8: the ranks' weak-scaling records differ")
+    return [x["launches"] for x in outs]
+
+
+# the z_k gates of integrators/base.py timed on stack_hessians_zk, and the
+# largest deviation each may have from the default on the same call,
+# relative to the call's largest entry (float32: the same sums reordered
+# through the Taylor chain)
+GATE_SETTINGS = {"default": {}, "DTX_ZK_CUSTOM_HESS": {"DTX_ZK_CUSTOM_HESS": "1"},
+                 "DTX_ZK_READCOLS": {"DTX_ZK_READCOLS": "1"},
+                 "both": {"DTX_ZK_CUSTOM_HESS": "1", "DTX_ZK_READCOLS": "1"}}
+GATE_TOL = 1e-5
+
+
+class gates:
+    """Set one of ``GATE_SETTINGS`` in ``os.environ`` for a block."""
+
+    def __init__(self, setting: str):
+        self.setting = setting
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k) for k in ("DTX_ZK_CUSTOM_HESS", "DTX_ZK_READCOLS")
+                      if k in os.environ}
+        os.environ.update(GATE_SETTINGS[self.setting])
+
+    def __exit__(self, *exc):
+        for k in GATE_SETTINGS["both"]:
+            os.environ.pop(k, None)
+        os.environ.update(self.saved)
+
+
+def device_busy_ms(fn, calls: int = 20):
+    """Device milliseconds per call of ``fn``: the time of every device
+    event ``torch.profiler`` records over ``calls`` calls, summed; None
+    where it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3 if us else None
+
+
+def gate_phase(captured: dict, prob_sc, sc_cfg, path2: dict) -> None:
+    """The z_k gates: ``stack_hessians_zk`` under each of ``GATE_SETTINGS``
+    on the calls captured from path 1's polish and path 2 (``captured``:
+    name → the calls of one prepare), timed (CUDA events, median of 20;
+    profiler device time over 3 calls) and held to the default on the same
+    call; then
+    path 2 once more with both gates on, beside its default run
+    (``path2``), and its certificate on every converged lane."""
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.integrators.base import stack_hessians_zk
+    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
+
+    for what, calls in captured.items():
+
+        def prepare(calls=calls):
+            return [stack_hessians_zk(*a) for a in calls]
+
+        names = [type(a[0]).__name__ for a in calls]
+        ref = None
+        with gates("default"):
+            peak = max(float(h.abs().max()) for h in prepare())
+        if not peak > 0:
+            fail(f"the z_k gates: the Hessians of {what}'s captured prepare are zero")
+        for setting in GATE_SETTINGS:
+            with gates(setting):
+                out = prepare()
+                # the profiler's record of these many small operations is slow to
+                # read back: 3 calls
+                ms, dms = cuda_ms(prepare), device_busy_ms(prepare, calls=3)
+            if ref is None:
+                ref = out
+            rel = max(float((o - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                      for o, r in zip(out, ref))
+            print(f"[gates] {what} ({', '.join(names)}; lanes {calls[0][2].shape[0]}): "
+                  f"largest entry {peak:.3e}; {setting}: stack_hessians_zk {ms:.4f} ms a prepare (device "
+                  f"{'not measured' if dms is None else f'{dms:.4f} ms'}); max deviation from "
+                  f"the default {rel:.3e} of the call's largest entry (bound {GATE_TOL:g})",
+                  flush=True)
+            if rel > GATE_TOL:
+                fail(f"the z_k gates ({setting}) disagree with the default on {what}")
+    with gates("both"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_batch_compact(prob_sc, **sc_cfg["solve_kw"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        no_plain_calls("path 2 with both z_k gates")
+    conv = res.converged.cpu().numpy()
+    it = res.iterations.cpu().numpy()
+    kkt = res.kkt_error.cpu().numpy()
+    lanes = np.nonzero(conv)[0]
+    err_u, viol = benchmarks.state_constrained_certificate(res)
+
+    def worst(x):
+        return float(x[lanes].max()) if len(lanes) else float("nan")
+
+    print(f"[gates] path 2 with DTX_ZK_CUSTOM_HESS and DTX_ZK_READCOLS: {sec:.2f} s, converged "
+          f"{len(lanes)}/{len(conv)}, iterations median {np.median(it):g} max {it.max()}; "
+          f"default run: {path2['seconds']:.2f} s, converged {path2['converged']}/{len(conv)}, "
+          f"iterations median {path2['median']:g} max {path2['max']}; over converged lanes max "
+          f"kkt {worst(kkt):.3e}, max |u - u*| {worst(err_u):.3e}, max (|x_k|^2 - cap) "
+          f"{worst(viol):.3e}; kernel launches {json.dumps(launches)}", flush=True)
+    if any(v == 0 for v in base_counts(launches).values()):
+        fail(f"path 2 with both z_k gates: a kernel was never launched: {launches}")
+    if not (worst(kkt) <= KKT_CERT and worst(err_u) <= GOLDEN_U and worst(viol) <= VIOL_CERT):
+        fail("path 2 with both z_k gates: a converged lane is not certified")
+
 
 def main() -> None:
     # ---------------- 1. environment ---------------------------------------- #
@@ -965,6 +1240,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script measures the GPU port only")
     from directtrajopt_tpu_torch import benchmarks
     from directtrajopt_tpu_torch.ops import _build, expv_kernel, riccati_kernel
+    from directtrajopt_tpu_torch.solvers import ops_riccati
     from directtrajopt_tpu_torch.solvers.canonical import make_nlp
     from directtrajopt_tpu_torch.solvers.ops_riccati import analyze
     from directtrajopt_tpu_torch.solvers.options import IPMOptions
@@ -1661,7 +1937,10 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     times = {}
-    with Timed(solve_mod, "_solve_impl") as tm1:  # for path 4's polish comparison
+    # Timed: for path 4's polish comparison; the Hessian calls of the
+    # polish's first prepare (its three integrators) for the z_k gates
+    with Timed(solve_mod, "_solve_impl") as tm1, \
+            Capture(ops_riccati, "stack_hessians_zk", 3) as cap_h1:
         res2, res1 = benchmarks.run_headline(prob_big, cfg, times)
     launches = dict(_build.LAUNCHES)
     no_plain_calls("path 1")
@@ -1695,6 +1974,12 @@ def main() -> None:
         fail(f"only {len(lanes)}/{B} lanes converged")
     if not (kkt_max <= KKT_CERT and rms_max < GOLDEN_RMS):
         fail("a converged lane is not certified")
+    # what path 8 is held to, on the host
+    path1 = dict(it1=res1.iterations.cpu(), it2=res2.iterations.cpu(), conv=res2.converged.cpu(),
+                 Z1=res1.problem.trajectory.to_zvec().cpu(),
+                 Z=res2.problem.trajectory.to_zvec().cpu(), seconds=t_seek + t_polish,
+                 certified=len(lanes), chunk=cfg["phase1_kw"]["chunk"],
+                 weak_iter=cfg["phase1_kw"]["phases"][0][0])
 
     # ---------------- 4. path 2: the state-constrained family --------------- #
     del res1, res2
@@ -1702,7 +1987,10 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     t0 = time.perf_counter()
-    res_sc = solve_batch_compact(prob_sc, **sc_cfg["solve_kw"])
+    # for the z_k gates: the Hessians of the fourth prepare (the duals of
+    # the first are zero)
+    with Capture(ops_riccati, "stack_hessians_zk", 4) as cap_h2:
+        res_sc = solve_batch_compact(prob_sc, **sc_cfg["solve_kw"])
     torch.cuda.synchronize()
     t_path2 = time.perf_counter() - t0
     launches2 = dict(_build.LAUNCHES)
@@ -1733,6 +2021,8 @@ def main() -> None:
         fail(f"path 2: only {len(lanes2)}/{B2} lanes converged")
     if not (kkt2_max <= KKT_CERT and err_max <= GOLDEN_U and viol_max <= VIOL_CERT):
         fail("path 2: a converged lane is not certified")
+    path2 = dict(seconds=t_path2, converged=len(lanes2), median=float(np.median(it_sc)),
+                 max=int(it_sc.max()))
 
     # ---------------- 5. path 3: the global-phase family -------------------- #
     del res_sc
@@ -2054,6 +2344,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches7 = path7(dev)
 
+    # ---------------- 10. path 8: path 1 on two processes -------------------- #
+    launches8 = path8(path1)
+
+    # ---------------- 11. the z_k gates ------------------------------------- #
+    gate_phase({"path 1's polish": cap_h1.calls, "path 2": cap_h2.calls[-1:]}, prob_sc, sc_cfg,
+               path2)
+
     table = []
     for name in BASE_KERNELS:
         route, src, replaces = KERNELS[name]
@@ -2152,6 +2449,14 @@ def main() -> None:
         r = results[res_key]
         table.append(dict(name=name, route=route, source=src, replaces=replaces,
                           launches=counts.get(key, 0), max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
+    # path 8's rows: path 1's shapes, launches summed over the two ranks
+    for k in BASE_KERNELS:
+        route, src, replaces = KERNELS[k]
+        r = results[k]
+        table.append(dict(name=f"{k}_sharded", route=route, source=src, replaces=replaces,
+                          launches=sum(x[k] for x in launches8), max_abs_err=r["max_abs_err"],
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     print(json.dumps({"kernels": table}))

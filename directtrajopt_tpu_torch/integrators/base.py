@@ -29,17 +29,36 @@ The dense backend assembles over the whole 2·dim window ``[z_k; z_{k+1}]``
 Both differentiate only the window columns the residual reads
 (``_window_cols``: the integrator's ``read_cols`` on z_k and its
 ``read_cols_next``, or the target x, on z_{k+1}), one tangent per read
-column, the rows of a one-hot embedding; the other entries are zero. The
-z_k-width functions stay generic full-width AD, as in the JAX package.
+column, the rows of a one-hot embedding; the other entries are zero.
+
+The JAX package's environment gates choose the forms, read at each call
+(the JAX package reads them when it traces), with its names and defaults:
+
+* ``DTX_ZK_CUSTOM_HESS`` (unset): ``stack_hessians_zk`` takes the
+  integrator's closed-form ``hessian_zk`` where it has one;
+* ``DTX_ZK_READCOLS`` (unset): ``stack_jacobians_zk`` and
+  ``stack_hessians_zk`` differentiate only the read columns, as the window
+  functions do. Unset, both are generic full-width AD, which the JAX
+  package measured as the faster form at z_k width;
+* ``DTX_NO_READCOLS`` (unset): no read-column restriction anywhere;
+* ``DTX_NO_CUSTOM_HESS`` (unset): ``stack_hessians`` by AD, without the
+  closed form;
+* ``DTX_ZK_KERNEL=0`` / ``DTX_RES_KERNEL=0`` (both "1"): the window
+  Jacobians / the stacked residuals and their L1 sums by the generic route
+  instead of the integrator's closed form (the window-Jacobian and
+  residual kernels).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import grad, jvp, vmap
 
+from ..precision import lane_sum
 from ..trajectory import Layout
 
 __all__ = [
@@ -74,7 +93,7 @@ def evaluate(integrator, traj) -> torch.Tensor:
 def stack_residuals(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
     """All window residuals ``(B, ..., N-1, x_dim)``."""
     custom = getattr(integrator, "residuals_stacked", None)
-    if custom is not None:
+    if custom is not None and os.environ.get("DTX_RES_KERNEL", "1") != "0":
         out = custom(layout, zmat)
         if out is not None:
             return out
@@ -84,29 +103,29 @@ def stack_residuals(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Ten
 def stack_residuals_l1(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
     """``Σ|residual|`` over all windows: ``(B, ...)``."""
     custom = getattr(integrator, "residuals_l1_stacked", None)
-    if custom is not None:
+    if custom is not None and os.environ.get("DTX_RES_KERNEL", "1") != "0":
         out = custom(layout, zmat)
         if out is not None:
             return out
-    return stack_residuals(integrator, layout, zmat).abs().sum((-2, -1))
+    return lane_sum(stack_residuals(integrator, layout, zmat).abs(), dims=2)
 
 
 def stack_jacobians_zk(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
     """Per-window ``∂residual/∂z_k``: ``(B, N-1, r, dim)``."""
     custom = getattr(integrator, "jacobians_zk_stacked", None)
-    if custom is not None:
+    if custom is not None and os.environ.get("DTX_ZK_KERNEL", "1") != "0":
         out = custom(layout, zmat)
         if out is not None:
             return out
     zk, zk1 = zmat[..., :-1, :], zmat[..., 1:, :]
-    d = layout.dim
-    eye = torch.eye(d, dtype=zmat.dtype, device=zmat.device)
+    E = _zk_tangents(integrator, layout, zmat)
 
     def col(e):
         return jvp(lambda z: integrator.residual(layout, z, zk1), (zk,),
                    (e.expand_as(zk),))[1]
 
-    return vmap(col)(eye).movedim(0, -1)
+    Jr = vmap(col)(E).movedim(0, -1)  # (B, N-1, r, n_read)
+    return Jr if E.shape[0] == layout.dim else Jr @ E
 
 
 def stack_hessians_zk(
@@ -115,8 +134,11 @@ def stack_hessians_zk(
     """Per-window Hessians of ``μ_k·residual_k`` w.r.t. ``z_k``:
     ``(B, N-1, dim, dim)``; ``mu`` is (B, N-1, x_dim)."""
     zk, zk1 = zmat[..., :-1, :], zmat[..., 1:, :]
-    d = layout.dim
-    eye = torch.eye(d, dtype=zmat.dtype, device=zmat.device)
+    custom = getattr(integrator, "hessian_zk", None)
+    if custom is not None and os.environ.get("DTX_ZK_CUSTOM_HESS"):
+        return custom(layout, zk, zk1, mu)
+    E = _zk_tangents(integrator, layout, zmat)
+    full = E.shape[0] == layout.dim
 
     def lagr(z):
         return (mu * integrator.residual(layout, z, zk1)).sum()
@@ -124,9 +146,11 @@ def stack_hessians_zk(
     g = grad(lagr)
 
     def col(e):
-        return jvp(g, (zk,), (e.expand_as(zk),))[1]
+        h = jvp(g, (zk,), (e.expand_as(zk),))[1]
+        return h if full else h @ E.T
 
-    return vmap(col)(eye).movedim(0, -1)
+    Hr = vmap(col)(E).movedim(0, -1)  # (B, N-1, n_read, n_read)
+    return Hr if full else E.T @ Hr @ E
 
 
 def stack_jacobians(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
@@ -152,7 +176,7 @@ def stack_hessians(integrator, layout: Layout, zmat: torch.Tensor,
     # explicit integrators are linear in z_{k+1}: the whole window Hessian is
     # the z_k block, which a closed-form hessian_zk gives directly
     custom = getattr(integrator, "hessian_zk", None)
-    if custom is not None:
+    if custom is not None and not os.environ.get("DTX_NO_CUSTOM_HESS"):
         return F.pad(custom(layout, zk, zk1, mu), (0, d, 0, d))
     E = _tangents(integrator, layout, zmat)
     g = grad(lambda a, b: (mu * integrator.residual(layout, a, b)).sum(), argnums=(0, 1))
@@ -167,8 +191,10 @@ def stack_hessians(integrator, layout: Layout, zmat: torch.Tensor,
 
 def _read_cols(integrator, layout: Layout) -> np.ndarray | None:
     """The z_k columns the integrator's residual reads (its ``read_cols``),
-    or None for all of them: without ``read_cols``, or when it names every
-    column."""
+    or None for all of them: without ``read_cols``, when it names every
+    column, or under ``DTX_NO_READCOLS``."""
+    if os.environ.get("DTX_NO_READCOLS"):
+        return None
     fn = getattr(integrator, "read_cols", None)
     if fn is None:
         return None
@@ -212,3 +238,12 @@ def _tangents(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
     if cols is None:
         return torch.eye(2 * layout.dim, dtype=zmat.dtype, device=zmat.device)
     return _embedding(cols, 2 * layout.dim, zmat.dtype, zmat.device)
+
+
+def _zk_tangents(integrator, layout: Layout, zmat: torch.Tensor) -> torch.Tensor:
+    """The z_k AD's tangents: the identity of the knot's width, or under
+    ``DTX_ZK_READCOLS`` the rows of the read columns' embedding."""
+    cols = _read_cols(integrator, layout) if os.environ.get("DTX_ZK_READCOLS") else None
+    if cols is None:
+        return torch.eye(layout.dim, dtype=zmat.dtype, device=zmat.device)
+    return _embedding(cols, layout.dim, zmat.dtype, zmat.device)

@@ -25,10 +25,36 @@ import torch
 from ..constraints.base import LinearCanon, NonlinearConstraintBase
 from ..integrators.base import stack_residuals, stack_residuals_l1
 from ..objectives.base import lane_data, objective_total
+from ..precision import lane_sum
 from ..problem import DirectTrajOptProblem
 from ..trajectory import Layout
 
-__all__ = ["COORows", "CanonicalNLP", "make_nlp"]
+__all__ = ["COORows", "CanonicalNLP", "make_nlp", "index_add_ordered"]
+
+
+def index_add_ordered(out: torch.Tensor, dim: int, index, src: torch.Tensor) -> torch.Tensor:
+    """``out.index_add(dim, index, src)`` for a static index (a numpy array)
+    whose repeated entries add up in the order they appear: one pass for
+    each repeat, each adding at most one entry to a position. On the card
+    ``index_add`` adds repeated indices by atomics, in no fixed order, so
+    ``out + a + b`` could round as ``out + b + a`` from one launch to the
+    next; the passes give every launch, on either device, the CPU's
+    sequential sums."""
+    index = np.asarray(index, dtype=np.int64)
+    if len(index) == 0:
+        return out
+    order = np.argsort(index, kind="stable")
+    first = np.searchsorted(index[order], index[order], side="left")
+    rank = np.empty_like(index)
+    rank[order] = np.arange(len(index)) - first  # earlier entries at the same position
+    dev = out.device
+    if rank.max() == 0:
+        return out.index_add(dim, torch.as_tensor(index, device=dev), src)
+    for r in range(int(rank.max()) + 1):
+        sel = np.nonzero(rank == r)[0]
+        out = out.index_add(dim, torch.as_tensor(index[sel], device=dev),
+                            src.index_select(dim, torch.as_tensor(sel, device=src.device)))
+    return out
 
 
 @dataclass
@@ -47,7 +73,7 @@ class COORows:
         if len(self.rows) == 0:
             return out
         v = lane_data(self.vals, Z[..., None, :]) * Z[..., self.cols]
-        return out.index_add(-1, torch.as_tensor(self.rows, device=Z.device), v)
+        return index_add_ordered(out, -1, self.rows, v)
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """``Aᵀ y`` for y (B, n_rows)."""
@@ -55,7 +81,7 @@ class COORows:
         if len(self.rows) == 0:
             return out
         v = self.vals * y[:, self.rows]
-        return out.index_add(-1, torch.as_tensor(self.cols, device=y.device), v)
+        return index_add_ordered(out, -1, self.cols, v)
 
     def select_rows(self, idx: np.ndarray) -> torch.Tensor:
         """Dense (B, len(idx), n_cols) block of the selected rows (the Riccati
@@ -68,32 +94,18 @@ class COORows:
             return out
         remap = np.zeros(self.n_rows, dtype=np.int64)
         remap[idx] = np.arange(len(idx))
-        flat = torch.as_tensor(remap[self.rows[keep]] * self.n_cols + self.cols[keep],
-                               device=out.device)
+        flat = remap[self.rows[keep]] * self.n_cols + self.cols[keep]
         sel = self.vals[:, torch.as_tensor(np.nonzero(keep)[0], device=out.device)]
-        return out.reshape(B, -1).index_add(1, flat, sel).reshape(out.shape)
+        return index_add_ordered(out.reshape(B, -1), 1, flat, sel).reshape(out.shape)
 
     def dense(self, dtype) -> torch.Tensor:
         """Full dense (B, n_rows, n_cols) materialization (the dense backend's
         assembly). Repeated (row, col) entries add up in the order they
-        appear: each pass scatters at most one entry per position, so no
-        two additions race on the card and the result is the same at every
-        call."""
+        appear (:func:`index_add_ordered`)."""
         B = self.vals.shape[0]
         out = self.vals.new_zeros((B, self.n_rows * self.n_cols), dtype=dtype)
-        if len(self.rows) == 0:
-            return out.reshape(B, self.n_rows, self.n_cols)
         flat = self.rows * self.n_cols + self.cols
-        # the rank of each entry among the earlier entries at its position
-        order = np.argsort(flat, kind="stable")
-        first = np.searchsorted(flat[order], flat[order], side="left")
-        rank = np.empty_like(flat)
-        rank[order] = np.arange(len(flat)) - first
-        vals = self.vals.to(dtype)
-        for r in range(int(rank.max()) + 1):
-            sel = np.nonzero(rank == r)[0]
-            idx = torch.as_tensor(flat[sel], device=out.device)
-            out = out.index_add(1, idx, vals[:, torch.as_tensor(sel, device=out.device)])
+        out = index_add_ordered(out, 1, flat, self.vals.to(dtype))
         return out.reshape(B, self.n_rows, self.n_cols)
 
 
@@ -177,9 +189,9 @@ class CanonicalNLP:
         for integ in self.integrators:
             tot = tot + stack_residuals_l1(integ, self.layout, zmat)
         if self.n_lin_eq:
-            tot = tot + self._lin(self.A_eq, self.b_eq, Z).abs().sum(-1)
+            tot = tot + lane_sum(self._lin(self.A_eq, self.b_eq, Z).abs())
         if self.n_nl_eq:
-            tot = tot + self._nl(self.eq_cons, Z).abs().sum(-1)
+            tot = tot + lane_sum(self._nl(self.eq_cons, Z).abs())
         return tot
 
     def c_in(self, Z: torch.Tensor) -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 from torch.func import vjp
 
 from ..module import tree_map, tree_where
+from ..precision import lane_sum
 from .assembly import gradient
 from .callbacks import IPMCallbacks, _wall_stop_cached
 from .canonical import CanonicalNLP
@@ -70,8 +71,8 @@ def _lbfgs_compact(S, Y, count, sigma_clip=(1e-6, 1e6)):
     valid = (torch.arange(m, device=S.device) >= m - count[:, None]).to(dtype)
     Sv = S * valid[..., None]
     Yv = Y * valid[..., None]
-    sy_last = (S[:, -1] * Y[:, -1]).sum(-1)
-    yy_last = (Y[:, -1] * Y[:, -1]).sum(-1)
+    sy_last = lane_sum(S[:, -1] * Y[:, -1])
+    yy_last = lane_sum(Y[:, -1] * Y[:, -1])
     sigma = torch.where(count > 0, yy_last / torch.clamp(sy_last, min=1e-30), 1.0)
     sigma = torch.clamp(sigma, *sigma_clip)
     SS = Sv @ Sv.transpose(-1, -2)
@@ -335,7 +336,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
         zU0 = torch.where(mask_U, torch.clamp(warm.zU.to(dtype), min=opt.slack_min), 0.0)
         lam0 = warm.lam.to(dtype)
     c_e0 = nlp.c_eq(Z_init)
-    theta_init = c_e0.abs().sum(-1) + (c_i0 + s_init).abs().sum(-1)
+    theta_init = lane_sum(c_e0.abs()) + lane_sum((c_i0 + s_init).abs())
     gn = options.hessian_approximation == "gauss_newton"
     sw = (options.hessian_regularization
           if options.hessian_regularization in ("stagewise", "project", "flip", "floor")
@@ -412,13 +413,13 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
     def _bar(Z, s):
         dL, dU = bound_dists(Z)
         return (
-            torch.where(_lane(mask_L, Z), torch.log(dL), 0.0).sum(-1)
-            + torch.where(_lane(mask_U, Z), torch.log(dU), 0.0).sum(-1)
-            + torch.log(s).sum(-1)
+            lane_sum(torch.where(_lane(mask_L, Z), torch.log(dL), 0.0))
+            + lane_sum(torch.where(_lane(mask_U, Z), torch.log(dU), 0.0))
+            + lane_sum(torch.log(s))
         )
 
     def barrier_phi_from(f, Z, s, mu, c_e, c_i):
-        theta = c_e.abs().sum(-1) + (c_i + s).abs().sum(-1)
+        theta = lane_sum(c_e.abs()) + lane_sum((c_i + s).abs())
         return f - _lane(mu, f) * _bar(Z, s), theta
 
     def body(st: IPMState, active: torch.Tensor) -> IPMState:
@@ -435,9 +436,9 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
             # multipliers (carried in lbfgs_g_prev)
             s_pair = Z - st.lbfgs_Z_prev
             y_pair = ctx.grad_f + ctx.JeT(lam) + ctx.JiT(nu) - st.lbfgs_g_prev
-            sy = (s_pair * y_pair).sum(-1)
-            ss = (s_pair * s_pair).sum(-1)
-            yy = (y_pair * y_pair).sum(-1)
+            sy = lane_sum(s_pair * y_pair)
+            ss = lane_sum(s_pair * s_pair)
+            yy = lane_sum(y_pair * y_pair)
             # curvature condition (skip the update where it fails)
             good = (st.iter > 0) & (sy > 1e-8 * torch.sqrt(ss * yy)) & torch.isfinite(sy) & (ss > 0)
             gc = good[:, None, None]
@@ -474,8 +475,8 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
             r_dual = free * _csum([gf, ctx.JeT(lam), ctx.JiT(nu), -zL, zU])
         else:
             r_dual = free * (gf + ctx.JeT(lam) + ctx.JiT(nu) - zL + zU)
-        z_sum = lam.abs().sum(-1) + nu.abs().sum(-1)
-        b_sum = zL.abs().sum(-1) + zU.abs().sum(-1)
+        z_sum = lane_sum(lam.abs()) + lane_sum(nu.abs())
+        b_sum = lane_sum(zL.abs()) + lane_sum(zU.abs())
         n_tot = max(1, n_eq + n_in + 2 * z_dim)
         s_d = torch.clamp((z_sum + b_sum) / n_tot, min=s_max) / s_max
         s_c = torch.clamp(b_sum / max(1, 2 * z_dim), min=s_max) / s_max
@@ -554,7 +555,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
             comp_terms = torch.cat([torch.where(mask_L, dL * zL, nan),
                                     torch.where(mask_U, dU * zU, nan), s * nu], dim=-1)
             m_cnt = (~torch.isnan(comp_terms)).sum(-1)
-            avg_c = torch.nansum(comp_terms, -1) / torch.clamp(m_cnt, min=1)
+            avg_c = lane_sum(comp_terms, nan=True) / torch.clamp(m_cnt, min=1)
             min_c = (torch.where(torch.isnan(comp_terms), inf, comp_terms).amin(-1)
                      if comp_terms.shape[-1] else full(inf))
             has_comp = m_cnt > 0
@@ -645,12 +646,12 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
                 ad = torch.minimum(ad, _masked_min(
                     -tau_a * nu / torch.clamp(dnu_a, max=-1e-30), dnu_a < 0, 1.0))
             apc, adc = ap[:, None], ad[:, None]
-            comp_now = (torch.where(mask_L, dL * zL, 0.0).sum(-1)
-                        + torch.where(mask_U, dU * zU, 0.0).sum(-1) + (s * nu).sum(-1))
+            comp_now = (lane_sum(torch.where(mask_L, dL * zL, 0.0))
+                        + lane_sum(torch.where(mask_U, dU * zU, 0.0)) + lane_sum(s * nu))
             comp_aff = (
-                torch.where(mask_L, (dL + apc * dZ_a) * (zL + adc * dzL_a), 0.0).sum(-1)
-                + torch.where(mask_U, (dU - apc * dZ_a) * (zU + adc * dzU_a), 0.0).sum(-1)
-                + ((s + apc * ds_a) * (nu + adc * dnu_a)).sum(-1)
+                lane_sum(torch.where(mask_L, (dL + apc * dZ_a) * (zL + adc * dzL_a), 0.0))
+                + lane_sum(torch.where(mask_U, (dU - apc * dZ_a) * (zU + adc * dzU_a), 0.0))
+                + lane_sum((s + apc * ds_a) * (nu + adc * dnu_a))
             )
             m_cnt = (mask_L.sum(-1) + mask_U.sum(-1) + n_in).to(dtype).expand(B)
             mu_avg = comp_now / torch.clamp(m_cnt, min=1.0)
@@ -708,12 +709,12 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
         # ---- filter line search with second-order correction ------------- #
         phi0, theta0 = barrier_phi_from(st.obj, Z, s, mu, c_e, c_i)
         Dphi = (
-            (gf * dZ).sum(-1)
-            - mu * torch.where(mask_L, dZ / dL, 0.0).sum(-1)
-            + mu * torch.where(mask_U, dZ / dU, 0.0).sum(-1)
+            lane_sum(gf * dZ)
+            - mu * lane_sum(torch.where(mask_L, dZ / dL, 0.0))
+            + mu * lane_sum(torch.where(mask_U, dZ / dU, 0.0))
         )
         if n_in:
-            Dphi = Dphi - mu * (ds / s).sum(-1)
+            Dphi = Dphi - mu * lane_sum(ds / s)
         # non-monotone reference (Grippo): the largest φ of the recent
         # iterates at this μ; ls_memory = 1 is the monotone test
         phi_ref = torch.maximum(phi0, phi_hist.amax(-1)) if n_hist else phi0
@@ -822,7 +823,7 @@ def ipm_solve(nlp: CanonicalNLP, Z0: torch.Tensor, options: IPMOptions, ops=None
         c_i_t = nlp.c_in(Zt)
         fs_all = nlp.objective(Zt)
         # θ via the fused Σ|c_eq| path (the L1 form of the residual kernel)
-        thetas_all = nlp.c_eq_l1(Zt) + (c_i_t + st_).abs().sum(-1)
+        thetas_all = nlp.c_eq_l1(Zt) + lane_sum((c_i_t + st_).abs())
         phis_all = fs_all - mu[:, None] * _bar(Zt, st_)
 
         phi_s, theta_s = phis_all[:, n_grid], thetas_all[:, n_grid]

@@ -55,7 +55,7 @@ import torch
 from ..integrators.base import stack_hessians_zk, stack_jacobians_zk
 from ..ops import riccati_kernel
 from .assembly import _global_hessians, _knot_hessians, gradient, nl_hessians, nl_jacobians
-from .canonical import CanonicalNLP
+from .canonical import CanonicalNLP, index_add_ordered
 from .ops_dense import _reg_retry
 
 __all__ = ["OCPStructure", "analyze", "RiccatiOps"]
@@ -731,7 +731,7 @@ class _RiccatiCtx:
             lf = torch.as_tensor(np.concatenate(loc_flat), device=dev)
             ls = torch.as_tensor(np.concatenate(loc_scale), dtype=dtype, device=dev)
             lv = torch.cat(loc_vecs, dim=1)[:, torch.arange(len(lk_np), device=dev), lk, :]
-            Q = Q.index_add(1, lk, rho * lv[:, :, None, :] * lv[:, :, :, None])
+            Q = index_add_ordered(Q, 1, lk_np, rho * lv[:, :, None, :] * lv[:, :, :, None])
         else:
             lv = None
 
@@ -758,8 +758,8 @@ class _RiccatiCtx:
             lv_r = lv.repeat_interleave(rep, 0) if rep > 1 else lv
             r_loc = rhs_c_flat[:, lf] * ls
             # the shifts of one knot are summed before they meet the rhs
-            return rhs_z_blk + torch.zeros_like(rhs_z_blk).index_add(
-                1, lk, rho * lv_r * r_loc[:, :, None])
+            return rhs_z_blk + index_add_ordered(torch.zeros_like(rhs_z_blk), 1, lk_np,
+                                                 rho * lv_r * r_loc[:, :, None])
 
         def b_dyn_pad(rhs_c_flat):
             L = rhs_c_flat.shape[0]
