@@ -8,8 +8,9 @@ Phases, each printing its own lines:
    the seconds the kernel build took (the CUDA sources under
    ``directtrajopt_tpu_torch/csrc`` are compiled at first use).
 2. Every kernel of the main path against its plain PyTorch version on the
-   card, in float32, at the shapes the pipeline gives it (and the generic
-   Riccati kernels at other shapes): deviation, bound, median CUDA-event
+   card, in float32, at the shapes the pipeline gives it (and the
+   size-class Riccati kernels at other shapes and, beside each exact
+   instance, on the same call): deviation, bound, median CUDA-event
    times of kernel and plain version, and the kernel's time bound (bytes
    over the card's memory rate, or float32 operations over its peak). The
    K2 and K4 rows add the kernel's device time per launch from
@@ -60,7 +61,7 @@ Phases, each printing its own lines:
    with m = 20 (``cartpole_lbfgs_config()``: no AD Hessian, σI in the stage
    blocks and the SMW correction through K2 at (4,1,40), the column kernel
    ``resolve_columns<4,1>``, once an iteration). Each with its seconds,
-   lockstep passes and launches (K1/K2 by kernel: no generic K1/K2), the
+   lockstep passes and launches (K1/K2 by kernel: no size-class K1/K2), the
    converged share and, over the converged lanes, the KKT error,
    |obj/obj* − 1| and RMS(u − u*) against ``tests/golden/cartpole_n40_
    seed0.npz``. 5c: lanes 0-255 of path 1's batch with the seek's options,
@@ -69,11 +70,11 @@ Phases, each printing its own lines:
    refinement), each with its seconds, converged count, iterations and K1 /
    K2 launches; every lane must end finite. Phase 2 holds K1 (4,1,1) and K2
    (4,1,2) on 5a's captured calls and K2 (4,1,40) on 5b's (the SMW columns
-   of a later iteration), and beside them, on the same calls, the generic
-   kernels they replace; and on stage data at 256 lanes the K1 split at
+   of a later iteration), and beside them, on the same calls, the
+   size-class kernels; and on stage data at 256 lanes the K1 split at
    R = 9 (K1 on 8 columns, K2 on the ninth), the column K2 at (4,1,40)
    (bitwise the same as five launches of 8 columns; R = 41 takes the plain
-   version) and the generic K2 at (5,2,40) (bitwise its five tiles).
+   version) and the size-class K2 at (5,2,40) (bitwise its five tiles).
 
 8. Path 6, the dense KKT backend (``chip_smoke.path6``). 6a: the order-1
    time-dependent family (``make_batched_td_problems``: the 4-D Pauli state
@@ -99,20 +100,23 @@ Phases, each printing its own lines:
    with ``scaled_config()``. 7a: state_dim 8, Padé (the grouped K1
    (10,3,3) and K2 (10,3,2)); 7b: state_dim 16, Padé (the grouped K1/K2 at
    (18,3,·)); 7c: state_dim 8 with the Taylor action of order 12 (K1/K2 as
-   7a, the generic K3/K4 at (8,2)). Each with its seconds, lockstep
-   passes, iterations, launches (by kernel, and K1/K2 by instantiation: no
-   generic or wide K1/K2) and plain calls (0), the converged share against its bar (the JAX
-   package's share on lanes 0-63 less 0.1, ``tools/torch_scaled_bars.py``),
-   the KKT error, and |obj/obj* − 1| on lanes 0-3 against the float64
-   golden ``tests/golden/torch/scaled.npz``. 7d: state_dim 23 (n_s 25,
+   7a, the generic K3/K4 at (8,2)); 7e: state_dim 4, Padé (K1 (6,3,3) and
+   K2 (6,3,2): the size-class kernels ``factor_solve_classed<8,4,8>`` and
+   ``resolve_classed<8,4,8>``). Each with its seconds, lockstep passes,
+   iterations, launches (by kernel, and K1/K2 by instantiation: the exact
+   ones on 7a-7c, the size-class ones on 7e) and plain calls (0), the
+   converged share against its bar (the JAX package's share on lanes 0-63
+   less 0.1, ``tools/torch_scaled_bars.py``), the KKT error, and
+   |obj/obj* − 1| on lanes 0-3 against the float64 golden
+   ``tests/golden/torch/scaled.npz`` (7e's ``scaled_dim4.npz``). 7d: state_dim 23 (n_s 25,
    x_dim 23), beyond every kernel's caps, 64 lanes at N=11: the plain
    versions on the card (``PLAIN_CALLS`` > 0, no launch), the first 5
    iterations' steps and Z as on the CPU, the whole solve certified, and
    no more lanes parting from the CPU's solve than part between two
    float32 solves. Phase 2 holds the grouped K1/K2 on 7a's and 7b's
-   captured calls, and beside them on the same calls the per-lane kernels
-   they replaced there (generic at n_s 10, wide at 18, each device time
-   beside the grouped one's), the wide ones at the range's corner
+   captured calls and the size-class ones on 7e's, and beside the grouped
+   ones on the same calls the size-class kernels (each device time beside
+   the grouped one's), the size-class ones at the range's corner
    (24,24,8), the generic K3/K4 on 7c's knot matrix and at
    (3,1) and (8,8), and K3/K4 at 9 drives, beyond the caps, on the plain
    version.
@@ -214,9 +218,13 @@ BAR_6B = CONV_6B_JAX - 0.1
 # float32 solve comes within OBJ_7 of it (HELD_7: 4.0e-6 on 7a's lane 0,
 # 2.6e-6 on 7c's; on the others both packages' float32 solves stop 2e-3 to
 # 30 away: these random problems are not convex, and long solves part).
-SUB7 = {"7a": (8, None), "7b": (16, None), "7c": (8, 12)}  # state_dim, Taylor order
-CONV_7_JAX = {"7a": 56 / 64, "7b": 39 / 64, "7c": 56 / 64}
-HELD_7 = {"7a": (0,), "7b": (), "7c": (0,)}
+# 7e (state_dim 4, Padé: K1/K2 at (6,3,·), the size-class kernels) has its
+# golden in tests/golden/torch/scaled_dim4.npz; the JAX package's float32
+# solve converges 62 of its lanes 0-63 and comes within 1.5e-2 to 0.79 of
+# the golden's objectives on lanes 0-3, so none of them is held
+SUB7 = {"7a": (8, None), "7b": (16, None), "7c": (8, 12), "7e": (4, None)}  # state_dim, order
+CONV_7_JAX = {"7a": 56 / 64, "7b": 39 / 64, "7c": 56 / 64, "7e": 62 / 64}
+HELD_7 = {"7a": (0,), "7b": (), "7c": (0,), "7e": ()}
 OBJ_7, KKT_7 = 1e-3, 5e-4
 # 7d: 64 lanes at N=11, state_dim 23 (n_s 25, x_dim 23: beyond every
 # kernel's caps), Taylor order 12, on the card and on the CPU. The first
@@ -235,7 +243,8 @@ MIN_CONVERGED = 0.99  # share of lanes that must converge
 DEVICE = "cuda:0"
 
 KERNELS = {
-    # launch-count key: (route, source, TPU kernel it replaces)
+    # launch-count key (the size-class K1/K2: their launches in
+    # ``_build.INSTANCES``): (route, source, TPU kernel it replaces)
     "factor_solve": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_kernel.cu",
                      "directtrajopt_tpu/ops/riccati_kernel.py:342"),
     "resolve": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_kernel.cu",
@@ -246,10 +255,10 @@ KERNELS = {
                  "directtrajopt_tpu/ops/expv_kernel.py:293"),
     "residual_l1": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
                     "directtrajopt_tpu/ops/expv_kernel.py:293"),
-    "factor_solve_wide": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_kernel.cu",
-                          "directtrajopt_tpu/ops/riccati_kernel.py:342"),
-    "resolve_wide": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_kernel.cu",
-                     "directtrajopt_tpu/ops/riccati_kernel.py:488"),
+    "factor_solve_classed": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_classed.cuh",
+                             "directtrajopt_tpu/ops/riccati_kernel.py:342"),
+    "resolve_classed": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_classed.cuh",
+                        "directtrajopt_tpu/ops/riccati_kernel.py:488"),
     "window_jac_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
                            "directtrajopt_tpu/ops/expv_kernel.py:111"),
     "residual_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
@@ -257,7 +266,7 @@ KERNELS = {
     "residual_l1_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
                             "directtrajopt_tpu/ops/expv_kernel.py:293"),
 }
-# the launch counts of the kernels that paths 1-6 run (the ≤ 16/8 K1/K2,
+# the launch counts of the kernels that paths 1-6 run (the exact K1/K2,
 # K3/K4 at their exact shapes)
 BASE_KERNELS = ("factor_solve", "resolve", "window_jac", "residual", "residual_l1")
 # path 2 rows of the kernels table: (row name, launch-count key)
@@ -577,9 +586,8 @@ class Timed:
 def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
     """(kernel, registers, stack frame and spills, shared memory) per kernel
     from ``nvcc -Xptxas -v`` output."""
-    kernels = ("factor_solve_grouped", "factor_solve_generic", "factor_solve_wide",
-               "resolve_grouped", "resolve_columns", "resolve_generic", "resolve_wide",
-               "window_jac_kernel", "residual_grid_kernel")
+    kernels = ("factor_solve_grouped", "factor_solve_classed", "resolve_grouped",
+               "resolve_columns", "resolve_classed", "window_jac_kernel", "residual_grid_kernel")
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -836,33 +844,34 @@ def scaled_batch(lanes, N, state_dim, n_controls=2, taylor_order=None, dev=DEVIC
     return cast_problem(prob, dtype)
 
 
-def path7(dev) -> dict:
+def path7(dev) -> tuple:
     """Path 7, the scaling family at N=51 through ``solve_batch_compact``
     with ``scaled_config()``: 7a-7c (``SUB7``, its batch) against their
     bars, then 7d (``STATE_7D``) beyond the kernels' caps against the
     same solve on the CPU. Prints and certifies each; returns the launches of
-    7a-7c by sub-path."""
+    7a-7c and 7e by sub-path and their K1/K2 launches by CUDA kernel."""
     from directtrajopt_tpu_torch import benchmarks
-    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.ops import _build, riccati_kernel
     from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
 
     solve_mod = importlib.import_module("directtrajopt_tpu_torch.solvers.solve")
     cfg = benchmarks.scaled_config()
     N7 = cfg["N"]
-    gold = np.load(benchmarks.GOLDEN_SCALED)
+    gold_7, gold_7e = np.load(benchmarks.GOLDEN_SCALED), np.load(benchmarks.GOLDEN_SCALED_DIM4)
     # the kernels each sub-path must launch, and the K1/K2 instantiations
-    # (``_build.INSTANCES``): the grouped ones at the sub-path's n_s, no
-    # generic or wide K1/K2
+    # (``_build.INSTANCES``): the grouped ones at 7a-7c's n_s and no
+    # size-class one; the size-class ones on 7e and no exact one
     needs = {"7a": ("factor_solve", "resolve"), "7b": ("factor_solve", "resolve"),
              "7c": ("factor_solve", "resolve", "window_jac_generic", "residual_generic",
-                    "residual_l1_generic")}
+                    "residual_l1_generic"), "7e": ("factor_solve", "resolve")}
     needs_k12 = {tag: (f"factor_solve_grouped<{ns},3,3>", f"resolve_grouped<{ns},3,2>")
                  for tag, ns in (("7a", 10), ("7b", 18), ("7c", 10))}
-    per_lane_k12 = ("factor_solve_generic", "factor_solve_wide", "resolve_generic",
-                    "resolve_wide")
+    needs_k12["7e"] = tuple(
+        "{}_classed<{},{},{}>".format(k, *riccati_kernel.size_class(k, 6, 3, R))
+        for k, R in (("factor_solve", 3), ("resolve", 2)))
     expv = ("window_jac", "residual", "residual_l1", "window_jac_generic", "residual_generic",
             "residual_l1_generic")
-    launches, t_all = {}, time.perf_counter()
+    launches, instances, t_all = {}, {}, time.perf_counter()
     for tag, (dim, order) in SUB7.items():
         lanes = cfg["batch"]
         prob = scaled_batch(lanes, N7, dim, taylor_order=order, dev=dev)
@@ -883,6 +892,7 @@ def path7(dev) -> dict:
         kkt = res.kkt_error.cpu().numpy()
         it = res.iterations.cpu().numpy()
         obj = res.objective.detach().to("cpu", torch.float64).numpy()
+        gold = gold_7e if tag == "7e" else gold_7
         g_obj = gold[f"p{tag}_objective"]
         n = len(g_obj)
         err = np.abs(obj[:n] / g_obj - 1.0)
@@ -900,13 +910,13 @@ def path7(dev) -> dict:
               f"{gold[f'p{tag}_iterations'].tolist()}; plain calls {json.dumps(plain)}; "
               f"K1/K2 launches by kernel {json.dumps(k12)}", flush=True)
         del prob, res
-        launches[tag] = counts
+        launches[tag], instances[tag] = counts, k12
         missing = [k for k in needs[tag] if not counts.get(k)]
         missing += [k for k in needs_k12[tag] if not k12.get(k)]
         if missing:
             fail(f"path {tag}: {missing} never launched: {counts}, {k12}")
-        if any(k12.get(k) for k in per_lane_k12):
-            fail(f"path {tag}: a per-lane K1/K2 ran where the grouped one should: {k12}")
+        if any(k not in needs_k12[tag] for k in k12):
+            fail(f"path {tag}: a K1/K2 other than {needs_k12[tag]} ran: {k12}")
         if order is None and any(counts.get(k) for k in expv):
             fail(f"path {tag}: the Padé method launched K3/K4: {counts}")
         no_plain_calls(f"path {tag}")
@@ -916,8 +926,8 @@ def path7(dev) -> dict:
             fail(f"path {tag}: a converged lane is not certified")
     t7 = time.perf_counter() - t_all
     path7d(dev)
-    print(f"[path7] 7a-7c {t7:.2f} s; path 7 {time.perf_counter() - t_all:.2f} s", flush=True)
-    return launches
+    print(f"[path7] 7a-7c, 7e {t7:.2f} s; path 7 {time.perf_counter() - t_all:.2f} s", flush=True)
+    return launches, instances
 
 
 def path7d(dev) -> None:
@@ -1271,21 +1281,33 @@ def main() -> None:
     ptxas = ptxas_summary(info.get("log", ""))
     for name, regs, frame, smem in ptxas:
         print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
-    # the grouped and column K1 and K2 and the K3 and K4 kernels at their
-    # exact shapes keep every array in registers or shared memory (the
-    # generic K3/K4, <8,8,·>, and the generic and wide K1/K2 may use local
-    # memory)
-    for kname, count in (("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES)),
-                         ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES)),
-                         ("resolve_columns", len(riccati_kernel.RESOLVE_COLUMN_SHAPES)),
-                         ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES)),
-                         ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES))):
+    # the grouped and column K1 and K2, the size-class K1 and K2 up to the
+    # class (16,8,8), and the K3 and K4 kernels at their exact shapes keep
+    # every array in registers or shared memory (the generic K3/K4, <8,8,·>,
+    # and the size-class K1/K2 at (24,24,8) may use local memory: printed)
+    n_classes = len(riccati_kernel.SIZE_CLASSES)
+    for kname, count, wide in (
+            ("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES), None),
+            ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES), None),
+            ("resolve_columns", len(riccati_kernel.RESOLVE_COLUMN_SHAPES), None),
+            ("factor_solve_classed", n_classes - 1, "<24,24,8>"),
+            ("resolve_classed", n_classes - 1, "<24,24,8>"),
+            ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES), "<8,8,"),
+            ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES), "<8,8,")):
         found = [(name, frame) for name, _, frame, _ in ptxas
-                 if name.startswith(kname + "<") and not name.startswith(kname + "<8,8,")]
+                 if name.startswith(kname + "<") and not name.startswith(kname + (wide or "."))]
         if info.get("log") and (len(found) != count or any(
                 re.search(r"[1-9]\d* bytes", frame) for _, frame in found)):
             fail(f"{kname}: want {count} instantiations with no stack frame and no spills, "
                  f"ptxas says {found}")
+
+    # the wrapper's shared memory for each size class is the kernel's own
+    smem = {c: (riccati_kernel.classed_smem_bytes("factor_solve", c[0], c[1], 1),
+                _build.library().dto_classed_smem_bytes(*c)) for c in riccati_kernel.SIZE_CLASSES}
+    print(f"[env] size classes (NSC, NVC, RC): shared memory a block, wrapper / kernel: "
+          f"{json.dumps({str(c): v for c, v in smem.items()})}", flush=True)
+    if any(a != b for a, b in smem.values()):
+        fail("classed_smem_bytes disagrees with the size-class kernels' layout")
 
     # ---------------- 2. kernels against their plain versions -------------- #
     cfg = benchmarks.headline_config()
@@ -1345,8 +1367,9 @@ def main() -> None:
 
     # K1 / K2 on well-conditioned stage data: the 5e-6 relative bound of the
     # JAX package's own Pallas-kernel test, with the certificate equal. The
-    # paths' shapes run K1's grouped and K2's exact-size instantiations; the
-    # others, with one indefinite lane each for K1, run the generic kernels.
+    # paths' shapes run K1's grouped and K2's exact-size instantiations (and
+    # beside them, on the same inputs, the size-class kernels); the others,
+    # with one indefinite lane each for K1, run the size-class kernels.
     s0_slice = cap_f.calls[0][0]
 
     def riccati_inputs(seed, lanes, ns, nv, R, bad_lane=None):
@@ -1370,11 +1393,21 @@ def main() -> None:
             keep[bad] = False
         return keep
 
+    def beside_exact(key, what):
+        """Print the size-class row ``key + "_classed"`` beside the exact
+        instance's row ``key``: device times and their ratio."""
+        new, old = results[f"{key}_classed"], results[key]
+        ratio = (new["device_ms"] / old["device_ms"]
+                 if new["device_ms"] and old["device_ms"] else math.nan)
+        print(f"[classed] {what}: exact {old['ms']:.4f} ms a call (device {old['device_ms']}), "
+              f"size-class {new['ms']:.4f} ms (device {new['device_ms']}): classed / exact "
+              f"{ratio:.2f} in device time", flush=True)
+
     for key, lanes, shape, bad in (
         ("factor_solve", 256, (8, 3, 3), None),
         ("factor_solve_big", 8192, (8, 3, 3), 77),
-        ("factor_solve_generic", 256, (8, 3, 2), 5),
-        ("factor_solve_generic_small", 256, (5, 2, 2), 5),
+        ("factor_solve_classed_82", 256, (8, 3, 2), 5),
+        ("factor_solve_classed_small", 256, (5, 2, 2), 5),
     ):
         s0, st = riccati_inputs(0, lanes, *shape, bad)
         inst = riccati_kernel.design("factor_solve", *shape)
@@ -1384,10 +1417,17 @@ def main() -> None:
               lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
               riccati_ops(lanes, N, *shape, factor=True), ok_equal, lanes=but_lane(lanes, bad),
               prof=f"factor_solve_{inst}")
+        if key == "factor_solve":  # the size-class kernel on the same inputs
+            check("factor_solve_classed", f"K1 factor_solve_classed B={lanes} (n_s,n_v,R)={shape}",
+                  lambda: riccati_kernel.factor_solve_classed(s0, *st),
+                  lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
+                  riccati_ops(lanes, N, *shape, factor=True), ok_equal, prof="factor_solve_classed",
+                  reps=5)
+            beside_exact("factor_solve", f"K1 {shape} B={lanes}")
     for key, shape in (
         ("resolve", (8, 3, 2)),
-        ("resolve_generic", (8, 3, 1)),
-        ("resolve_generic_small", (5, 2, 2)),
+        ("resolve_classed_81", (8, 3, 1)),
+        ("resolve_classed_small", (5, 2, 2)),
     ):
         s0, st = riccati_inputs(1, 256, *shape)
         fac = riccati_kernel.factor_solve_plain(s0, *st)
@@ -1397,6 +1437,13 @@ def main() -> None:
               lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
               list(fac[:5]) + st[3:], riccati_ops(256, N, *shape, factor=False),
               prof=f"resolve_{inst}")
+        if key == "resolve":
+            check("resolve_classed", f"K2 resolve_classed B=256 (n_s,n_v,R')={shape}",
+                  lambda: riccati_kernel.resolve_classed(s0, *fac[:5], *st[3:]),
+                  lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
+                  list(fac[:5]) + st[3:], riccati_ops(256, N, *shape, factor=False),
+                  prof="resolve_classed", reps=5)
+            beside_exact("resolve", f"K2 {shape} B=256")
     # ... and on the inputs the pipeline gives them (every captured call):
     # the certificate must agree exactly, and on certified lanes each output
     # of the kernel may be no further from a float64 evaluation than 3x the
@@ -1559,15 +1606,14 @@ def main() -> None:
         delta = plain_f32_error(plain, args, mask)
         return mask, max(5e-6, 4 * delta), f"; plain float32 within {delta:.2e} of float64"
 
-    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False, reps=20,
-                      per_lane=None):
+    def captured_rows(tag, what, cap_f, cap_r, lanes, n_knots, f32_floor=False, reps=20):
         """K1 and K2 on the first calls captured from a path's own solve
         (rows ``factor_solve_<tag>``, ``resolve_<tag>``), one certified lane
-        made indefinite at stage 20; then every captured call. ``per_lane``
-        (a row suffix): also the one-thread-a-lane kernels on the same
-        calls, lanes and bounds (rows ``factor_solve_<tag>_<per_lane>``,
-        ``resolve_<tag>_<per_lane>``, 3 timed calls each), and the grouped
-        kernels' device time beside theirs and the plain versions'."""
+        made indefinite at stage 20; then every captured call. Where the
+        call takes an exact instance, the size-class kernel too, on the same
+        call, lanes and bounds (rows ``factor_solve_<tag>_classed``,
+        ``resolve_<tag>_classed``, 5 timed calls each), its device time
+        beside the exact one's."""
         f_args = list(cap_f.calls[0])
         shape_f = (f_args[1].shape[-1], f_args[3].shape[-1], f_args[6].shape[1])
         ok0 = riccati_kernel.factor_solve_plain(*f_args)[5]
@@ -1617,30 +1663,20 @@ def main() -> None:
               lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
               riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
               prof=f"resolve_{inst_r}", reps=reps)
-        if per_lane:
-            check(f"factor_solve_{tag}_{per_lane}",
-                  f"K1 factor_solve_{per_lane} (per lane, through dto_factor_solve) on the "
-                  f"same {what} call (n_s,n_v,R)={shape_f}, lane {bad_lane} indefinite",
-                  lambda: riccati_kernel.factor_solve_per_lane(*f_args),
-                  lambda: riccati_kernel.factor_solve_plain(*f_args), tol_f, True, f_args[1:],
-                  riccati_ops(lanes, n_knots, *shape_f, factor=True), ok_equal_lanes,
-                  lanes=well_f, prof=f"factor_solve_{per_lane}", reps=3)
-            check(f"resolve_{tag}_{per_lane}",
-                  f"K2 resolve_{per_lane} (per lane, through dto_resolve) on the same {what} "
-                  f"call (n_s,n_v,R')={shape_r}",
-                  lambda: riccati_kernel.resolve_per_lane(*r_args),
-                  lambda: riccati_kernel.resolve_plain(*r_args), tol_r, True, r_args[1:],
-                  riccati_ops(lanes, n_knots, *shape_r, factor=False), lanes=well_r,
-                  prof=f"resolve_{per_lane}", reps=3)
-            for k in ("factor_solve", "resolve"):
-                new, old = results[f"{k}_{tag}"], results[f"{k}_{tag}_{per_lane}"]
-                ratio = (old["device_ms"] / new["device_ms"]
-                         if new["device_ms"] and old["device_ms"] else math.nan)
-                print(f"[path{tag}] {k}: grouped {new['ms']:.4f} ms a call (device "
-                      f"{new['device_ms']}), {per_lane} {old['ms']:.4f} ms (device "
-                      f"{old['device_ms']}): {ratio:.1f}x sooner in device time; plain "
-                      f"{new['plain_ms']:.4f} ms, {new['plain_ms'] / new['ms']:.1f}x the "
-                      f"grouped kernel's wrapper time", flush=True)
+        for k, inst, shape, args, tol, well, n_ops, extra in (
+                ("factor_solve", inst_f, shape_f, f_args, tol_f, well_f,
+                 riccati_ops(lanes, n_knots, *shape_f, factor=True), ok_equal_lanes),
+                ("resolve", inst_r, shape_r, r_args, tol_r, well_r,
+                 riccati_ops(lanes, n_knots, *shape_r, factor=False), None)):
+            if inst in ("classed", "split"):
+                continue
+            kern = getattr(riccati_kernel, f"{k}_classed")
+            plain = getattr(riccati_kernel, f"{k}_plain")
+            check(f"{k}_{tag}_classed", f"{'K1' if k == 'factor_solve' else 'K2'} {k}_classed "
+                                        f"on the same {what} call {shape}",
+                  lambda: kern(*args), lambda: plain(*args), tol, True, args[1:], n_ops, extra,
+                  lanes=well, prof=f"{k}_classed", reps=5)
+            beside_exact(f"{k}_{tag}", f"{k} {shape} on the {what} call, B={lanes}")
         pipeline_calls(what, cap_f, cap_r, well_only=True)
         return shape_f, shape_r
 
@@ -1718,19 +1754,19 @@ def main() -> None:
     # K1 beyond 8 right-hand sides: K1 on the first 8 columns, K2 on the
     # others (two launches), at the symmetry problem's width R = 9
     s0, st = riccati_inputs(4, 256, 1, 1, 9, bad_lane=5)
-    check("factor_solve_split", "K1 factor_solve (split: generic K1 on 8 columns, then K2 on "
-                                "1) B=256 (n_s,n_v,R)=(1, 1, 9), lane 5 indefinite; device time "
-                                "of the K1 launch only",
+    check("factor_solve_split", "K1 factor_solve (split: size-class K1 on 8 columns, then K2 "
+                                "on 1) B=256 (n_s,n_v,R)=(1, 1, 9), lane 5 indefinite; device "
+                                "time of the K1 launch only",
           lambda: riccati_kernel.factor_solve(s0, *st),
           lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
           riccati_ops(256, N, 1, 1, 9, factor=True), ok_equal, lanes=but_lane(256, 5),
-          prof="factor_solve_generic")
+          prof="factor_solve_classed")
     # K2 at the Pallas resolve's bound, R = 40, in one launch: the column
     # kernel at (4,1), a thread per lane and column, whose columns do not
-    # depend on the others of the launch; and the generic kernel at (5,2),
-    # a shape with no column instance, its 8-column tiles on grid rows
+    # depend on the others of the launch; and the size-class kernel at
+    # (5,2), a shape with no column instance, its 8-column tiles on grid rows
     r40 = {}
-    for key, shape in (("resolve_r40", (4, 1, 40)), ("resolve_r40_generic", (5, 2, 40))):
+    for key, shape in (("resolve_r40", (4, 1, 40)), ("resolve_r40_classed", (5, 2, 40))):
         s0, st = riccati_inputs(5, 256, *shape)
         fac = riccati_kernel.factor_solve_plain(s0, *st)
         r_in = (s0, *fac[:5], st[3], st[4])
@@ -1753,12 +1789,12 @@ def main() -> None:
     plain41 = (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES))
     same41 = all(torch.equal(a, b) for a, b in zip(out41, riccati_kernel.resolve_plain(*r41)))
     print(f"[kernel] K2 at R'=40 bitwise equal to five launches of 8 columns: column kernel "
-          f"(4,1) {r40['columns'][0]} (launches {json.dumps(r40['columns'][1])}), generic "
-          f"(5,2) {r40['generic'][0]} (launches {json.dumps(r40['generic'][1])}); R'=41 "
+          f"(4,1) {r40['columns'][0]} (launches {json.dumps(r40['columns'][1])}), size-class "
+          f"(5,2) {r40['classed'][0]} (launches {json.dumps(r40['classed'][1])}); R'=41 "
           f"(5,2) takes the plain version: plain calls {json.dumps(plain41[0])}, launches "
           f"{sum(plain41[1].values())}, bitwise the plain version's: {same41}", flush=True)
     if not (r40["columns"] == (True, {"resolve_columns<4,1>": 6})
-            and r40["generic"] == (True, {"resolve_generic": 6})):
+            and r40["classed"] == (True, {"resolve_classed<8,4,8>": 6})):
         fail("K2 at 40 right-hand sides differs from its 8-column pieces, or another kernel ran")
     if not (same41 and plain41[0]["resolve"] == 1 and not any(plain41[1].values())):
         fail("K2 at R'=41 did not take the plain version")
@@ -1777,8 +1813,7 @@ def main() -> None:
     with Capture(riccati_kernel, "factor_solve", 16) as cap_f5, \
             Capture(riccati_kernel, "resolve", 16) as cap_r5:
         solve(prob_cp, max_iter=3, **kw5a)
-    shape_f5, shape_r5 = captured_rows("cp", "path-5a", cap_f5, cap_r5, B5, N5, f32_floor=True,
-                                       per_lane="generic")
+    shape_f5, shape_r5 = captured_rows("cp", "path-5a", cap_f5, cap_r5, B5, N5, f32_floor=True)
     del cap_f5, cap_r5
     with Capture(riccati_kernel, "resolve", 8) as cap_r5b:
         solve(prob_cp, max_iter=4, **kw5b)
@@ -1798,61 +1833,58 @@ def main() -> None:
           lambda: riccati_kernel.resolve(*r5b), lambda: riccati_kernel.resolve_plain(*r5b),
           tol5b, True, r5b[1:], riccati_ops(B5, N5, *shape_r5b, factor=False), lanes=well5b,
           prof=f"resolve_{des5b}")
-    # the generic kernel it replaced, on the same call (lanes-minor copies,
-    # five tiles of 8 columns on grid rows)
-    check("resolve_lbfgs_generic", f"K2 resolve_generic (per lane, through dto_resolve) on the "
-                                   f"same path-5b call (n_s,n_v,R')={shape_r5b}",
-          lambda: riccati_kernel.resolve_per_lane(*r5b),
+    # the size-class kernel on the same call (five tiles of 8 columns on
+    # grid rows)
+    check("resolve_lbfgs_classed", f"K2 resolve_classed on the same path-5b call "
+                                   f"(n_s,n_v,R')={shape_r5b}",
+          lambda: riccati_kernel.resolve_classed(*r5b),
           lambda: riccati_kernel.resolve_plain(*r5b), tol5b, True, r5b[1:],
-          riccati_ops(B5, N5, *shape_r5b, factor=False), lanes=well5b, prof="resolve_generic",
-          reps=3)
-    new, old = results["resolve_lbfgs"], results["resolve_lbfgs_generic"]
-    ratio = (old["device_ms"] / new["device_ms"]
-             if new["device_ms"] and old["device_ms"] else math.nan)
-    print(f"[pathlbfgs] resolve (4,1,40): columns {new['ms']:.4f} ms a call (device "
-          f"{new['device_ms']}), generic {old['ms']:.4f} ms (device {old['device_ms']}): "
-          f"{ratio:.1f}x sooner in device time; plain {new['plain_ms']:.4f} ms", flush=True)
+          riccati_ops(B5, N5, *shape_r5b, factor=False), lanes=well5b, prof="resolve_classed",
+          reps=5)
+    beside_exact("resolve_lbfgs", f"K2 {shape_r5b} on the path-5b call, B={B5} (columns)")
     del cap_r5b, smw_calls, r5b
 
     # ---- at the scaling family's shapes (path 7) -------------------------- #
     # The grouped K1 (10,3,3) and K2 (10,3,2) on 7a's captured calls and
-    # K1 (18,3,3), K2 (18,3,2) on 7b's, each with one lane made indefinite;
-    # beside them, on the same calls, the per-lane kernels they replace on
-    # path 7 (generic at n_s 10, wide at 18; slow: fewer timed calls).
-    # Plain float32 is nowhere within 1e-6 of float64 on these random
-    # systems: path 5's rule (lanes within 1e-3, the bound max(5e-6, 4δ))
+    # K1 (18,3,3), K2 (18,3,2) on 7b's, each with one lane made indefinite,
+    # and beside them, on the same calls, the size-class kernels; the
+    # size-class K1 (6,3,3) and K2 (6,3,2) on 7e's. Plain float32 is nowhere
+    # within 1e-6 of float64 on these random systems: path 5's rule (lanes
+    # within 1e-3, the bound max(5e-6, 4δ))
     s7 = benchmarks.scaled_config()
     N7, B7 = s7["N"], s7["batch"]
     kw7 = {k: v for k, v in s7["solve_kw"].items() if k not in ("phases", "chunk")}
     shapes7 = {}
-    for tag7, per_lane7 in (("7a", "generic"), ("7b", "wide")):
+    for tag7 in ("7a", "7b", "7e"):
         dim7, order7 = SUB7[tag7]
         prob7 = scaled_batch(B7, N7, dim7, taylor_order=order7, dev=dev)
         with Capture(riccati_kernel, "factor_solve", 3) as cap_f7, \
                 Capture(riccati_kernel, "resolve", 3) as cap_r7:
             solve(prob7, max_iter=3, **kw7)
         shapes7[tag7] = captured_rows(tag7, f"path-{tag7}", cap_f7, cap_r7, B7, N7,
-                                     f32_floor=True, per_lane=per_lane7)
+                                      f32_floor=True)
         del prob7, cap_f7, cap_r7
     print(f"[path7] captured shapes (K1, K2): {shapes7}", flush=True)
-    if shapes7["7a"][0] != (10, 3, 3) or shapes7["7b"][0] != (18, 3, 3):
-        fail(f"path 7's K1 shapes {shapes7} are not (10,3,3) and (18,3,3)")
-    # the wide kernels at the range's corner, seeded: K1 with one lane
+    want7 = {"7a": ((10, 3, 3), (10, 3, 2)), "7b": ((18, 3, 3), (18, 3, 2)),
+             "7e": ((6, 3, 3), (6, 3, 2))}
+    if shapes7 != want7:
+        fail(f"path 7's K1/K2 shapes {shapes7} are not {want7}")
+    # the size-class kernels at the range's corner, seeded: K1 with one lane
     # indefinite, K2 on the factors of well-conditioned data
     s0, st = riccati_inputs(6, 256, 24, 24, 8, bad_lane=5)
-    check("factor_solve_wide_corner", "K1 factor_solve (wide) B=256 (n_s,n_v,R)=(24, 24, 8), "
-                                      "lane 5 indefinite",
+    check("factor_solve_classed_corner", "K1 factor_solve (classed) B=256 (n_s,n_v,R)=(24, 24, "
+                                         "8), lane 5 indefinite",
           lambda: riccati_kernel.factor_solve(s0, *st),
           lambda: riccati_kernel.factor_solve_plain(s0, *st), 5e-6, True, st,
           riccati_ops(256, N, 24, 24, 8, factor=True), ok_equal, lanes=but_lane(256, 5),
-          prof="factor_solve_wide", reps=3)
+          prof="factor_solve_classed", reps=5)
     s0, st = riccati_inputs(7, 256, 24, 24, 8)
     fac = riccati_kernel.factor_solve_plain(s0, *st)
-    check("resolve_wide_corner", "K2 resolve (wide) B=256 (n_s,n_v,R')=(24, 24, 8)",
+    check("resolve_classed_corner", "K2 resolve (classed) B=256 (n_s,n_v,R')=(24, 24, 8)",
           lambda: riccati_kernel.resolve(s0, *fac[:5], *st[3:]),
           lambda: riccati_kernel.resolve_plain(s0, *fac[:5], *st[3:]), 5e-6, True,
           list(fac[:5]) + st[3:], riccati_ops(256, N, 24, 24, 8, factor=False),
-          prof="resolve_wide", reps=5)
+          prof="resolve_classed", reps=5)
     del s0, st, fac
     # the generic K3/K4 at (8,2) on 7c's knot matrix and trial grid
     prob7c = scaled_batch(B7, N7, SUB7["7c"][0], taylor_order=SUB7["7c"][1], dev=dev)
@@ -2254,7 +2286,7 @@ def main() -> None:
     def run5(tag, what, cfg5, kkt_bar, obj_bar, rms_bar, needs_k12):
         """Solve path 5's batch with ``cfg5`` in one chunk; print and
         certify, and fail unless each K1/K2 kernel of ``needs_k12`` ran and
-        no generic K1/K2 did. Returns the launches, the objectives and the
+        no size-class K1/K2 did. Returns the launches, the objectives and the
         K1/K2 launches by kernel (``_build.INSTANCES``)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2290,8 +2322,8 @@ def main() -> None:
         missing = [k for k in needs_k12 if not k12.get(k)]
         if missing:
             fail(f"{tag}: {missing} never launched: {k12}")
-        if k12.get("factor_solve_generic") or k12.get("resolve_generic"):
-            fail(f"{tag}: a generic K1/K2 ran where the grouped or column one should: {k12}")
+        if any("_classed<" in k for k in k12):
+            fail(f"{tag}: a size-class K1/K2 ran where the grouped or column one should: {k12}")
         if len(ln5) < MIN_CONVERGED * B5:
             fail(f"{tag}: only {len(ln5)}/{B5} lanes converged")
         if not (worst(kkt5) <= kkt_bar and worst(obj_err) <= obj_bar and worst(rms5) <= rms_bar):
@@ -2342,7 +2374,7 @@ def main() -> None:
 
     # ---------------- 9. path 7: the scaling family -------------------------- #
     torch.cuda.empty_cache()
-    launches7 = path7(dev)
+    launches7, instances7 = path7(dev)
 
     # ---------------- 10. path 8: path 1 on two processes -------------------- #
     launches8 = path8(path1)
@@ -2391,21 +2423,21 @@ def main() -> None:
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     # path 5's rows, launches by kernel (``_build.INSTANCES``): K1 (4,1,1)
     # and K2 (4,1,2) in 5a and 5b (5b's K2 (4,1,2): SOC + restoration), K2
-    # (4,1,40) in 5b (the SMW columns once an iteration); the generic
-    # kernels they replaced, timed on the same captured calls, and the
-    # seeded R' = 40 rows (no path runs them); 5c's runs at path 1's shapes
-    # (K2 at (8,3,1): Mehrotra's main step by resolve)
+    # (4,1,40) in 5b (the SMW columns once an iteration); the size-class
+    # kernels, timed on the same captured calls, and the seeded R' = 40 rows
+    # (no path runs them); 5c's runs at path 1's shapes (K2 at (8,3,1):
+    # Mehrotra's main step by resolve, the size-class kernel)
     path5 = [("factor_solve_cp", "factor_solve", inst5a.get(k1_5, 0), "factor_solve_cp"),
              ("resolve_cp", "resolve", inst5a.get(k2_5, 0), "resolve_cp"),
              ("factor_solve_lbfgs", "factor_solve", inst5b.get(k1_5, 0), "factor_solve_cp"),
              ("resolve_lbfgs", "resolve", inst5b.get(k2_5b, 0), "resolve_lbfgs"),
              ("resolve_lbfgs_soc", "resolve", inst5b.get(k2_5, 0), "resolve_cp")]
     path5 += [(name, key, 0, name) for name, key in (
-        ("factor_solve_cp_generic", "factor_solve"), ("resolve_cp_generic", "resolve"),
-        ("resolve_lbfgs_generic", "resolve"), ("resolve_r40", "resolve"),
-        ("resolve_r40_generic", "resolve"))]
+        ("factor_solve_cp_classed", "factor_solve_classed"),
+        ("resolve_cp_classed", "resolve_classed"), ("resolve_lbfgs_classed", "resolve_classed"),
+        ("resolve_r40", "resolve"), ("resolve_r40_classed", "resolve_classed"))]
     path5 += [(f"{k}_options", k, launches5c.get(k, 0),
-               "resolve_generic" if k == "resolve" else k) for k in BASE_KERNELS]
+               "resolve_classed_81" if k == "resolve" else k) for k in BASE_KERNELS]
     for name, key, n_launch, res_key in path5:
         route, src, replaces = KERNELS[key]
         r = results[res_key]
@@ -2423,25 +2455,43 @@ def main() -> None:
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     # path 7's rows: the grouped K1/K2 at (10,3,·) on 7a and 7c (the same
-    # shape) and at (18,3,·) on 7b, the generic K3/K4 on 7c; the per-lane
-    # K1/K2 they replace, timed on the same captured calls (no path runs
-    # them now); the seeded rows (the wide corner, the generic K3/K4 at
-    # (3,1) and (8,8)) at shapes no path runs
+    # shape) and at (18,3,·) on 7b, the generic K3/K4 on 7c, the size-class
+    # K1/K2 at (6,3,·) on 7e (launches by CUDA kernel); the size-class
+    # kernels on 7a's and 7b's captured calls (no path runs them there);
+    # the seeded rows (the size-class corner, the generic K3/K4 at (3,1)
+    # and (8,8)) at shapes no path runs
+    def classed_launches(k):
+        return {k: sum(v for name, v in instances7["7e"].items()
+                       if name.startswith(k + "<"))}
+
     rows7 = [("factor_solve_7a", "factor_solve", launches7["7a"], "factor_solve_7a"),
              ("resolve_7a", "resolve", launches7["7a"], "resolve_7a"),
              ("factor_solve_7b", "factor_solve", launches7["7b"], "factor_solve_7b"),
              ("resolve_7b", "resolve", launches7["7b"], "resolve_7b"),
              ("factor_solve_7c", "factor_solve", launches7["7c"], "factor_solve_7a"),
              ("resolve_7c", "resolve", launches7["7c"], "resolve_7a"),
-             ("factor_solve_7a_generic", "factor_solve", {}, "factor_solve_7a_generic"),
-             ("resolve_7a_generic", "resolve", {}, "resolve_7a_generic"),
-             ("factor_solve_7b_wide", "factor_solve_wide", {}, "factor_solve_7b_wide"),
-             ("resolve_7b_wide", "resolve_wide", {}, "resolve_7b_wide"),
+             ("factor_solve_7e", "factor_solve_classed",
+              classed_launches("factor_solve_classed"), "factor_solve_7e"),
+             ("resolve_7e", "resolve_classed", classed_launches("resolve_classed"),
+              "resolve_7e"),
+             ("factor_solve_7a_classed", "factor_solve_classed", {}, "factor_solve_7a_classed"),
+             ("resolve_7a_classed", "resolve_classed", {}, "resolve_7a_classed"),
+             ("factor_solve_7b_classed", "factor_solve_classed", {}, "factor_solve_7b_classed"),
+             ("resolve_7b_classed", "resolve_classed", {}, "resolve_7b_classed"),
              ("window_jac_7c", "window_jac_generic", launches7["7c"], "window_jac_7c"),
              ("residual_7c", "residual_generic", launches7["7c"], "residual_7c"),
              ("residual_l1_7c", "residual_l1_generic", launches7["7c"], "residual_l1_7c"),
-             ("factor_solve_wide_corner", "factor_solve_wide", {}, "factor_solve_wide_corner"),
-             ("resolve_wide_corner", "resolve_wide", {}, "resolve_wide_corner")]
+             ("factor_solve_classed_corner", "factor_solve_classed", {},
+              "factor_solve_classed_corner"),
+             ("resolve_classed_corner", "resolve_classed", {}, "resolve_classed_corner")]
+    # the size-class kernels beside the exact instances at paths 1-3's
+    # shapes, and at the seeded shapes no path runs
+    rows7 += [(name, f"{'factor_solve' if name.startswith('factor') else 'resolve'}_classed", {},
+               name) for name in (
+        "factor_solve_classed", "resolve_classed", "factor_solve_sc_classed",
+        "resolve_sc_classed", "factor_solve_gp_classed", "resolve_gp_classed",
+        "factor_solve_classed_82", "factor_solve_classed_small", "resolve_classed_81",
+        "resolve_classed_small") if name in results]
     rows7 += [(f"{k}_{xd}_{nd}", f"{k}_generic", {}, f"{k}_{xd}_{nd}")
               for xd, nd in ((3, 1), (8, 8)) for k in ("window_jac", "residual", "residual_l1")]
     for name, key, counts, res_key in rows7:

@@ -110,6 +110,7 @@ __all__ = [
     "make_batched_scaled_problems",
     "scaled_config",
     "GOLDEN_SCALED",
+    "GOLDEN_SCALED_DIM4",
 ]
 
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -121,6 +122,7 @@ GOLDEN_SCHEDULED = os.path.join(_GOLDEN_DIR, "torch", "scheduled_n51.npz")
 GOLDEN_CARTPOLE = os.path.join(_GOLDEN_DIR, "cartpole_n40_seed0.npz")
 GOLDEN_TD = os.path.join(_GOLDEN_DIR, "torch", "td_order1_n51.npz")
 GOLDEN_SCALED = os.path.join(_GOLDEN_DIR, "torch", "scaled.npz")
+GOLDEN_SCALED_DIM4 = os.path.join(_GOLDEN_DIR, "torch", "scaled_dim4.npz")
 
 
 def _np_bilinear_rollout(G_drift, G_drives, x0, u, dt, order: int = 16):

@@ -3,9 +3,9 @@
 //
 // Replaces the two Pallas kernels of directtrajopt_tpu/ops/riccati_kernel.py:
 //   * _fused_kernel (:342; wrapper _factor_solve_pallas)
-//       -> factor_solve_grouped, factor_solve_generic, factor_solve_wide
+//       -> factor_solve_grouped, factor_solve_classed
 //   * _resolve_kernel (:488; wrapper _resolve_pallas)
-//       -> resolve_grouped, resolve_columns, resolve_generic, resolve_wide
+//       -> resolve_grouped, resolve_columns, resolve_classed
 //
 // Per lane: a backward sweep over the N stages (PB = P·B, PA = P·A,
 // Hvv = Qvv + BᵀPB, its Cholesky, Mvs = Qsvᵀ + BᵀPA, Kg = −Hvv⁻¹Mvs,
@@ -16,9 +16,9 @@
 // an entry of the factor is non-finite), and the identity is substituted for
 // that factor, exactly as the XLA scan (_factor_solve_xla) does.
 //
-// Two designs of each, chosen by shape in the wrapper
-// (ops/riccati_kernel.py: GROUPED_SHAPES for K1, RESOLVE_GROUPED_SHAPES for
-// K2):
+// The design is chosen by shape in the wrapper (ops/riccati_kernel.py
+// design(): GROUPED_SHAPES for K1, RESOLVE_GROUPED_SHAPES and
+// RESOLVE_COLUMN_SHAPES for K2, the size classes everywhere else):
 //
 // * factor_solve_grouped<NS, NV, R> — a group of G threads per lane (G =
 //   NS up to n_s = 8; beyond, the least power of two ≥ NS, so 16 at n_s =
@@ -89,592 +89,26 @@
 //   rows it read, and the block stores the chunk's results together: read
 //   straight from global memory, each thread's rows lie 640 bytes from its
 //   neighbour's, a half-used sector a row, which held (4,1,40) × 8192 to
-//   resolve_generic's time. The order of summation is resolve_lane's, so a column's
-//   result does not depend on R or on the other columns of the launch.
+//   the one-thread-a-lane kernel's time. The order of summation is the
+//   grouped kernels', so a column's result does not depend on R or on the
+//   other columns of the launch.
 //   Lane-major in and out, as resolve_grouped. Instantiated at (4,1) (path
 //   5b). Bound: 998 MB, 0.298 ms at (4,1,40) × 8192, N=40 (the right-hand
 //   sides and solutions are 95 % of it); the stashed p_k, kff_k make the
 //   round trip through dzs, dzv, and b is read in both sweeps (1.73 GB).
-// * factor_solve_generic / resolve_generic — one thread per lane for any
-//   n_s ≤ 16, n_v ≤ 8, and R ≤ 8 (K1) or R ≤ 40 (K2, the Pallas resolve's
-//   bound), stage stacks lanes-minor ((N, rows, cols, L), the Pallas
-//   kernel's layout) so that neighbouring threads read neighbouring
-//   addresses, which the wrapper copies; the stage blocks sit in per-thread
-//   arrays of the maximum size (local memory). resolve_generic runs its
-//   right-hand sides in tiles of 8 inside one launch, one tile per grid
-//   row (blockIdx.y), each a full backward and forward sweep against the
-//   stored factors: a tile computes exactly as a launch of its 8 columns.
-// * factor_solve_wide / resolve_wide — the same one-thread-per-lane bodies
-//   instantiated at n_s, n_v ≤ 24 (the Pallas kernels' shape caps), for
-//   the shapes beyond the generic kernels' 16 and 8 that have no grouped
-//   instantiation. A 24 × 24 block is 576 floats a
-//   thread: the stage blocks live in local memory, read through L1/L2,
-//   in blocks of one warp (kWideThreads). R and the tiles as for the
-//   generic kernels.
+// * factor_solve_classed<NSC, NVC, RC> / resolve_classed<NSC, NVC, RC>
+//   (riccati_classed.cuh, instantiated in riccati_classed_factor.cu and
+//   riccati_classed_resolve.cu, which nvcc builds beside this file) — the
+//   grouped design at run-time sizes, one instantiation a size class, for
+//   every shape within the Pallas kernels' caps that has no exact instance.
 //
 // Division and sqrt are IEEE (no fast math): correctly rounded.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "riccati_common.cuh"
 
 namespace {
 
-// Full unrolling for the exact-size instantiations (stage blocks in
-// registers); none for the generic maximum-size one (arrays in local memory),
-// which keeps its compile time short.
-template <int M>
-struct Unroll {
-  static constexpr int value = (M <= 8) ? 8 : 1;
-};
-
-// (N, r, c, L) lanes-minor stage stack
-#define AT(X, k, i, j, r, c) (X)[(((long)(k) * (r) + (i)) * (c) + (j)) * L + l]
-
-// Cholesky of the n×n leading block of H into Lf; identity on failure.
-template <int M>
-__device__ __forceinline__ bool chol_or_identity(const float (&H)[M][M], float (&Lf)[M][M],
-                                                 int n) {
-  bool ok = true;
-#pragma unroll (Unroll<M>::value)
-  for (int r = 0; r < M; ++r) {
-    if (r >= n) break;
-#pragma unroll (Unroll<M>::value)
-    for (int c = 0; c < M; ++c) Lf[r][c] = 0.0f;
-  }
-#pragma unroll (Unroll<M>::value)
-  for (int r = 0; r < M; ++r) {
-    if (r >= n) break;
-    float d = H[r][r];
-#pragma unroll (Unroll<M>::value)
-    for (int t = 0; t < M; ++t) {
-      if (t >= r) break;
-      d -= Lf[r][t] * Lf[r][t];
-    }
-    if (!(d > 0.0f)) ok = false;
-    const float s = sqrtf(d);
-    Lf[r][r] = s;
-#pragma unroll (Unroll<M>::value)
-    for (int q = 0; q < M; ++q) {
-      if (q <= r) continue;
-      if (q >= n) break;
-      float v = H[q][r];
-#pragma unroll (Unroll<M>::value)
-      for (int t = 0; t < M; ++t) {
-        if (t >= r) break;
-        v -= Lf[q][t] * Lf[r][t];
-      }
-      Lf[q][r] = v / s;
-    }
-  }
-#pragma unroll (Unroll<M>::value)
-  for (int r = 0; r < M; ++r) {
-    if (r >= n) break;
-#pragma unroll (Unroll<M>::value)
-    for (int c = 0; c < M; ++c) {
-      if (c > r) break;
-      if (!isfinite(Lf[r][c])) ok = false;
-    }
-  }
-  if (!ok) {
-#pragma unroll (Unroll<M>::value)
-    for (int r = 0; r < M; ++r) {
-      if (r >= n) break;
-#pragma unroll (Unroll<M>::value)
-      for (int c = 0; c < M; ++c) Lf[r][c] = (r == c) ? 1.0f : 0.0f;
-    }
-  }
-  return ok;
-}
-
-// x ← (L Lᵀ)⁻¹ x for the n leading entries.
-template <int M>
-__device__ __forceinline__ void cho_solve(const float (&Lf)[M][M], float (&x)[M], int n) {
-#pragma unroll (Unroll<M>::value)
-  for (int i = 0; i < M; ++i) {
-    if (i >= n) break;
-    float s = x[i];
-#pragma unroll (Unroll<M>::value)
-    for (int t = 0; t < M; ++t) {
-      if (t >= i) break;
-      s -= Lf[i][t] * x[t];
-    }
-    x[i] = s / Lf[i][i];
-  }
-#pragma unroll (Unroll<M>::value)
-  for (int i = M - 1; i >= 0; --i) {
-    if (i >= n) continue;
-    float s = x[i];
-#pragma unroll (Unroll<M>::value)
-    for (int t = 0; t < M; ++t) {
-      if (t <= i) continue;
-      if (t >= n) break;
-      s -= Lf[t][i] * x[t];
-    }
-    x[i] = s / Lf[i][i];
-  }
-}
-
-// Masked initial-state Cholesky: P0m = P0∘(s0 s0ᵀ) + diag(1 − s0).
-template <int NS>
-__device__ __forceinline__ bool initial_factor(const float (&P0)[NS][NS], unsigned s0mask,
-                                               float (&L0)[NS][NS], int ns) {
-  float P0m[NS][NS];
-#pragma unroll (Unroll<NS>::value)
-  for (int i = 0; i < NS; ++i) {
-    if (i >= ns) break;
-    const bool fi = (s0mask >> i) & 1u;
-#pragma unroll (Unroll<NS>::value)
-    for (int j = 0; j < NS; ++j) {
-      if (j >= ns) break;
-      const bool fj = (s0mask >> j) & 1u;
-      P0m[i][j] = (fi && fj) ? P0[i][j] : ((i == j) ? 1.0f : 0.0f);
-    }
-  }
-  return chol_or_identity<NS>(P0m, L0, ns);
-}
-
-// Shared tail of both kernels: the initial-state solve and the forward sweep
-// for columns r0 … r0 + R − 1 of right-hand-side arrays that hold Rs columns.
-// On entry dzs/dzv hold the stashed p_k / kff_k of the backward sweep.
-template <int NS, int NV, int RM>
-__device__ __forceinline__ void forward_sweep(
-    int l, int L, int N, int ns, int nv, int R, int r0, int Rs, unsigned s0mask,
-    const float (&L0)[NS][NS], const float (&p0)[RM][NS],
-    const float* __restrict__ P, const float* __restrict__ Kg,
-    const float* __restrict__ A, const float* __restrict__ B,
-    const float* __restrict__ rb, float* __restrict__ dzs, float* __restrict__ dzv,
-    float* __restrict__ lam) {
-  float s[RM][NS];
-#pragma unroll (Unroll<NS>::value)
-  for (int r = 0; r < RM; ++r) {
-    if (r >= R) break;
-    float x[NS];
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) {
-      if (i >= ns) break;
-      x[i] = ((s0mask >> i) & 1u) ? p0[r][i] : 0.0f;
-    }
-    cho_solve<NS>(L0, x, ns);
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) {
-      if (i >= ns) break;
-      s[r][i] = ((s0mask >> i) & 1u) ? -x[i] : 0.0f;
-    }
-  }
-  for (int k = 0; k < N; ++k) {
-#pragma unroll (Unroll<NS>::value)
-    for (int r = 0; r < RM; ++r) {
-      if (r >= R) break;
-      if (k >= 1) {
-#pragma unroll (Unroll<NS>::value)
-        for (int i = 0; i < NS; ++i) {
-          if (i >= ns) break;
-          float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-          for (int j = 0; j < NS; ++j) {
-            if (j >= ns) break;
-            acc += AT(P, k, i, j, ns, ns) * s[r][j];
-          }
-          AT(lam, k - 1, r0 + r, i, Rs, ns) = -(acc + AT(dzs, k, r0 + r, i, Rs, ns));
-        }
-      }
-      float v[NV];
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int j = 0; j < NS; ++j) {
-          if (j >= ns) break;
-          acc += s[r][j] * AT(Kg, k, a, j, nv, ns);
-        }
-        v[a] = acc + AT(dzv, k, r0 + r, a, Rs, nv);
-      }
-      float sn[NS];
-#pragma unroll (Unroll<NS>::value)
-      for (int i = 0; i < NS; ++i) {
-        if (i >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int j = 0; j < NS; ++j) {
-          if (j >= ns) break;
-          acc += s[r][j] * AT(A, k, i, j, ns, ns);
-        }
-        float acc2 = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int a = 0; a < NV; ++a) {
-          if (a >= nv) break;
-          acc2 += v[a] * AT(B, k, i, a, ns, nv);
-        }
-        sn[i] = acc + acc2 + AT(rb, k, r0 + r, i, Rs, ns);
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int i = 0; i < NS; ++i) {
-        if (i >= ns) break;
-        AT(dzs, k, r0 + r, i, Rs, ns) = s[r][i];
-        s[r][i] = sn[i];
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        AT(dzv, k, r0 + r, a, Rs, nv) = v[a];
-      }
-    }
-  }
-}
-
-template <int NS, int NV, int RM>
-__device__ __forceinline__ void factor_solve_lane(
-    int l, int L, int N, int ns, int nv, int R, unsigned s0mask,
-    const float* __restrict__ Qss, const float* __restrict__ Qsv,
-    const float* __restrict__ Qvv, const float* __restrict__ A,
-    const float* __restrict__ B, const float* __restrict__ qs,
-    const float* __restrict__ qv, const float* __restrict__ rb, float* __restrict__ Pout,
-    float* __restrict__ Lout, float* __restrict__ Kgout, float* __restrict__ Mvsout,
-    float* __restrict__ L0out, float* __restrict__ okout, float* __restrict__ dzs,
-    float* __restrict__ dzv, float* __restrict__ lam) {
-  float P[NS][NS];   // P_{k+1}
-  float p[RM][NS];   // p_{k+1}
-#pragma unroll (Unroll<NS>::value)
-  for (int i = 0; i < NS; ++i)
-#pragma unroll (Unroll<NS>::value)
-    for (int j = 0; j < NS; ++j) P[i][j] = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-  for (int r = 0; r < RM; ++r)
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) p[r][i] = 0.0f;
-  bool ok = true;
-
-  for (int k = N - 1; k >= 0; --k) {
-    float Ak[NS][NS], Bk[NS][NV];
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) {
-      if (i >= ns) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int j = 0; j < NS; ++j) {
-        if (j >= ns) break;
-        Ak[i][j] = AT(A, k, i, j, ns, ns);
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        Bk[i][a] = AT(B, k, i, a, ns, nv);
-      }
-    }
-    float PA[NS][NS], PB[NS][NV];
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) {
-      if (i >= ns) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int j = 0; j < NS; ++j) {
-        if (j >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += P[i][t] * Ak[t][j];
-        }
-        PA[i][j] = acc;
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += P[i][t] * Bk[t][a];
-        }
-        PB[i][a] = acc;
-      }
-    }
-    float H[NV][NV], Mvs[NV][NS];
-#pragma unroll (Unroll<NS>::value)
-    for (int a = 0; a < NV; ++a) {
-      if (a >= nv) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int b = 0; b < NV; ++b) {
-        if (b >= nv) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += Bk[t][a] * PB[t][b];
-        }
-        H[a][b] = AT(Qvv, k, a, b, nv, nv) + acc;
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int j = 0; j < NS; ++j) {
-        if (j >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += Bk[t][a] * PA[t][j];
-        }
-        Mvs[a][j] = AT(Qsv, k, j, a, ns, nv) + acc;
-      }
-    }
-    float Lv[NV][NV];
-    ok = chol_or_identity<NV>(H, Lv, nv) && ok;
-    float Kg[NV][NS];
-#pragma unroll (Unroll<NS>::value)
-    for (int j = 0; j < NS; ++j) {
-      if (j >= ns) break;
-      float col[NV];
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        col[a] = Mvs[a][j];
-      }
-      cho_solve<NV>(Lv, col, nv);
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        Kg[a][j] = -col[a];
-      }
-    }
-    // right-hand sides, with P = P_{k+1} and this stage's factors
-#pragma unroll (Unroll<NS>::value)
-    for (int r = 0; r < RM; ++r) {
-      if (r >= R) break;
-      float w[NS];
-#pragma unroll (Unroll<NS>::value)
-      for (int i = 0; i < NS; ++i) {
-        if (i >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int j = 0; j < NS; ++j) {
-          if (j >= ns) break;
-          acc += AT(rb, k, r, j, R, ns) * P[i][j];
-        }
-        w[i] = acc + p[r][i];
-      }
-      float kff[NV];
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int i = 0; i < NS; ++i) {
-          if (i >= ns) break;
-          acc += w[i] * Bk[i][a];
-        }
-        kff[a] = AT(qv, k, r, a, R, nv) + acc;
-      }
-      cho_solve<NV>(Lv, kff, nv);
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        kff[a] = -kff[a];
-        AT(dzv, k, r, a, R, nv) = kff[a];  // stash kff_k
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int i = 0; i < NS; ++i) {
-        if (i >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += w[t] * Ak[t][i];
-        }
-        float acc2 = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int a = 0; a < NV; ++a) {
-          if (a >= nv) break;
-          acc2 += kff[a] * Mvs[a][i];
-        }
-        p[r][i] = (AT(qs, k, r, i, R, ns) + acc) + acc2;
-        AT(dzs, k, r, i, R, ns) = p[r][i];  // stash p_k
-      }
-    }
-    // P_k = sym(Qss + AᵀPA + MvsᵀKg)
-    float Pn[NS][NS];
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) {
-      if (i >= ns) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int j = 0; j < NS; ++j) {
-        if (j >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += Ak[t][i] * PA[t][j];
-        }
-        float acc2 = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int a = 0; a < NV; ++a) {
-          if (a >= nv) break;
-          acc2 += Mvs[a][i] * Kg[a][j];
-        }
-        Pn[i][j] = (AT(Qss, k, i, j, ns, ns) + acc) + acc2;
-      }
-    }
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) {
-      if (i >= ns) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int j = 0; j < NS; ++j) {
-        if (j >= ns) break;
-        P[i][j] = 0.5f * (Pn[i][j] + Pn[j][i]);
-        AT(Pout, k, i, j, ns, ns) = P[i][j];
-      }
-    }
-#pragma unroll (Unroll<NS>::value)
-    for (int a = 0; a < NV; ++a) {
-      if (a >= nv) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int b = 0; b < NV; ++b) {
-        if (b >= nv) break;
-        AT(Lout, k, a, b, nv, nv) = Lv[a][b];
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int j = 0; j < NS; ++j) {
-        if (j >= ns) break;
-        AT(Kgout, k, a, j, nv, ns) = Kg[a][j];
-        AT(Mvsout, k, a, j, nv, ns) = Mvs[a][j];
-      }
-    }
-  }
-
-  float L0[NS][NS];
-  ok = initial_factor<NS>(P, s0mask, L0, ns) && ok;
-#pragma unroll (Unroll<NS>::value)
-  for (int i = 0; i < NS; ++i) {
-    if (i >= ns) break;
-#pragma unroll (Unroll<NS>::value)
-    for (int j = 0; j < NS; ++j) {
-      if (j >= ns) break;
-      L0out[((long)i * ns + j) * L + l] = (j <= i) ? L0[i][j] : 0.0f;
-    }
-  }
-  okout[l] = ok ? 1.0f : 0.0f;
-  forward_sweep<NS, NV, RM>(l, L, N, ns, nv, R, 0, R, s0mask, L0, p, Pout, Kgout, A, B, rb, dzs,
-                            dzv, lam);
-}
-
-template <int NS, int NV, int RM>
-__device__ __forceinline__ void resolve_lane(
-    int l, int L, int N, int ns, int nv, int R, int r0, int Rs, unsigned s0mask,
-    const float* __restrict__ P, const float* __restrict__ Lvs, const float* __restrict__ Kg,
-    const float* __restrict__ Mvs, const float* __restrict__ L0in,
-    const float* __restrict__ A, const float* __restrict__ B, const float* __restrict__ qs,
-    const float* __restrict__ qv, const float* __restrict__ rb, float* __restrict__ dzs,
-    float* __restrict__ dzv, float* __restrict__ lam) {
-  float p[RM][NS];
-#pragma unroll (Unroll<NS>::value)
-  for (int r = 0; r < RM; ++r)
-#pragma unroll (Unroll<NS>::value)
-    for (int i = 0; i < NS; ++i) p[r][i] = 0.0f;
-  for (int k = N - 1; k >= 0; --k) {
-    float Lv[NV][NV];
-#pragma unroll (Unroll<NS>::value)
-    for (int a = 0; a < NV; ++a) {
-      if (a >= nv) break;
-#pragma unroll (Unroll<NS>::value)
-      for (int b = 0; b < NV; ++b) {
-        if (b >= nv) break;
-        Lv[a][b] = AT(Lvs, k, a, b, nv, nv);
-      }
-    }
-#pragma unroll (Unroll<NS>::value)
-    for (int r = 0; r < RM; ++r) {
-      if (r >= R) break;
-      float w[NS];
-#pragma unroll (Unroll<NS>::value)
-      for (int i = 0; i < NS; ++i) {
-        if (i >= ns) break;
-        float acc = 0.0f;
-        if (k < N - 1) {
-#pragma unroll (Unroll<NS>::value)
-          for (int j = 0; j < NS; ++j) {
-            if (j >= ns) break;
-            acc += AT(rb, k, r0 + r, j, Rs, ns) * AT(P, k + 1, i, j, ns, ns);
-          }
-        }
-        w[i] = acc + p[r][i];
-      }
-      float kff[NV];
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int i = 0; i < NS; ++i) {
-          if (i >= ns) break;
-          acc += w[i] * AT(B, k, i, a, ns, nv);
-        }
-        kff[a] = AT(qv, k, r0 + r, a, Rs, nv) + acc;
-      }
-      cho_solve<NV>(Lv, kff, nv);
-#pragma unroll (Unroll<NS>::value)
-      for (int a = 0; a < NV; ++a) {
-        if (a >= nv) break;
-        kff[a] = -kff[a];
-        AT(dzv, k, r0 + r, a, Rs, nv) = kff[a];
-      }
-#pragma unroll (Unroll<NS>::value)
-      for (int i = 0; i < NS; ++i) {
-        if (i >= ns) break;
-        float acc = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int t = 0; t < NS; ++t) {
-          if (t >= ns) break;
-          acc += w[t] * AT(A, k, t, i, ns, ns);
-        }
-        float acc2 = 0.0f;
-#pragma unroll (Unroll<NS>::value)
-        for (int a = 0; a < NV; ++a) {
-          if (a >= nv) break;
-          acc2 += kff[a] * AT(Mvs, k, a, i, nv, ns);
-        }
-        p[r][i] = (AT(qs, k, r0 + r, i, Rs, ns) + acc) + acc2;
-        AT(dzs, k, r0 + r, i, Rs, ns) = p[r][i];
-      }
-    }
-  }
-  float L0[NS][NS];
-#pragma unroll (Unroll<NS>::value)
-  for (int i = 0; i < NS; ++i) {
-    if (i >= ns) break;
-#pragma unroll (Unroll<NS>::value)
-    for (int j = 0; j < NS; ++j) {
-      if (j >= ns) break;
-      L0[i][j] = L0in[((long)i * ns + j) * L + l];
-    }
-  }
-  forward_sweep<NS, NV, RM>(l, L, N, ns, nv, R, r0, Rs, s0mask, L0, p, P, Kg, A, B, rb, dzs, dzv,
-                            lam);
-}
-
 // ---- factor_solve_grouped: a thread group per lane, lane-major I/O ---------
-
-constexpr int kGroupBlock = 64;  // threads per block
-// Resident blocks per SM the register budget is cut for: 8 → 128 registers,
-// so at (8,3,3) 8 blocks × 8 lanes × 132 SMs = 8,448 lanes run in one wave
-// (8 × 23.8 KB of shared memory fits the SM's 227 KB). Beyond n_s = 8, 4 →
-// 255 registers: at 128 they spill at n_s = 18 (a 408-byte stack frame);
-// path 7's 128 lanes fill 64 blocks at n_s = 18 and 32 at 10, one an SM.
-constexpr int kGroupMinBlocks = 8, kGroupMinBlocksWide = 4;
-// Knot buffers in the ring (2: double-buffered). Rings of 3 and 4 gained at
-// most 8 % at either shape on the H100, about the spread of two timings of
-// one build (tools/torch_k1_rings.py): the sweep waits on its arithmetic,
-// not on its loads.
-constexpr int kStages = 2;
-
-__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
-
-__host__ __device__ constexpr int pow2_at_least(int n) {
-  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
-}
-
-// Floats per cp.async copy (16, 8 or 4 bytes) for a block of S floats that
-// starts a multiple of S floats from a 16-byte-aligned base.
-__host__ __device__ constexpr int chunk_floats(int S) {
-  return (S % 4 == 0) ? 4 : (S % 2 == 0) ? 2 : 1;
-}
 
 // Shared memory of one lane, in floats: a ring of kStages knot buffers,
 // then the group's scratch. Every block starts on 16 bytes. The lane stride
@@ -731,13 +165,6 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src, long gs
   }
 }
 
-struct FactorIn {
-  const float *Qss, *Qsv, *Qvv, *A, *B, *qs, *qv, *b;
-};
-struct FactorOut {
-  float *P, *Lv, *Kg, *Mvs, *L0, *ok, *dzs, *dzv, *lam;
-};
-
 // Backward sweep: knot k's input blocks of lane l into `buf`.
 template <int NS, int NV, int R>
 __device__ __forceinline__ void load_backward(float* buf, const FactorIn& in, int l, int N,
@@ -756,15 +183,6 @@ __device__ __forceinline__ void load_backward(float* buf, const FactorIn& in, in
   copy_async<NV, R, G>(buf + Lay::qv, in.qv + rh * NV, rs * NV, gi);
   copy_async<NS, R, G>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
 }
-
-// What the forward sweep reads and writes: P_k and Kg_k (K1's outputs, or
-// K2's stored factors), A_k, B_k, b_k and the stashed p_k, kff_k (in dzs,
-// dzv, written by the backward sweep of the same group); it overwrites dzs
-// and dzv and writes λ.
-struct ForwardIO {
-  const float *P, *Kg, *A, *B, *b;
-  float *dzs, *dzv, *lam;
-};
 
 // Forward sweep: knot k's P, Kg, A, B, b and the stashed p_k, kff_k of lane
 // l into `buf`.
@@ -855,8 +273,9 @@ __device__ __forceinline__ bool chol_shared(float* M, int gi) {
 }
 
 // The initial-state solve and the forward sweep of lane l, shared by K1 and
-// K2 (the same arithmetic, in the same order of summation, as
-// forward_sweep). On entry every thread of the group can read the masked
+// K2 (every dot product sums its terms in ascending index order, the
+// order of the plain version's recursion and of every K1/K2 kernel here).
+// On entry every thread of the group can read the masked
 // initial factor L0 (a register array up to n_s = 8, the lane's shared Pn
 // beyond) and holds entry gi of each p_0, and the group has stashed p_k,
 // kff_k in dzs, dzv. Threads of a ragged lane (store false) read lane ls and
@@ -957,8 +376,8 @@ __device__ __forceinline__ void initial_and_forward(float* sh, const L0T& L0, co
   }
 }
 
-// The same arithmetic, in the same order of summation, as factor_solve_lane.
-// Threads of a last, ragged lane (l ≥ L) load from lane L − 1, take part in
+// Every dot product sums its terms in ascending index order, the order
+// that factor_solve_classed keeps at run-time sizes. Threads of a last, ragged lane (l ≥ L) load from lane L − 1, take part in
 // every __syncwarp, and store nothing; so do a group's threads past NS,
 // which own no row.
 template <int NS, int NV, int R>
@@ -1188,10 +607,6 @@ __global__ void __launch_bounds__(kGroupBlock, GroupLayout<NS, NV, R>::min_block
 
 // ---- resolve_grouped: K2 on K1's thread-group design ---------------------
 
-struct ResolveIn {
-  const float *P, *Lv, *Kg, *Mvs, *L0, *A, *B, *qs, *qv, *b;
-};
-
 // Backward sweep of the resolve: knot k's P_{k+1} (for k < N − 1), Lv_k,
 // Mvs_k, A_k, B_k and right-hand sides of lane l into `buf`.
 template <int NS, int NV, int R>
@@ -1212,8 +627,7 @@ __device__ __forceinline__ void load_resolve(float* buf, const ResolveIn& in, in
   copy_async<NS, R, G>(buf + Lay::b, in.b + rh * NS, rs * NS, gi);
 }
 
-// The same arithmetic, in the same order of summation, as resolve_lane, on
-// K1's design: thread gi owns entry gi of w_r and p_r (w
+// K2 on K1's design, summing in the same order as resolve_classed: thread gi owns entry gi of w_r and p_r (w
 // row-parallel, p column-parallel), and every thread of the group sums
 // mv_r = qv_r + Bᵀw_r in order from shared memory and solves it against
 // Lv_k. Each knot's blocks are double-buffered in shared memory with
@@ -1344,7 +758,6 @@ __global__ void __launch_bounds__(kGroupBlock, GroupLayout<NS, NV, R>::min_block
 #define DTO_COLUMN_KNOTS 8
 #endif
 constexpr int kColumnBlock = DTO_COLUMN_BLOCK, kColumnKnots = DTO_COLUMN_KNOTS;
-constexpr int kColumnSmem = 227 * 1024;  // a block's shared memory on the H100
 
 // Shared memory of resolve_columns, in floats, for T columns (threads) and
 // `lanes` lanes a block: a ring of kStages chunk stages, then each lane's
@@ -1495,7 +908,7 @@ __device__ __forceinline__ void store_row(float* dst, const float (&x)[M]) {
   }
 }
 
-// The arithmetic, in the order of summation, of resolve_lane for one
+// The arithmetic, in the order of summation, of resolve_grouped for one
 // column. Thread g of the launch serves column c = g of the (L·R) columns,
 // r = c mod R of lane l = c / R. The block runs its columns through the
 // knots in chunks of kColumnKnots: each chunk's rows and stored blocks
@@ -1686,9 +1099,9 @@ int launch_resolve_columns(int L, int N, int R, unsigned s0mask, const ResolveIn
                            const ForwardIO& io, cudaStream_t s) {
   using Lay = ColumnLayout<NS, NV>;
   int T = kColumnBlock;  // fewer columns a block where a lane's stages would not fit (R = 1)
-  while (T > 32 && Lay::bytes(T, R) > (size_t)kColumnSmem) T /= 2;
+  while (T > 32 && Lay::bytes(T, R) > (size_t)kBlockSmem) T /= 2;
   const size_t bytes = Lay::bytes(T, R);
-  if (bytes > (size_t)kColumnSmem) return (int)cudaErrorInvalidValue;
+  if (bytes > (size_t)kBlockSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       resolve_columns<NS, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -1704,89 +1117,8 @@ unsigned grouped_grid(int L) {
   return (unsigned)((L + lanes - 1) / lanes);
 }
 
-constexpr int kNsMax = 16, kNvMax = 8, kRMax = 8;
-// the wide kernels' bounds: the Pallas kernels' shape caps
-constexpr int kNsWide = 24, kNvWide = 24;
-// K2 takes up to the Pallas resolve's 40 right-hand sides (the L-BFGS SMW
-// correction sends 2m ≤ 40), in tiles of kRMax inside one launch.
-constexpr int kRResolveMax = 40;
-
-#define FACTOR_SOLVE_KERNEL(NAME, NS, NV)                                                    \
-  __global__ void __launch_bounds__(128) NAME(                                              \
-      int L, int N, int ns, int nv, int R, unsigned s0mask, const float* Qss,                \
-      const float* Qsv, const float* Qvv, const float* A, const float* B, const float* qs,   \
-      const float* qv, const float* rb, float* P, float* Lv, float* Kg, float* Mvs,          \
-      float* L0, float* ok, float* dzs, float* dzv, float* lam) {                            \
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;                                     \
-    if (l >= L) return;                                                                      \
-    factor_solve_lane<NS, NV, kRMax>(l, L, N, ns, nv, R, s0mask, Qss, Qsv, Qvv, A, B, qs,    \
-                                     qv, rb, P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam);         \
-  }
-
-// one tile of at most kRMax columns per grid row (the per-thread arrays hold
-// kRMax): each tile's thread streams the stored factors on its own
-#define RESOLVE_KERNEL(NAME, NS, NV)                                                         \
-  __global__ void __launch_bounds__(128) NAME(                                              \
-      int L, int N, int ns, int nv, int R, unsigned s0mask, const float* P, const float* Lv, \
-      const float* Kg, const float* Mvs, const float* L0, const float* A, const float* B,    \
-      const float* qs, const float* qv, const float* rb, float* dzs, float* dzv,             \
-      float* lam) {                                                                          \
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;                                     \
-    if (l >= L) return;                                                                      \
-    const int r0 = blockIdx.y * kRMax;                                                       \
-    resolve_lane<NS, NV, kRMax>(l, L, N, ns, nv, min(kRMax, R - r0), r0, R, s0mask, P, Lv,   \
-                                Kg, Mvs, L0, A, B, qs, qv, rb, dzs, dzv, lam);               \
-  }
-
-FACTOR_SOLVE_KERNEL(factor_solve_generic, kNsMax, kNvMax)
-FACTOR_SOLVE_KERNEL(factor_solve_wide, kNsWide, kNvWide)
-RESOLVE_KERNEL(resolve_generic, kNsMax, kNvMax)
-RESOLVE_KERNEL(resolve_wide, kNsWide, kNvWide)
-#undef FACTOR_SOLVE_KERNEL
-#undef RESOLVE_KERNEL
-
-// the generic kernel where its bounds hold, else the wide one
-bool wide(int ns, int nv) { return ns > kNsMax || nv > kNvMax; }
-
-constexpr int kThreads = 128;
-// The wide kernels' block. A thread's stage blocks sit in local memory,
-// interleaved with its warp's other 31 lanes, so a warp's working set
-// takes a full warp's L1 lines whatever its active threads: one warp a
-// block leaves each SM's L1 to one warp (at (18,3,3) × 128 lanes 1.8×
-// sooner than four, no sooner with fewer threads or the largest L1
-// carveout; tools/torch_wide_blocks.py, which builds it with
-// -DDTO_WIDE_THREADS).
-#ifndef DTO_WIDE_THREADS
-#define DTO_WIDE_THREADS 32
-#endif
-constexpr int kWideThreads = DTO_WIDE_THREADS;
 
 }  // namespace
-
-extern "C" int dto_factor_solve(int L, int N, int ns, int nv, int R, unsigned s0mask,
-                                const void* Qss, const void* Qsv, const void* Qvv,
-                                const void* A, const void* B, const void* qs,
-                                const void* qv, const void* rb, void* P, void* Lv,
-                                void* Kg, void* Mvs, void* L0, void* ok, void* dzs,
-                                void* dzv, void* lam, void* stream) {
-  if (ns < 1 || ns > kNsWide || nv < 1 || nv > kNvWide || R < 1 || R > kRMax || N < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define ARGS                                                                             \
-  (const float*)Qss, (const float*)Qsv, (const float*)Qvv, (const float*)A,             \
-      (const float*)B, (const float*)qs, (const float*)qv, (const float*)rb, (float*)P, \
-      (float*)Lv, (float*)Kg, (float*)Mvs, (float*)L0, (float*)ok, (float*)dzs,         \
-      (float*)dzv, (float*)lam
-  if (wide(ns, nv)) {
-    factor_solve_wide<<<(L + kWideThreads - 1) / kWideThreads, kWideThreads, 0, s>>>(
-        L, N, ns, nv, R, s0mask, ARGS);
-  } else {
-    factor_solve_generic<<<(L + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        L, N, ns, nv, R, s0mask, ARGS);
-  }
-#undef ARGS
-  return (int)cudaGetLastError();
-}
 
 // Lane-major K1: stage stacks (L, N, r, c) and right-hand sides (L, R, N, d)
 // in, contiguous and 16-byte aligned; P, Lv, Kg, Mvs (L, N, r, c), L0
@@ -1826,29 +1158,6 @@ extern "C" int dto_factor_solve_grouped(int L, int N, int ns, int nv, int R, uns
   return (int)cudaGetLastError();
 }
 
-extern "C" int dto_resolve(int L, int N, int ns, int nv, int R, unsigned s0mask,
-                           const void* P, const void* Lv, const void* Kg, const void* Mvs,
-                           const void* L0, const void* A, const void* B, const void* qs,
-                           const void* qv, const void* rb, void* dzs, void* dzv, void* lam,
-                           void* stream) {
-  if (ns < 1 || ns > kNsWide || nv < 1 || nv > kNvWide || R < 1 || R > kRResolveMax || N < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned tiles = (unsigned)((R + kRMax - 1) / kRMax);
-#define ARGS                                                                            \
-  (const float*)P, (const float*)Lv, (const float*)Kg, (const float*)Mvs,              \
-      (const float*)L0, (const float*)A, (const float*)B, (const float*)qs,            \
-      (const float*)qv, (const float*)rb, (float*)dzs, (float*)dzv, (float*)lam
-  if (wide(ns, nv)) {
-    const dim3 grid((unsigned)((L + kWideThreads - 1) / kWideThreads), tiles);
-    resolve_wide<<<grid, kWideThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
-  } else {
-    const dim3 grid((unsigned)((L + kThreads - 1) / kThreads), tiles);
-    resolve_generic<<<grid, kThreads, 0, s>>>(L, N, ns, nv, R, s0mask, ARGS);
-  }
-#undef ARGS
-  return (int)cudaGetLastError();
-}
 
 // Lane-major K2: stored factors P, Lv, Kg, Mvs (L, N, r, c), L0 (L, ns, ns),
 // A, B (L, N, r, c) and right-hand sides (L, R, N, d) in, contiguous and

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``directtrajopt_tpu_torch/csrc/`` are compiled by ``nvcc``
-(one compiler per source, all running at once) and linked into one shared
+All sources under ``directtrajopt_tpu_torch/csrc/`` (``*.cu``, which may
+include the ``*.cuh`` headers beside them) are compiled by ``nvcc`` (one
+compiler per source, all running at once) and linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``directtrajopt_tpu_torch/_build/``, and is keyed by a hash
-of the sources and flags, so an edited source rebuilds and an unchanged one
-loads the existing library.
+of the sources, headers and flags, so an edited file rebuilds and an
+unchanged tree loads the existing library.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and *no* fast math — the kernels rely
 on correctly rounded division and square root (nvcc's defaults
@@ -44,23 +45,20 @@ NVCC_FLAGS = [
 ]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
-# launches by kernel: K1 and K2 up to n_s 16, n_v 8 (grouped, column or
-# generic) and their wide instantiations beyond; K3 and K4 at their exact
-# shapes and their generic instantiations
+# launches by kernel: K1 and K2 (grouped, column or size-class; by CUDA
+# kernel in INSTANCES); K3 and K4 at their exact shapes and their generic
+# instantiations
 LAUNCHES = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
-            "residual_l1": 0, "factor_solve_wide": 0, "resolve_wide": 0,
-            "window_jac_generic": 0, "residual_generic": 0, "residual_l1_generic": 0}
+            "residual_l1": 0, "window_jac_generic": 0, "residual_generic": 0,
+            "residual_l1_generic": 0}
 # float32 calls on the card that the shape caps sent to the plain version, by wrapper
 PLAIN_CALLS = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
                "residual_l1": 0}
-# K1/K2 launches by CUDA kernel, as -Xptxas -v names it: the grouped and
-# column ones with their template arguments (``factor_solve_grouped<10,3,3>``,
-# ``resolve_columns<4,1>``), and ``factor_solve_generic``,
-# ``factor_solve_wide``, ``resolve_generic``, ``resolve_wide``; counted
-# beside LAUNCHES, by the same launches. The two overlap: LAUNCHES's
-# ``factor_solve_wide`` / ``resolve_wide`` are the same counts as
-# INSTANCES's, and its ``factor_solve`` / ``resolve`` the sum of the
-# grouped, column and generic instances'.
+# K1/K2 launches by CUDA kernel, as -Xptxas -v names it, with their
+# template arguments (``factor_solve_grouped<10,3,3>``,
+# ``resolve_columns<4,1>``, ``factor_solve_classed<8,4,8>``); counted beside
+# LAUNCHES, by the same launches: LAUNCHES's ``factor_solve`` / ``resolve``
+# are the sums of their instances' counts.
 INSTANCES: dict = {}
 
 # The Pallas kernels' shape caps (directtrajopt_tpu/ops/riccati_kernel.py
@@ -78,11 +76,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dto_window_jac": [_I] * 6 + [_VP] * 8,
     "dto_residual": [_I] * 7 + [_VP] * 9,
-    "dto_factor_solve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
     "dto_factor_solve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 18,
-    "dto_resolve": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
+    "dto_factor_solve_classed": [_I] * 5 + [ctypes.c_uint] + [_I] * 4 + [_VP] * 18,
     "dto_resolve_grouped": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
     "dto_resolve_columns": [_I] * 5 + [ctypes.c_uint] + [_VP] * 14,
+    "dto_resolve_classed": [_I] * 5 + [ctypes.c_uint] + [_I] * 4 + [_VP] * 14,
+    "dto_classed_smem_bytes": [_I] * 3,
 }
 
 
@@ -149,6 +148,10 @@ def _sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _LIB
@@ -156,7 +159,7 @@ def library() -> ctypes.CDLL:
         return _LIB
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     key = h.hexdigest()[:16]

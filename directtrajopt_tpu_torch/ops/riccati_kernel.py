@@ -33,14 +33,14 @@ K1 up to 8, and 8 < R ≤ 40 as K1 on the first 8 columns and K2 on the rest
 reading and writing the lane-major tensors above as they are); a K2 at
 (n_s, n_v) in :data:`RESOLVE_COLUMN_SHAPES` with any other R runs
 ``resolve_columns`` (a thread per lane and right-hand side, the same
-tensors, no copy); any other with n_s ≤ 16 and n_v ≤ 8
-(:data:`MAX_SIZES`) the generic one-thread-per-lane kernel on lanes-minor
-copies, and the rest of the caps its wide instantiation at n_s, n_v ≤ 24,
-``factor_solve_wide`` / ``resolve_wide``, counted under
-``factor_solve_wide`` and ``resolve_wide`` (:func:`factor_solve_per_lane`,
-:func:`resolve_per_lane`). Each launch also counts in ``_build.INSTANCES``
-under its CUDA kernel's name (``factor_solve_grouped<10,3,3>``,
-``resolve_columns<4,1>``, ``resolve_generic``, …). The plain versions are
+tensors, no copy); every other shape the size-class kernel
+``factor_solve_classed`` / ``resolve_classed`` of the least class in
+:data:`SIZE_CLASSES` that holds it (:func:`size_class`): the grouped
+design at run-time sizes, on the same tensors, no copy
+(:func:`factor_solve_classed`, :func:`resolve_classed`). Each launch also
+counts in ``_build.INSTANCES`` under its CUDA kernel's name
+(``factor_solve_grouped<10,3,3>``, ``resolve_columns<4,1>``,
+``factor_solve_classed<8,4,8>``, …). The plain versions are
 ports of ``_factor_solve_xla`` / ``_resolve_xla``: a loop over knots with
 batched small matmuls and ``torch.linalg.cholesky_ex``.
 """
@@ -52,17 +52,24 @@ import torch
 
 from . import _build
 
-__all__ = ["factor_solve", "factor_solve_plain", "factor_solve_per_lane", "resolve",
-           "resolve_plain", "resolve_per_lane", "split_factor_solve", "design", "MAX_SIZES",
-           "RESOLVE_MAX_SIZES", "GROUPED_SHAPES", "RESOLVE_GROUPED_SHAPES",
-           "RESOLVE_COLUMN_SHAPES"]
+__all__ = ["factor_solve", "factor_solve_plain", "factor_solve_classed", "resolve",
+           "resolve_plain", "resolve_classed", "split_factor_solve", "design", "size_class",
+           "classed_smem_bytes", "MAX_SIZES", "RESOLVE_MAX_SIZES", "SIZE_CLASSES", "GROUPED_SHAPES",
+           "RESOLVE_GROUPED_SHAPES", "RESOLVE_COLUMN_SHAPES"]
 
-# kernel compile-time bounds (csrc/riccati_kernel.cu: kNsMax, kNvMax, and
-# kRMax for K1's R, kRResolveMax for K2's, the Pallas kernels' R ≤ 40). K1
-# takes 8 < R ≤ 40 through :func:`split_factor_solve`: its first 8 columns,
-# then the rest through K2 against the factors K1 returned.
-MAX_SIZES = {"ns": 16, "nv": 8, "R": 8}
-RESOLVE_MAX_SIZES = {"ns": 16, "nv": 8, "R": 40}
+# K1 takes R ≤ 8 right-hand sides in one launch (csrc/riccati_classed.cuh:
+# the classes' RC), and 8 < R ≤ 40 through :func:`split_factor_solve`: its first
+# 8 columns, then the rest through K2 against the factors K1 returned.
+MAX_SIZES = {"R": 8}
+# K2 takes up to the Pallas resolve's 40 right-hand sides in one launch
+RESOLVE_MAX_SIZES = {"R": 40}
+# (NSC, NVC, RC) size classes of factor_solve_classed / resolve_classed, in
+# order of size: a shape with no exact instance takes the first that holds
+# its (n_s, n_v) (:func:`size_class`); K2 sweeps R' ≤ 40 in tiles of RC
+SIZE_CLASSES = ((4, 4, 8), (8, 4, 8), (16, 4, 8), (8, 8, 8), (16, 8, 8), (24, 24, 8))
+# the size-class kernels' n_v class bound up to which Hvv's factor stays in
+# registers (csrc/riccati_classed.cuh kRegNv); beyond, in shared memory
+_REG_NV = 4
 # (n_s, n_v, R) instantiations of K1's factor_solve_grouped: path 1's bilinear
 # gate problem, path 2's state-constrained family, path 3's global-phase
 # family (R = 4 border + 2 arrowhead columns + the main system), the
@@ -82,8 +89,8 @@ RESOLVE_COLUMN_SHAPES = frozenset({(4, 1)})
 def design(kind: str, ns: int, nv: int, R: int) -> str:
     """The kernel design a float32 call on the card takes within the caps:
     for ``kind`` "factor_solve" (K1) "grouped", "split" (R > 8: K1 on 8
-    columns, K2 on the rest), "generic" or "wide"; for "resolve" (K2)
-    "grouped", "columns", "generic" or "wide"."""
+    columns, K2 on the rest) or "classed"; for "resolve" (K2) "grouped",
+    "columns" or "classed"."""
     if kind == "factor_solve":
         if R > MAX_SIZES["R"]:
             return "split"
@@ -96,7 +103,57 @@ def design(kind: str, ns: int, nv: int, R: int) -> str:
             return "columns"
     else:
         raise ValueError(f"unknown kernel {kind!r}")
-    return "wide" if ns > MAX_SIZES["ns"] or nv > MAX_SIZES["nv"] else "generic"
+    return "classed"
+
+
+def size_class(kind: str, ns: int, nv: int, R: int) -> tuple:
+    """The (NSC, NVC, RC) class of :data:`SIZE_CLASSES` whose kernel a
+    ``kind`` call ("factor_solve" or "resolve") at (n_s, n_v, R) takes: the
+    first that holds (n_s, n_v). ValueError beyond the caps, or for K1
+    beyond R = 8 (split first)."""
+    if kind not in ("factor_solve", "resolve"):
+        raise ValueError(f"unknown kernel {kind!r}")
+    caps = _build.RICCATI_CAPS
+    r_max = (MAX_SIZES if kind == "factor_solve" else RESOLVE_MAX_SIZES)["R"]
+    if not (1 <= ns <= caps["ns"] and 1 <= nv <= caps["nv"] and 1 <= R <= r_max):
+        raise ValueError(f"{kind} at (n_s, n_v, R) = {(ns, nv, R)} has no size class")
+    return next(c for c in SIZE_CLASSES if ns <= c[0] and nv <= c[1])
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 if n <= 1 else 2 * _pow2_at_least((n + 1) // 2)
+
+
+def classed_smem_bytes(kind: str, ns: int, nv: int, R: int) -> int:
+    """Shared memory a block of the size-class kernel takes for a ``kind``
+    call at (n_s, n_v, R): ``ClassLayout``'s lane stride at the class's
+    sizes times its lanes a block (csrc/riccati_classed.cuh; the C entry
+    refuses a call whose bytes are not its own)."""
+    S, V, RC = size_class(kind, ns, nv, R)
+    G = _pow2_at_least(max(S, V))
+
+    def blocks(sizes):
+        """Floats of consecutive blocks, each starting on 16 bytes."""
+        end = 0
+        for n in sizes:
+            end = _align4(end + n)
+        return end
+
+    # the backward buffer (Qss, Qsv, Qvv, A, B, qs, qv, b), the forward one
+    # (P, Kg, A, B, b, p, kff), kStages = 2 of the larger; then the scratch
+    # (PA, PB, W, Kg, Pn, S and, beyond kRegNv, H, M, F)
+    bwd = blocks((S * S, S * V, V * V, S * S, S * V, RC * S, RC * V, RC * S))
+    fwd = blocks((S * S, V * S, S * S, S * V, RC * S, RC * S, RC * V))
+    sv = 1 if V > _REG_NV else 0
+    end = 2 * max(bwd, fwd) + blocks((S * S, S * V, RC * S, V * S, S * S, RC * S, sv * V * V,
+                                      sv * V * S, sv * RC * V))
+    pad = max(G, 4)
+    stride = end + (pad - end % 32 + 32) % 32
+    return (64 // G) * stride * 4
 
 
 def _chol_or_identity(H: torch.Tensor):
@@ -188,30 +245,21 @@ def _s0_bits(s0m) -> int:
     return sum(1 << i for i, v in enumerate(np.asarray(s0m)) if v)
 
 
-def _lanes_minor_stage(x: torch.Tensor) -> torch.Tensor:
-    """(L, N, r, c) → contiguous (N, r, c, L)."""
-    return x.permute(1, 2, 3, 0).contiguous()
-
-
-def _lanes_minor_rhs(x: torch.Tensor) -> torch.Tensor:
-    """(L, R, N, d) → contiguous (N, R, d, L)."""
-    return x.permute(2, 1, 3, 0).contiguous()
-
-
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous and 16-byte aligned, as the grouped kernel's copies
+    """``x`` contiguous and 16-byte aligned, as the lane-major kernels' copies
     need; a fresh contiguous tensor is returned as it is."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_lane_major(entry, key, kernel, s0m, ins, outs, L, N, ns, nv, R):
+def _launch_lane_major(entry, key, kernel, s0m, ins, outs, L, N, ns, nv, R, extra=()):
     """Launch a lane-major kernel (C ``entry``, counted as CUDA ``kernel``)
-    on the inputs as they lie, writing the contiguous ``outs``."""
+    on the inputs as they lie, writing the contiguous ``outs``; ``extra``:
+    the entry's arguments after the initial-state mask."""
     dev = ins[0].device
     ins = [_aligned(t) for t in ins]
     rc = getattr(_build.library(), entry)(
-        L, N, ns, nv, R, _s0_bits(s0m),
+        L, N, ns, nv, R, _s0_bits(s0m), *extra,
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
         _build.stream_ptr(dev),
     )
@@ -220,8 +268,18 @@ def _launch_lane_major(entry, key, kernel, s0m, ins, outs, L, N, ns, nv, R):
     return outs
 
 
-def _factor_solve_grouped(s0m, ins, L, N, ns, nv, R):
-    """Launch ``factor_solve_grouped`` on lane-major inputs; contiguous outputs."""
+def _classed_args(kind, ns, nv, R):
+    """The classed C entry's class and shared-memory arguments, and the
+    CUDA kernel's name."""
+    cls = size_class(kind, ns, nv, R)
+    name = f"{kind}_classed<{cls[0]},{cls[1]},{cls[2]}>"
+    return (*cls, classed_smem_bytes(kind, ns, nv, R)), name
+
+
+def _factor_solve_lane_major(which, s0m, ins, L, N, ns, nv, R):
+    """Launch ``factor_solve_grouped`` (``which`` "grouped") or
+    ``factor_solve_classed`` ("classed") on lane-major inputs; contiguous
+    outputs."""
     kw = dict(dtype=torch.float32, device=ins[0].device)
     outs = (
         torch.empty((L, N, ns, ns), **kw), torch.empty((L, N, nv, nv), **kw),
@@ -230,23 +288,32 @@ def _factor_solve_grouped(s0m, ins, L, N, ns, nv, R):
         torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
         torch.empty((L, R, N - 1, ns), **kw),
     )
+    if which == "grouped":
+        extra, kernel = (), f"factor_solve_grouped<{ns},{nv},{R}>"
+    else:
+        extra, kernel = _classed_args("factor_solve", ns, nv, R)
     P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam = _launch_lane_major(
-        "dto_factor_solve_grouped", "factor_solve", f"factor_solve_grouped<{ns},{nv},{R}>",
-        s0m, ins, outs, L, N, ns, nv, R)
+        f"dto_factor_solve_{which}", "factor_solve", kernel, s0m, ins, outs, L, N, ns, nv, R,
+        extra)
     return P, Lv, Kg, Mvs, L0, ok > 0.5, dzs, dzv, lam
 
 
 def _resolve_lane_major(which, s0m, ins, L, N, ns, nv, R):
-    """Launch ``resolve_grouped`` (``which`` "grouped") or
-    ``resolve_columns`` ("columns") on lane-major inputs; contiguous
-    outputs."""
+    """Launch ``resolve_grouped`` (``which`` "grouped"), ``resolve_columns``
+    ("columns") or ``resolve_classed`` ("classed") on lane-major inputs;
+    contiguous outputs."""
     kw = dict(dtype=torch.float32, device=ins[0].device)
     outs = (torch.empty((L, R, N, ns), **kw), torch.empty((L, R, N, nv), **kw),
             torch.empty((L, R, N - 1, ns), **kw))
-    kernel = (f"resolve_grouped<{ns},{nv},{R}>" if which == "grouped"
-              else f"resolve_columns<{ns},{nv}>")
+    extra = ()
+    if which == "grouped":
+        kernel = f"resolve_grouped<{ns},{nv},{R}>"
+    elif which == "columns":
+        kernel = f"resolve_columns<{ns},{nv}>"
+    else:
+        extra, kernel = _classed_args("resolve", ns, nv, R)
     return _launch_lane_major(f"dto_resolve_{which}", "resolve", kernel, s0m, ins, outs,
-                              L, N, ns, nv, R)
+                              L, N, ns, nv, R, extra)
 
 
 def split_factor_solve(factor, resolve_fn, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
@@ -268,22 +335,17 @@ def _use_kernel(key: str, x: torch.Tensor, tensors: dict, sizes: dict) -> bool:
     if _build.route("riccati", x.device.type, x.dtype, sizes) == "plain":
         _build.count_plain(x, key)
         return False
+    _check_kernel_inputs(x, tensors)
+    return True
+
+
+def _check_kernel_inputs(x: torch.Tensor, tensors: dict) -> None:
     dev = x.get_device()
     for name, t in tensors.items():
         if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, expected {x.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 for the kernel, got {t.dtype}")
-    return True
-
-
-def _per_lane_keys(key: str, ns: int, nv: int) -> tuple[str, str]:
-    """The launch-count key and CUDA kernel of wrapper ``key``'s per-lane
-    launch: the generic instantiation (counted under ``key``) or the wide
-    one (under ``key_wide``)."""
-    if ns > MAX_SIZES["ns"] or nv > MAX_SIZES["nv"]:
-        return f"{key}_wide", f"{key}_wide"
-    return key, f"{key}_generic"
 
 
 def _check_shapes(pairs: dict) -> None:
@@ -292,112 +354,71 @@ def _check_shapes(pairs: dict) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
-    """Fused factor + R-RHS solve; see module docstring."""
+def _factor_ins(Qss, Qsv, Qvv, A, B, qs, qv, b):
+    """K1's inputs by name and (L, N, n_s, n_v, R), shapes checked."""
     L, N, ns, _ = Qss.shape
     nv = Qvv.shape[-1]
     R = qs.shape[1]
-    ins = dict(Qss=Qss, Qsv=Qsv, Qvv=Qvv, A=A, B=B, qs=qs, qv=qv, b=b)
     _check_shapes({
         "Qss": (Qss, (L, N, ns, ns)), "Qsv": (Qsv, (L, N, ns, nv)),
         "Qvv": (Qvv, (L, N, nv, nv)), "A": (A, (L, N, ns, ns)), "B": (B, (L, N, ns, nv)),
         "qs": (qs, (L, R, N, ns)), "qv": (qv, (L, R, N, nv)), "b": (b, (L, R, N, ns)),
     })
-    if not _use_kernel("factor_solve", Qss, ins, {"ns": ns, "nv": nv, "R": R}):
-        return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
-    which = design("factor_solve", ns, nv, R)
-    if which == "split":
-        return split_factor_solve(factor_solve, resolve, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
-    if which == "grouped":
-        return _factor_solve_grouped(s0m, list(ins.values()), L, N, ns, nv, R)
-    return factor_solve_per_lane(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+    return dict(Qss=Qss, Qsv=Qsv, Qvv=Qvv, A=A, B=B, qs=qs, qv=qv, b=b), (L, N, ns, nv, R)
 
 
-def factor_solve_per_lane(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
-    """K1's one-thread-a-lane kernel on lanes-minor copies of float32 CUDA
-    inputs, R ≤ 8: ``factor_solve_generic`` up to :data:`MAX_SIZES`, else
-    ``factor_solve_wide``. :func:`factor_solve` takes it for the shapes
-    that have no grouped instantiation; called directly, it times the
-    per-lane kernel at a grouped shape."""
-    L, N, ns, _ = Qss.shape
-    nv = Qvv.shape[-1]
-    R = qs.shape[1]
-    dev = Qss.device
-    kw = dict(dtype=torch.float32, device=dev)
-    stage = [_lanes_minor_stage(t) for t in (Qss, Qsv, Qvv, A, B)]
-    rhs = [_lanes_minor_rhs(t) for t in (qs, qv, b)]
-    Nm1 = max(N - 1, 1)
-    P_t = torch.empty((N, ns, ns, L), **kw)
-    L_t = torch.empty((N, nv, nv, L), **kw)
-    Kg_t = torch.empty((N, nv, ns, L), **kw)
-    Mvs_t = torch.empty((N, nv, ns, L), **kw)
-    L0_t = torch.empty((ns, ns, L), **kw)
-    ok_t = torch.empty((L,), **kw)
-    dzs_t = torch.empty((N, R, ns, L), **kw)
-    dzv_t = torch.empty((N, R, nv, L), **kw)
-    lam_t = torch.empty((Nm1, R, ns, L), **kw)
-    rc = _build.library().dto_factor_solve(
-        L, N, ns, nv, R, _s0_bits(s0m),
-        *(t.data_ptr() for t in stage + rhs),
-        *(t.data_ptr() for t in (P_t, L_t, Kg_t, Mvs_t, L0_t, ok_t, dzs_t, dzv_t, lam_t)),
-        _build.stream_ptr(dev),
-    )
-    key, kernel = _per_lane_keys("factor_solve", ns, nv)
-    _build.check_rc(rc, key)
-    _build.count_launch(key, kernel)
-    return (
-        P_t.permute(3, 0, 1, 2), L_t.permute(3, 0, 1, 2), Kg_t.permute(3, 0, 1, 2),
-        Mvs_t.permute(3, 0, 1, 2), L0_t.permute(2, 0, 1), ok_t > 0.5,
-        dzs_t.permute(3, 1, 0, 2), dzv_t.permute(3, 1, 0, 2),
-        lam_t.permute(3, 1, 0, 2)[:, :, : N - 1],
-    )
-
-
-def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
-    """Solve new right-hand sides with stored factors; see module docstring."""
+def _resolve_ins(P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
+    """K2's inputs by name and (L, N, n_s, n_v, R), shapes checked."""
     L, N, ns, _ = P.shape
     nv = Lv.shape[-1]
     R = qs.shape[1]
-    ins = dict(P=P, Lv=Lv, Kg=Kg, Mvs=Mvs, L0=L0, A=A, B=B, qs=qs, qv=qv, b=b)
     _check_shapes({
         "P": (P, (L, N, ns, ns)), "Lv": (Lv, (L, N, nv, nv)), "Kg": (Kg, (L, N, nv, ns)),
         "Mvs": (Mvs, (L, N, nv, ns)), "L0": (L0, (L, ns, ns)), "A": (A, (L, N, ns, ns)),
         "B": (B, (L, N, ns, nv)), "qs": (qs, (L, R, N, ns)), "qv": (qv, (L, R, N, nv)),
         "b": (b, (L, R, N, ns)),
     })
+    return dict(P=P, Lv=Lv, Kg=Kg, Mvs=Mvs, L0=L0, A=A, B=B, qs=qs, qv=qv, b=b), (L, N, ns, nv, R)
+
+
+def factor_solve(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
+    """Fused factor + R-RHS solve; see module docstring."""
+    ins, (L, N, ns, nv, R) = _factor_ins(Qss, Qsv, Qvv, A, B, qs, qv, b)
+    if not _use_kernel("factor_solve", Qss, ins, {"ns": ns, "nv": nv, "R": R}):
+        return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+    which = design("factor_solve", ns, nv, R)
+    if which == "split":
+        return split_factor_solve(factor_solve, resolve, s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+    return _factor_solve_lane_major(which, s0m, list(ins.values()), L, N, ns, nv, R)
+
+
+def factor_solve_classed(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
+    """K1's size-class kernel on float32 CUDA inputs at any (n_s, n_v) within
+    the caps and R ≤ 8, exact shapes included: :func:`factor_solve` takes it
+    wherever :func:`design` says "classed"; called directly it times the
+    classed kernel beside an exact instance. On the CPU, the plain version."""
+    ins, (L, N, ns, nv, R) = _factor_ins(Qss, Qsv, Qvv, A, B, qs, qv, b)
+    if Qss.device.type == "cpu":
+        return factor_solve_plain(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
+    _check_kernel_inputs(Qss, ins)
+    return _factor_solve_lane_major("classed", s0m, list(ins.values()), L, N, ns, nv, R)
+
+
+def resolve(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
+    """Solve new right-hand sides with stored factors; see module docstring."""
+    ins, (L, N, ns, nv, R) = _resolve_ins(P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
     if not _use_kernel("resolve", P, ins, {"ns": ns, "nv": nv, "R": R}):
         return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
     which = design("resolve", ns, nv, R)
-    if which in ("grouped", "columns"):
-        return _resolve_lane_major(which, s0m, list(ins.values()), L, N, ns, nv, R)
-    return resolve_per_lane(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
+    return _resolve_lane_major(which, s0m, list(ins.values()), L, N, ns, nv, R)
 
 
-def resolve_per_lane(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
-    """K2's one-thread-a-lane kernel (tiles of 8 right-hand sides) on
-    lanes-minor copies of float32 CUDA inputs, R ≤ 40: ``resolve_generic``
-    up to :data:`MAX_SIZES`, else ``resolve_wide``; as
-    :func:`factor_solve_per_lane`."""
-    L, N, ns, _ = P.shape
-    nv = Lv.shape[-1]
-    R = qs.shape[1]
-    dev = P.device
-    kw = dict(dtype=torch.float32, device=dev)
-    stage = [_lanes_minor_stage(t) for t in (P, Lv, Kg, Mvs)]
-    L0_t = L0.permute(1, 2, 0).contiguous()
-    ab = [_lanes_minor_stage(t) for t in (A, B)]
-    rhs = [_lanes_minor_rhs(t) for t in (qs, qv, b)]
-    dzs_t = torch.empty((N, R, ns, L), **kw)
-    dzv_t = torch.empty((N, R, nv, L), **kw)
-    lam_t = torch.empty((max(N - 1, 1), R, ns, L), **kw)
-    rc = _build.library().dto_resolve(
-        L, N, ns, nv, R, _s0_bits(s0m),
-        *(t.data_ptr() for t in stage + [L0_t] + ab + rhs),
-        dzs_t.data_ptr(), dzv_t.data_ptr(), lam_t.data_ptr(),
-        _build.stream_ptr(dev),
-    )
-    key, kernel = _per_lane_keys("resolve", ns, nv)
-    _build.check_rc(rc, key)
-    _build.count_launch(key, kernel)
-    return (dzs_t.permute(3, 1, 0, 2), dzv_t.permute(3, 1, 0, 2),
-            lam_t.permute(3, 1, 0, 2)[:, :, : N - 1])
+def resolve_classed(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
+    """K2's size-class kernel (tiles of 8 right-hand sides, R ≤ 40) on
+    float32 CUDA inputs at any shape within the caps; as
+    :func:`factor_solve_classed`."""
+    ins, (L, N, ns, nv, R) = _resolve_ins(P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
+    if P.device.type == "cpu":
+        return resolve_plain(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
+    _check_kernel_inputs(P, ins)
+    return _resolve_lane_major("classed", s0m, list(ins.values()), L, N, ns, nv, R)

@@ -8,6 +8,7 @@ against the Pallas kernels in interpret mode to 5e-6 relative, the bound
 certificate must agree exactly, including on indefinite stages.
 """
 
+import itertools
 import re
 from pathlib import Path
 
@@ -173,13 +174,14 @@ def test_path2_shape_n51_f32_matches_pallas_interpret():
 
 
 @pytest.mark.parametrize("ns,which", [(10, "factor"), (10, "resolve"), (18, "factor"),
-                                       (18, "resolve")])
+                                       (18, "resolve"), (6, "factor"), (6, "resolve")])
 def test_scaling_family_shapes_n51_f32_match_jax(ns, which):
-    """The scaling family's grouped shapes (path 7: state_dim 8 and 16), N=51,
+    """The scaling family's shapes (path 7: state_dim 8 and 16, grouped, and
+    4, path 7e's (6,3,·), the size-class kernels' on the card), N=51,
     float32, the first two initial states pinned, lane 1 indefinite at
     stage 30: the plain K1 at (n_s, 3, 3) against the JAX package's factor
     and the plain K2 at (n_s, 3, 2) against its resolve on those factors;
-    5e-6 relative on the certified lanes, ``ok`` equal. At n_s = 10 the
+    5e-6 relative on the certified lanes, ``ok`` equal. At n_s = 6 and 10 the
     reference is the Pallas kernel in interpret mode; at 18, whose
     interpreted trace takes 9 s (factor) and 5 s (resolve) on the CPU, the
     f32 XLA scans ``_factor_solve_xla`` / ``_resolve_xla``. There the JAX
@@ -215,7 +217,8 @@ def test_scaling_family_shapes_n51_f32_match_jax(ns, which):
         tol = max(tol, 4 * delta)
     ok = np.asarray(fac[5])
     assert ok.tolist() == [True, False, True, True]
-    assert (ns, nv, 3) in trk.GROUPED_SHAPES and (ns, nv, 2) in trk.RESOLVE_GROUPED_SHAPES
+    want = "classed" if ns == 6 else "grouped"
+    assert trk.design("factor_solve", ns, nv, 3) == trk.design("resolve", ns, nv, 2) == want
     if which == "factor":
         out = trk.factor_solve(s0m, *(torch.as_tensor(a) for a in args))
         assert (ok == out[5].numpy()).all()
@@ -243,9 +246,9 @@ def test_launches_are_counted_by_kernel_and_instantiation():
     _build.reset_launches()
     _build.count_launch("factor_solve", "factor_solve_grouped<18,3,3>")
     _build.count_launch("factor_solve", "factor_solve_grouped<18,3,3>")
-    _build.count_launch("resolve_wide", "resolve_wide")
-    assert _build.LAUNCHES["factor_solve"] == 2 and _build.LAUNCHES["resolve_wide"] == 1
-    assert _build.INSTANCES == {"factor_solve_grouped<18,3,3>": 2, "resolve_wide": 1}
+    _build.count_launch("resolve", "resolve_classed<8,4,8>")
+    assert _build.LAUNCHES["factor_solve"] == 2 and _build.LAUNCHES["resolve"] == 1
+    assert _build.INSTANCES == {"factor_solve_grouped<18,3,3>": 2, "resolve_classed<8,4,8>": 1}
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values()) and _build.INSTANCES == {}
 
@@ -256,7 +259,8 @@ def test_instantiated_shapes_match_the_kernel_source():
     those ``dto_resolve_grouped`` dispatches to ``resolve_grouped`` (each
     condition naming the template arguments it launches), and
     ``RESOLVE_COLUMN_SHAPES`` the (n_s, n_v) ``dto_resolve_columns``
-    dispatches to ``resolve_columns``."""
+    dispatches to ``resolve_columns``; the one-thread-a-lane kernels the
+    size-class ones replaced are gone."""
     src = (Path(trk.__file__).parent.parent / "csrc" / "riccati_kernel.cu").read_text()
 
     def entry(entry_name):
@@ -280,29 +284,102 @@ def test_instantiated_shapes_match_the_kernel_source():
     assert {tuple(map(int, p[:2])) for p in pairs} == set(trk.RESOLVE_COLUMN_SHAPES)
     assert len(re.findall("launch_resolve_columns<", body)) == len(trk.RESOLVE_COLUMN_SHAPES)
     assert "resolve_fixed" not in src
+    csrc = Path(trk.__file__).parent.parent / "csrc"
+    every = "".join(f.read_text() for f in csrc.glob("*.cu*"))
+    for gone in ("factor_solve_generic", "factor_solve_wide", "resolve_generic", "resolve_wide",
+                 "kWideThreads", "dto_factor_solve(", "dto_resolve("):
+        assert gone not in every, gone
 
 
 @pytest.mark.parametrize("kind,shape,want", [
     ("factor_solve", (8, 3, 3), "grouped"),
     ("factor_solve", (4, 1, 1), "grouped"),
-    ("factor_solve", (4, 1, 2), "generic"),
+    ("factor_solve", (4, 1, 2), "classed"),
     ("factor_solve", (4, 1, 9), "split"),
-    ("factor_solve", (18, 3, 2), "wide"),
+    ("factor_solve", (18, 3, 2), "classed"),
     ("resolve", (4, 1, 2), "grouped"),
     ("resolve", (4, 1, 40), "columns"),
     ("resolve", (4, 1, 1), "columns"),
-    ("resolve", (5, 2, 40), "generic"),
-    ("resolve", (8, 3, 1), "generic"),
-    ("resolve", (24, 24, 8), "wide"),
+    ("resolve", (5, 2, 40), "classed"),
+    ("resolve", (8, 3, 1), "classed"),
+    ("resolve", (24, 24, 8), "classed"),
 ])
 def test_design_is_chosen_by_shape(kind, shape, want):
     """The wrapper's kernel design for a float32 call on the card, a pure
     function of the kind and (n_s, n_v, R): grouped at the grouped shapes,
-    the column K2 at its (n_s, n_v) for every other R, the generic or wide
-    one-thread-a-lane kernels elsewhere, K1 split beyond 8 columns."""
+    the column K2 at its (n_s, n_v) for every other R, the size-class
+    kernels elsewhere, K1 split beyond 8 columns."""
     assert trk.design(kind, *shape) == want
     with pytest.raises(ValueError, match="unknown"):
         trk.design("residual", *shape)
+
+
+def _classed_dispatch(kind):
+    """The (NSC, NVC, RC) classes that ``dto_<kind>_classed`` dispatches to
+    ``launch_<kind>_classed`` in csrc/riccati_classed_<factor|resolve>.cu,
+    each condition naming the template arguments it launches."""
+    name = "riccati_classed_factor.cu" if kind == "factor_solve" else "riccati_classed_resolve.cu"
+    src = (Path(trk.__file__).parent.parent / "csrc" / name).read_text()
+    body = src[src.index(f'extern "C" int dto_{kind}_classed('):]
+    body = body[: body.index("\n}\n")]
+    triples = re.findall(r"if \(nsc == (\d+) && nvc == (\d+) && rc == (\d+)\)\s*return "
+                         rf"launch_{kind}_classed<(\d+), (\d+), (\d+)>", body)
+    assert all(t[:3] == t[3:] for t in triples)
+    assert len(re.findall(f"launch_{kind}_classed<", body)) == len(triples)
+    return {tuple(map(int, t[:3])) for t in triples}
+
+
+@pytest.mark.parametrize("kind", ["factor_solve", "resolve"])
+def test_size_class_is_the_least_instantiated_class_that_holds_the_shape(kind):
+    """``size_class`` gives every (n_s, n_v, R) within the caps (R ≤ 8 for
+    K1, ≤ 40 for K2 in tiles of RC) the class of least shared memory among
+    the kernel source's instantiations that hold it, and refuses the
+    shapes beyond; the classes are exactly the source's."""
+    classes = _classed_dispatch(kind)
+    assert classes == set(trk.SIZE_CLASSES)
+    cost = {c: trk.classed_smem_bytes(kind, c[0], c[1], 1) for c in classes}
+    r_max = 8 if kind == "factor_solve" else 40
+    for ns, nv in itertools.product(range(1, 25), range(1, 25)):
+        holders = [c for c in classes if ns <= c[0] and nv <= c[1]]
+        least = min(holders, key=cost.get)
+        assert [c for c in holders if cost[c] == cost[least]] == [least]
+        for R in range(1, r_max + 1):
+            assert trk.size_class(kind, ns, nv, R) == least
+    for shape in ((25, 3, 3), (3, 25, 3), (0, 1, 1), (4, 1, r_max + 1)):
+        with pytest.raises(ValueError):
+            trk.size_class(kind, *shape)
+
+
+@pytest.mark.parametrize("kind", ["factor_solve", "resolve"])
+def test_classed_shared_memory_fits_a_block(kind):
+    """At every shape within the caps the size-class kernel's block takes at
+    most the H100's 227 KB (232,448 bytes) of shared memory."""
+    r_max = 8 if kind == "factor_solve" else 40
+    worst = max(trk.classed_smem_bytes(kind, ns, nv, R)
+                for ns, nv, R in itertools.product(range(1, 25), range(1, 25), range(1, r_max + 1)))
+    assert worst <= 232_448
+    assert worst == trk.classed_smem_bytes(kind, 24, 24, 1)
+
+
+def test_classed_launch_failure_raises():
+    """A refused classed launch (a class's bytes that do not fit, say)
+    raises; the wrapper never falls back to the plain version."""
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1
+
+    s0m = _s0m(6)
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in _stage_data(3, ns=6, nv=3)]
+    lib, ptr = _build.library, _build.stream_ptr
+    _build.library, _build.stream_ptr = Refusing, lambda dev: 0
+    try:
+        with pytest.raises(RuntimeError, match="factor_solve: CUDA launch failed"):
+            trk._factor_solve_lane_major("classed", s0m, args, 4, 7, 6, 3, 3)
+        with pytest.raises(RuntimeError, match="resolve: CUDA launch failed"):
+            trk._resolve_lane_major("classed", s0m, args[:2] + args, 4, 7, 6, 3, 3)
+    finally:
+        _build.library, _build.stream_ptr = lib, ptr
 
 
 @pytest.mark.parametrize("ns,nv,s0", [(8, 3, "free"), (2, 1, "pinned")])

@@ -3,10 +3,12 @@
 ``_build.route`` against the JAX package's ``pallas_eligible`` (K1/K2) and
 ``window_jac_eligible`` (K3/K4), which add a VMEM budget the port does not
 have; and the plain versions at the shapes the new kernel instantiations
-take (the wide K1/K2 up to n_s, n_v = 24; the generic K3/K4 up to x_dim 8
-with 8 drives) against the JAX package: f64 against its XLA versions to
-1e-10, f32 against the Pallas kernels in interpret mode to 2e-6 absolute
-(K3/K4) and the XLA version to 5e-6 relative (K1/K2).
+take (the size-class K1/K2 up to n_s, n_v = 24; the generic K3/K4 up to
+x_dim 8 with 8 drives) against the JAX package: f64 against its XLA
+versions to 1e-10, f32 against the Pallas kernels in interpret mode to
+2e-6 absolute (K3/K4) and the XLA version to 5e-6 relative (K1/K2). And
+path 7e's problems (the scaling family at state_dim 4, K1/K2 at (6,3,·))
+solved by the port in float64 against the JAX package's solve.
 """
 
 import re
@@ -26,9 +28,11 @@ from directtrajopt_tpu.ops.expv_kernel import (
     _window_jac_xla,
     window_jac_eligible,
 )
+from directtrajopt_tpu_torch import benchmarks as tb
 from directtrajopt_tpu_torch.ops import _build
 from directtrajopt_tpu_torch.ops import expv_kernel as tek
 from directtrajopt_tpu_torch.ops import riccati_kernel as trk
+from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
 
 torch.set_num_threads(1)
 
@@ -201,17 +205,45 @@ def test_generic_expv_plain_matches_jax(xd, nd):
 
 
 def test_new_instantiations_are_in_the_kernel_sources():
-    """The wide K1/K2 are the per-lane bodies at (24, 24, 8), chosen past the
-    generic kernels' 16 and 8; the generic K3/K4 are the exact templates at
-    the maximum sizes (8, 8), dispatched for any other in-range pair."""
+    """The size-class K1/K2 reach the caps, (24, 24, 8) being their widest
+    class, chosen for the shapes past the smaller classes; the generic
+    K3/K4 are the exact templates at the maximum sizes (8, 8), dispatched
+    for any other in-range pair."""
     src = Path(trk.__file__).parent.parent / "csrc"
-    ric = (src / "riccati_kernel.cu").read_text()
-    assert "constexpr int kNsWide = 24, kNvWide = 24;" in ric
-    assert "FACTOR_SOLVE_KERNEL(factor_solve_wide, kNsWide, kNvWide)" in ric
-    assert "RESOLVE_KERNEL(resolve_wide, kNsWide, kNvWide)" in ric
+    for kind, name in (("factor_solve", "factor"), ("resolve", "resolve")):
+        ric = (src / f"riccati_classed_{name}.cu").read_text()
+        assert re.search(rf"return launch_{kind}_classed<24, 24, 8>\(", ric)
+        assert trk.size_class(kind, 17, 3, 2) == trk.size_class(kind, 3, 9, 2) == (24, 24, 8)
+    assert trk.SIZE_CLASSES[-1] == (24, 24, 8)
     assert _build.RICCATI_CAPS == {"ns": 24, "nv": 24, "R": 40}
     exv = (src / "expv_kernel.cu").read_text()
     assert "constexpr int kDimMax = 8;" in exv and _build.EXPV_CAPS == {"xd": 8, "nd": 8}
     assert re.search(r"return launch_jac<kDimMax, kDimMax>\(", exv)
     assert re.search(r"launch_res<kDimMax, kDimMax, true>\(", exv)
     assert re.search(r"launch_res<kDimMax, kDimMax, false>\(", exv)
+
+
+def test_path7e_f64_solve_matches_jax():
+    """Path 7e's lanes 0-3 (the scaling family at state_dim 4, N=51, Padé;
+    K1/K2 at (6,3,·)) solved by the port in float64 on the CPU at
+    ``scaled_config()``'s options against the JAX package's float64 solve
+    (``tests/golden/torch/scaled_dim4.npz``, ``make_scaled_dim4.py``):
+    through the options' first two phases (20 + 30 iterations), equal
+    iterations and converged flags, Z within 1e-8 (the bound of the
+    golden's small solve, ``test_scaled_small_solve_matches_golden``).
+    Lanes 2 and 3 converge there, at their whole solve's iterates (the
+    golden's ``p7e_Z`` to 1e-8 too); the whole solve of lanes 0-1 runs to
+    122 and 378 iterations, over which these non-convex problems amplify
+    lane 0's 4.4e-9 gap after 50 iterations to 2.06."""
+    gold = np.load(tb.GOLDEN_SCALED_DIM4)
+    kw = dict(tb.scaled_config()["solve_kw"], chunk=4)
+    kw["phases"] = kw["phases"][:2]
+    prob = tb.make_batched_scaled_problems(4, 51, 4, device="cpu", dtype=torch.float64)
+    res = solve_batch_compact(prob, **kw)
+    assert res.iterations.tolist() == gold["p7e_short_iterations"].tolist()
+    assert res.converged.tolist() == gold["p7e_short_converged"].tolist()
+    Z = res.problem.trajectory.to_zvec().numpy()
+    np.testing.assert_allclose(Z, gold["p7e_short_Z"], atol=1e-8, rtol=0)
+    done = gold["p7e_iterations"] == gold["p7e_short_iterations"]
+    assert done.tolist() == [False, False, True, True]
+    np.testing.assert_allclose(Z[done], gold["p7e_Z"][done], atol=1e-8, rtol=0)

@@ -12,8 +12,8 @@ against its plain PyTorch version, and times it (CUDA events, median of
 (8,3,3) at 256 and 8192 lanes, and (2,1,3) at 8192 lanes on inputs captured
 from the state-constrained family's own solve. The first depth is timed
 again at the end, to show the spread between two timings of one build.
-Last, each row's outputs are compared with those of the one-thread-per-lane
-generic kernel on the same inputs (max |difference| over every output).
+Last, each row's outputs are compared with those of the size-class kernel
+on the same inputs (max |difference| over every output).
 """
 
 from __future__ import annotations
@@ -42,9 +42,9 @@ def build(depth: int) -> None:
     """Load the kernel library built with a ring of ``depth`` buffers."""
     vdir = BUILD_ROOT / f"rings_{depth}"
     (vdir / "csrc").mkdir(parents=True, exist_ok=True)
-    for f in (ROOT / "directtrajopt_tpu_torch" / "csrc").glob("*.cu"):
+    for f in (ROOT / "directtrajopt_tpu_torch" / "csrc").glob("*.cu*"):
         text = f.read_text()
-        if f.name == "riccati_kernel.cu":
+        if f.name == "riccati_common.cuh":
             if STAGES_LINE not in text:
                 raise SystemExit(f"'{STAGES_LINE}' not found in {f}")
             text = text.replace(STAGES_LINE, f"constexpr int kStages = {depth};")
@@ -93,16 +93,14 @@ def main() -> None:
             cells.append(f"{label} {cs.cuda_ms(lambda: rk.factor_solve(*a), reps=50):.4f} ms")
         print(f"ring of {depth}: " + "; ".join(cells), flush=True)
     grouped = [rk.factor_solve(*a) for _, a, _ in rows]
-    shapes, rk.GROUPED_SHAPES = rk.GROUPED_SHAPES, frozenset()
-    generic = [rk.factor_solve(*a) for _, a, _ in rows]
-    rk.GROUPED_SHAPES = shapes
-    for (label, _, _), g, o in zip(rows, grouped, generic):
+    classed = [rk.factor_solve_classed(*a) for _, a, _ in rows]
+    for (label, _, _), g, o in zip(rows, grouped, classed):
         diff = 0.0
         for x, y in zip(g, o):
             d = (x.double() - y.double()).abs()
             d = torch.where(torch.isnan(x) & torch.isnan(y), 0.0, d)  # NaN in both: equal
             diff = max(diff, float(d.nan_to_num(float("inf")).max()) if d.numel() else 0.0)
-        print(f"{label}: grouped vs generic kernel, max |difference| {diff:.3e}", flush=True)
+        print(f"{label}: grouped vs size-class kernel, max |difference| {diff:.3e}", flush=True)
 
 
 if __name__ == "__main__":

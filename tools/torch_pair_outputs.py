@@ -1,7 +1,7 @@
 """Fingerprint the PyTorch port's K1-K4 outputs on fixed inputs, on
 one GPU, to show whether two versions of the port compute bitwise the same.
 
-    python3 tools/torch_pair_outputs.py OUT.json [--root DIR]
+    python3 tools/torch_pair_outputs.py OUT.json [--root DIR] [--path7e CALLS.pt]
     python3 tools/torch_pair_outputs.py --compare A.json B.json
 
 The first form imports ``directtrajopt_tpu_torch`` from DIR (default: this
@@ -23,12 +23,25 @@ of the outputs of each row:
   first call captured from path 2's solve;
 - on random stage data at N=51, 128 lanes (path 7's chunk), lane 5
   indefinite for K1: the grouped K1 at (10,3,3), (18,3,3) and K2 at
-  (10,3,2), (18,3,2); the generic K1 at (5,2,2) and K2 at (5,2,40) (five
-  tiles); the wide K1 and K2 at (24,24,8) on 32 lanes; and, at N=40, 8192
-  lanes (path 5's batch), K1 (4,1,1) and K2 (4,1,2) and (4,1,40), whose
-  kernels a version may have changed;
+  (10,3,2), (18,3,2); K1 at (5,2,2) and (6,3,3) (path 7e's) and K2 at
+  (5,2,40) (five tiles) and (6,3,2); K1 and K2 at (24,24,8) on 32 lanes
+  (the size-class kernels at these shapes); and, at N=40, 8192 lanes (path
+  5's batch), K1 (4,1,1) and K2 (4,1,2) and (4,1,40), whose kernels a
+  version may have changed;
 - the generic K3/K4 (``window_jac`` / ``residual_action`` /
   ``residual_l1``) at (3,1), 256 lanes × 50 windows, free Δt.
+
+With ``--path7e CALLS.pt`` it also runs path 7e with the package in DIR
+(``chip_smoke.SUB7["7e"]``: the scaling family at state_dim 4, N=51,
+Padé, ``scaled_config()``'s chunk of 128 lanes) and writes its seconds,
+converged count, iterations and launches (by kernel and by CUDA kernel),
+then times K1 and K2 on the first calls captured from that solve (wrapper
+ms, CUDA events, median of 20; device ms a launch, ``torch.profiler``, 20
+calls) against the plain versions, and K1 and K2 at the range's corner,
+(24,24,8) × 256 lanes, seeded as ``chip_smoke.py`` seeds them (3 calls).
+The captured calls are saved to CALLS.pt where it does not exist yet and
+read from it where it does, so that a second package is timed on the
+first one's calls.
 
 The second form prints, row by row, whether two such files agree on the
 inputs and on the outputs, bit for bit. Run both forms in one call on the
@@ -42,6 +55,7 @@ import hashlib
 import importlib.util
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -160,7 +174,8 @@ def fingerprint(root: Path) -> dict:
 
     # the other K1/K2 instantiations on random stage data
     for lanes, n_knots, ns, nv, R, R2 in ((128, N, 10, 3, 3, 2), (128, N, 18, 3, 3, 2),
-                                          (128, N, 5, 2, 2, 40), (32, N, 24, 24, 8, 8),
+                                          (128, N, 5, 2, 2, 40), (128, N, 6, 3, 3, 2),
+                                          (32, N, 24, 24, 8, 8),
                                           (BIG, 40, 4, 1, 1, 2), (BIG, 40, 4, 1, 1, 40)):
         s0n = np.arange(ns) >= 2
         st = cs.stage_data(30 + ns, lanes, n_knots, dev, ns, nv, R)
@@ -190,6 +205,67 @@ def fingerprint(root: Path) -> dict:
     return dict(root=str(root), device=torch.cuda.get_device_name(0), rows=rows)
 
 
+def path7e(calls: Path) -> dict:
+    """Path 7e's solve with the imported package, and K1 / K2 timed on the
+    first calls captured from it (or from ``calls``, where it exists)."""
+    import torch
+
+    from directtrajopt_tpu_torch import benchmarks
+    from directtrajopt_tpu_torch.ops import _build
+    from directtrajopt_tpu_torch.ops import riccati_kernel as rk
+    from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
+
+    cs = chip_smoke()
+    cfg = benchmarks.scaled_config()
+    dim, order = cs.SUB7["7e"]
+    prob = cs.scaled_batch(cfg["batch"], cfg["N"], dim, taylor_order=order, dev=DEVICE)
+    _build.library()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with cs.Capture(rk, "factor_solve", 1) as cap_f, cs.Capture(rk, "resolve", 1) as cap_r:
+        t0 = time.perf_counter()
+        res = solve_batch_compact(prob, **cfg["solve_kw"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    it = res.iterations.cpu().numpy()
+    out = dict(seconds=seconds, lanes=cfg["batch"], converged=int(res.converged.sum()),
+               iterations_median=float(np.median(it)), iterations_max=int(it.max()),
+               launches={k: v for k, v in _build.LAUNCHES.items() if v},
+               instances=dict(_build.INSTANCES),
+               plain_calls={k: v for k, v in _build.PLAIN_CALLS.items() if v})
+    if calls.exists():
+        f_args, r_args = torch.load(calls, map_location=DEVICE, weights_only=False)
+        out["calls"] = f"read from {calls}"
+    else:
+        f_args, r_args = cap_f.calls[0], cap_r.calls[0]
+        torch.save((f_args, r_args), calls)
+        out["calls"] = f"captured here, saved to {calls}"
+    for key, kern, plain, args in (("factor_solve", rk.factor_solve, rk.factor_solve_plain, f_args),
+                                   ("resolve", rk.resolve, rk.resolve_plain, r_args)):
+        k, p = kern(*args), plain(*args)
+        dev_rel, _ = cs.max_dev([x for x in p if x.dtype != torch.bool],
+                                [x for x in k if x.dtype != torch.bool], True)
+        ns, nv, R = args[1].shape[-1], args[3 if key == "factor_solve" else 2].shape[-1], \
+            args[6 if key == "factor_solve" else 8].shape[1]
+        out[key] = dict(shape=[ns, nv, R], design=rk.design(key, ns, nv, R),
+                        ms=cs.cuda_ms(lambda: kern(*args)),
+                        device_ms=cs.device_ms(lambda: kern(*args), key),
+                        plain_ms=cs.cuda_ms(lambda: plain(*args), 5), max_rel_dev=dev_rel)
+    # the range's corner, seeded as chip_smoke.py seeds it: K1 with lane 5
+    # indefinite, K2 on the plain factors of well-conditioned data
+    s0 = np.arange(24) >= 2
+    st = cs.stage_data(6, 256, 51, DEVICE, 24, 24, 8)
+    st[2][5, 20] = -1e6 * torch.eye(24, device=DEVICE)
+    st2 = cs.stage_data(7, 256, 51, DEVICE, 24, 24, 8)
+    fac = rk.factor_solve_plain(s0, *st2)
+    for key, fn in (("factor_solve", lambda: rk.factor_solve(s0, *st)),
+                    ("resolve", lambda: rk.resolve(s0, *fac[:5], *st2[3:]))):
+        out[f"corner_{key}"] = dict(shape=[24, 24, 8], lanes=256, ms=cs.cuda_ms(fn, 3),
+                                    device_ms=cs.device_ms(fn, key, 3))
+    print("[path7e] " + json.dumps(out), flush=True)
+    return out
+
+
 def compare(a: dict, b: dict) -> bool:
     same_all = True
     print(f"A: {a['root']} ({a['device']})\nB: {b['root']} ({b['device']})")
@@ -211,12 +287,15 @@ def main() -> None:
     ap.add_argument("files", nargs="+")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--compare", action="store_true")
+    ap.add_argument("--path7e", metavar="CALLS.pt", type=Path)
     args = ap.parse_args()
     if args.compare:
         a, b = (json.loads(Path(f).read_text()) for f in args.files)
         compare(a, b)
         return
     out = fingerprint(Path(args.root).resolve())
+    if args.path7e:
+        out["path7e"] = path7e(args.path7e)
     Path(args.files[0]).write_text(json.dumps(out, indent=1))
 
 

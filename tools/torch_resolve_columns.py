@@ -1,6 +1,5 @@
 """Time the cartpole family's K1/K2 kernels on one GPU: the column K2 and the
-grouped K1/K2 at (n_s, n_v) = (4, 1), beside the generic kernels they
-replace on path 5.
+grouped K1/K2 at (n_s, n_v) = (4, 1), beside the size-class kernels.
 
     python3 tools/torch_resolve_columns.py [--variants 4:128,2:128,...]
 
@@ -13,9 +12,9 @@ well-conditioned stage data (``chip_smoke.stage_data``) at N=40 and 8192
 lanes (path 5's batch) with the initial state pinned, times K1 (4,1,1)
 (lane 5 indefinite) and K2 at R' = 1, 2, 8 and 40 against the factors of
 the plain K1. Per row: the wrapper time (CUDA events, median), back to
-back, the device time per launch (``torch.profiler``), the generic
-one-thread-a-lane kernel on the same inputs (``factor_solve_per_lane`` /
-``resolve_per_lane``: device time), the plain version's time, the max
+back, the device time per launch (``torch.profiler``), the size-class
+kernel on the same inputs (``factor_solve_classed`` /
+``resolve_classed``: device time), the plain version's time, the max
 relative deviation from it (off the indefinite lane), the time bound
 (``chip_smoke.time_bound``) and the design's own traffic: every input and
 output once, plus the stashed p_k, kff_k written and read back and b read
@@ -91,7 +90,7 @@ def main() -> None:
     fac = riccati_kernel.factor_solve_plain(s0, *st2)
     cases = [("K1 (4,1,1), lane 5 indefinite", "factor_solve_grouped", keep, st,
               lambda: riccati_kernel.factor_solve(s0, *st),
-              lambda: riccati_kernel.factor_solve_per_lane(s0, *st),
+              lambda: riccati_kernel.factor_solve_classed(s0, *st),
               lambda: riccati_kernel.factor_solve_plain(s0, *st),
               cs.riccati_ops(LANES, N, NS, NV, 1, factor=True), 0)]
     rhs = {}
@@ -105,10 +104,10 @@ def main() -> None:
         extra = LANES * R * N * (2 * (NS + NV) + NS) * 4
         cases.append((f"K2 (4,1,{R})", kname, None, ins,
                       lambda ins=ins: riccati_kernel.resolve(s0, *ins),
-                      lambda ins=ins: riccati_kernel.resolve_per_lane(s0, *ins),
+                      lambda ins=ins: riccati_kernel.resolve_classed(s0, *ins),
                       lambda ins=ins: riccati_kernel.resolve_plain(s0, *ins),
                       cs.riccati_ops(LANES, N, NS, NV, R, factor=False), extra))
-    for name, kname, lanes, ins, kern, per_lane, plain, n_ops, extra in cases:
+    for name, kname, lanes, ins, kern, classed, plain, n_ops, extra in cases:
         p, k = plain(), kern()
         if lanes is not None:
             p, k = [t[lanes] for t in p], [t[lanes] for t in k]
@@ -116,12 +115,12 @@ def main() -> None:
         outs = kern()
         b_ms, b_by = cs.time_bound(cs.nbytes(ins) + cs.nbytes(outs), n_ops)
         dms = cs.device_ms(kern, kname, 20)
-        gms = cs.device_ms(per_lane, "_generic", 3)
+        gms = cs.device_ms(classed, "_classed", 3)
         model = cs.nbytes(ins) + cs.nbytes(outs) + extra
         reach = "not measured" if dms is None else f"{b_ms / dms:.1%}"
         rate = "not measured" if dms is None else f"{model / dms / 1e6:.0f} GB/s"
         print(f"[columns] {name} x {LANES} ({kname}): wrapper {cs.cuda_ms(kern, 20):.4f} ms, back "
-              f"to back {cs.cuda_ms_back_to_back(kern, 20):.4f} ms, device {dms} ms; generic "
+              f"to back {cs.cuda_ms_back_to_back(kern, 20):.4f} ms, device {dms} ms; size-class "
               f"kernel device {gms} ms; plain {cs.cuda_ms(plain, 3):.4f} ms; max relative "
               f"deviation {dev_rel:.3e}; bound {b_ms:.4f} ms ({b_by}), {reach} of it reached; "
               f"the design's traffic {model / 1e6:.1f} MB, {rate}", flush=True)

@@ -1,16 +1,19 @@
 """The JAX package's float32 solves behind path 7's bars in ``chip_smoke.py``.
 
-    JAX_PLATFORMS=cpu python tools/torch_scaled_bars.py [--lanes 64] [--port | --witness-7d]
+    JAX_PLATFORMS=cpu python tools/torch_scaled_bars.py [--lanes 64] [--only 7e]
+        [--port | --witness-7d]
 
 Path 7 solves the scaling family (``make_scaled_problem`` at N=51, lane i
 from seed 42 + i) in float32 through ``solve_batch_compact`` with
-``scaled_config()``: 7a state_dim 8 and 7b state_dim 16 with the default
-Padé method, 7c state_dim 8 with the Taylor action of order 12. For each,
-this script runs the JAX package's float32 solve of lanes 0-(``--lanes`` − 1)
-on the CPU at the same options and prints the converged count (the bar is
-that share less 0.1), the iterations, and, on the lanes of the float64
-golden ``tests/golden/torch/scaled.npz`` (``make_scaled.py``) where both
-converge, max |obj/obj* − 1| (the card's bar on the same lanes).
+``scaled_config()``: 7a state_dim 8, 7b state_dim 16 and 7e state_dim 4
+with the default Padé method, 7c state_dim 8 with the Taylor action of
+order 12. For each (``--only``: the sub-paths named), this script runs the
+JAX package's float32 solve of lanes 0-(``--lanes`` − 1) on the CPU at the
+same options and prints the converged count (the bar is that share less
+0.1), the iterations, and, on the lanes of the float64 golden
+(``tests/golden/torch/scaled.npz``, ``make_scaled.py``; 7e's
+``scaled_dim4.npz``, ``make_scaled_dim4.py``) where both converge, max
+|obj/obj* − 1| (the card's bar on the same lanes).
 
 ``--port`` also solves the golden's lanes with the port on the CPU in
 float64 at the golden's options (path 7's, one chunk) and prints its
@@ -45,8 +48,13 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests", "golden", "torch"))
 
 from directtrajopt_tpu.solvers.solve import cast_problem, solve_batch_compact  # noqa: E402
-from directtrajopt_tpu_torch.benchmarks import GOLDEN_SCALED, scaled_config  # noqa: E402
+from directtrajopt_tpu_torch.benchmarks import (  # noqa: E402
+    GOLDEN_SCALED,
+    GOLDEN_SCALED_DIM4,
+    scaled_config,
+)
 from make_scaled import SUBPATHS, stacked  # noqa: E402
+from make_scaled_dim4 import SUBPATHS as SUBPATHS_DIM4  # noqa: E402
 
 from chip_smoke import ITER_7D, LANES_7D, N_7D, STATE_7D, Z_7D, scaled_batch  # noqa: E402
 
@@ -104,14 +112,19 @@ def main() -> None:
     ap.add_argument("--lanes", type=int, default=64)
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--witness-7d", action="store_true")
+    ap.add_argument("--only", nargs="+", metavar="TAG", help="sub-paths (7a, 7b, 7c, 7e)")
     args = ap.parse_args()
     cfg = scaled_config()
     if args.witness_7d:
         witness_7d(cfg, args.lanes)
         return
     kw = dict(cfg["solve_kw"], chunk=min(cfg["solve_kw"]["chunk"], args.lanes))
-    gold = np.load(GOLDEN_SCALED)
-    for prefix, (dim, order) in SUBPATHS.items():
+    goldens = [(p, sub, GOLDEN_SCALED) for p, sub in SUBPATHS.items()]
+    goldens += [(p, sub, GOLDEN_SCALED_DIM4) for p, sub in SUBPATHS_DIM4.items()]
+    for prefix, (dim, order), path in goldens:
+        if args.only and prefix[1:] not in args.only:
+            continue
+        gold = np.load(path)
         t0 = time.perf_counter()
         prob = cast_problem(stacked(cfg["N"], dim, args.lanes, order), jnp.float32)
         res = solve_batch_compact(prob, **kw)
