@@ -100,7 +100,8 @@ Phases, each printing its own lines:
    with ``scaled_config()``. 7a: state_dim 8, Padé (the grouped K1
    (10,3,3) and K2 (10,3,2)); 7b: state_dim 16, Padé (the grouped K1/K2 at
    (18,3,·)); 7c: state_dim 8 with the Taylor action of order 12 (K1/K2 as
-   7a, the generic K3/K4 at (8,2)); 7e: state_dim 4, Padé (K1 (6,3,3) and
+   7a, the size-class K3/K4 ``window_jac_classed<8,2>`` and
+   ``residual_classed<8,2,·>`` at (8,2)); 7e: state_dim 4, Padé (K1 (6,3,3) and
    K2 (6,3,2): the size-class kernels ``factor_solve_classed<8,4,8>`` and
    ``resolve_classed<8,4,8>``). Each with its seconds, lockstep passes,
    iterations, launches (by kernel, and K1/K2 by instantiation: the exact
@@ -117,8 +118,8 @@ Phases, each printing its own lines:
    captured calls and the size-class ones on 7e's, and beside the grouped
    ones on the same calls the size-class kernels (each device time beside
    the grouped one's), the size-class ones at the range's corner
-   (24,24,8), the generic K3/K4 on 7c's knot matrix and at
-   (3,1) and (8,8), and K3/K4 at 9 drives, beyond the caps, on the plain
+   (24,24,8), the size-class K3/K4 on 7c's knot matrix and at
+   (3,1), (6,2) and (8,8), and K3/K4 at 9 drives, beyond the caps, on the plain
    version.
 
 10. Path 8, path 1's pipeline sharded over two processes that share the
@@ -225,6 +226,11 @@ BAR_6B = CONV_6B_JAX - 0.1
 SUB7 = {"7a": (8, None), "7b": (16, None), "7c": (8, 12), "7e": (4, None)}  # state_dim, order
 CONV_7_JAX = {"7a": 56 / 64, "7b": 39 / 64, "7c": 56 / 64, "7e": 62 / 64}
 HELD_7 = {"7a": (0,), "7b": (), "7c": (0,), "7e": ()}
+# (x_dim, n_drives) of the seeded size-class K3/K4 rows (2048 lanes x 50
+# windows, Taylor order 12), shapes no path runs: a real 3-vector with one
+# drive (3,1), a qutrit's state as a real vector with two drives (6,2), and
+# the caps (8,8)
+SEEDED_EXPV = ((3, 1), (6, 2), (8, 8))
 OBJ_7, KKT_7 = 1e-3, 5e-4
 # 7d: 64 lanes at N=11, state_dim 23 (n_s 25, x_dim 23: beyond every
 # kernel's caps), Taylor order 12, on the card and on the CPU. The first
@@ -259,11 +265,11 @@ KERNELS = {
                              "directtrajopt_tpu/ops/riccati_kernel.py:342"),
     "resolve_classed": ("cuda", "directtrajopt_tpu_torch/csrc/riccati_classed.cuh",
                         "directtrajopt_tpu/ops/riccati_kernel.py:488"),
-    "window_jac_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
+    "window_jac_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_classed.cu",
                            "directtrajopt_tpu/ops/expv_kernel.py:111"),
-    "residual_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
+    "residual_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_classed.cu",
                          "directtrajopt_tpu/ops/expv_kernel.py:293"),
-    "residual_l1_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_kernel.cu",
+    "residual_l1_generic": ("cuda", "directtrajopt_tpu_torch/csrc/expv_classed.cu",
                             "directtrajopt_tpu/ops/expv_kernel.py:293"),
 }
 # the launch counts of the kernels that paths 1-6 run (the exact K1/K2,
@@ -587,7 +593,8 @@ def ptxas_summary(log: str) -> list[tuple[str, str, str, str]]:
     """(kernel, registers, stack frame and spills, shared memory) per kernel
     from ``nvcc -Xptxas -v`` output."""
     kernels = ("factor_solve_grouped", "factor_solve_classed", "resolve_grouped",
-               "resolve_columns", "resolve_classed", "window_jac_kernel", "residual_grid_kernel")
+               "resolve_columns", "resolve_classed", "window_jac_kernel", "residual_grid_kernel",
+               "window_jac_classed", "residual_classed")
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -821,6 +828,33 @@ def path6(dev, prob_big, prob_cp, it1, obj5b) -> dict:
     return launches6b
 
 
+def seeded_expv(xd, nd, dev, lanes=2048, K=50):
+    """The seeded K3/K4 inputs at (x_dim, n_drives) on ``dev``, float32:
+    Gd (lanes, xd, xd), Gv (lanes, nd, xd, xd) of unit scale, u (lanes, K,
+    nd), Δt (lanes, K) near 0.1, x and x_next (lanes, K, xd)."""
+    rng = np.random.default_rng(10 * xd + nd)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        0.5 * rng.normal(size=(lanes, xd, xd)), 0.5 * rng.normal(size=(lanes, nd, xd, xd)),
+        0.3 * rng.normal(size=(lanes, K, nd)), 0.1 + 0.05 * rng.random((lanes, K)),
+        rng.normal(size=(lanes, K, xd)), rng.normal(size=(lanes, K, xd))))
+
+
+def trial_grid_7c(prob, dev):
+    """Path 7c's line-search trial grid on ``prob``'s knots: (lanes,
+    max_ls + 2 slots, N, d), slot i at Z + 0.5^i·dZ, dZ seeded noise of
+    1e-3."""
+    from directtrajopt_tpu_torch.solvers.options import IPMOptions
+
+    lay = prob.trajectory.layout
+    n_slots = IPMOptions().max_ls + 2
+    Z = prob.trajectory.to_zvec()
+    dZ = torch.as_tensor(1e-3 * np.random.default_rng(70).standard_normal(Z.shape),
+                         dtype=torch.float32, device=dev)
+    al = torch.as_tensor(0.5 ** np.arange(n_slots), dtype=torch.float32, device=dev)
+    return (Z[:, None] + al[None, :, None] * dZ[:, None]).reshape(
+        Z.shape[0], n_slots, lay.N, lay.dim)
+
+
 def scaled_batch(lanes, N, state_dim, n_controls=2, taylor_order=None, dev=DEVICE,
                  dtype=torch.float32):
     """The scaling family's lanes 0-(lanes − 1) (seeds 42 + i) in ``dtype``:
@@ -851,7 +885,7 @@ def path7(dev) -> tuple:
     same solve on the CPU. Prints and certifies each; returns the launches of
     7a-7c and 7e by sub-path and their K1/K2 launches by CUDA kernel."""
     from directtrajopt_tpu_torch import benchmarks
-    from directtrajopt_tpu_torch.ops import _build, riccati_kernel
+    from directtrajopt_tpu_torch.ops import _build, expv_kernel, riccati_kernel
     from directtrajopt_tpu_torch.solvers.solve import solve_batch_compact
 
     solve_mod = importlib.import_module("directtrajopt_tpu_torch.solvers.solve")
@@ -869,6 +903,10 @@ def path7(dev) -> tuple:
     needs_k12["7e"] = tuple(
         "{}_classed<{},{},{}>".format(k, *riccati_kernel.size_class(k, 6, 3, R))
         for k, R in (("factor_solve", 3), ("resolve", 2)))
+    # the size-class K3/K4 by CUDA kernel: 7c's (8,2) class, both K4 forms
+    c7c = "{},{}".format(*expv_kernel.size_class(8, 2))
+    needs_k34 = {"7c": (f"window_jac_classed<{c7c}>", f"residual_classed<{c7c},0>",
+                        f"residual_classed<{c7c},1>")}
     expv = ("window_jac", "residual", "residual_l1", "window_jac_generic", "residual_generic",
             "residual_l1_generic")
     launches, instances, t_all = {}, {}, time.perf_counter()
@@ -880,7 +918,9 @@ def path7(dev) -> tuple:
         with Timed(solve_mod, "_solve_impl") as tm:
             res = solve_batch_compact(prob, **cfg["solve_kw"])
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-        k12 = dict(_build.INSTANCES)
+        k12 = {k: v for k, v in _build.INSTANCES.items()
+               if k.startswith(("factor_solve", "resolve"))}
+        k34 = {k: v for k, v in _build.INSTANCES.items() if k not in k12}
         plain = dict(_build.PLAIN_CALLS)
         c = dict(tm.calls[0], seconds=sum(x["seconds"] for x in tm.calls),
                  passes=sum(x["passes"] for x in tm.calls), launches=counts,
@@ -908,15 +948,19 @@ def path7(dev) -> tuple:
               f"{conv[:n].tolist()} beside the golden's {gold[f'p{tag}_converged'].tolist()}, "
               f"iterations {it[:n].tolist()} beside the golden's "
               f"{gold[f'p{tag}_iterations'].tolist()}; plain calls {json.dumps(plain)}; "
-              f"K1/K2 launches by kernel {json.dumps(k12)}", flush=True)
+              f"K1/K2 launches by kernel {json.dumps(k12)}, size-class K3/K4 launches by "
+              f"kernel {json.dumps(k34)}", flush=True)
         del prob, res
         launches[tag], instances[tag] = counts, k12
         missing = [k for k in needs[tag] if not counts.get(k)]
         missing += [k for k in needs_k12[tag] if not k12.get(k)]
+        missing += [k for k in needs_k34.get(tag, ()) if not k34.get(k)]
         if missing:
-            fail(f"path {tag}: {missing} never launched: {counts}, {k12}")
+            fail(f"path {tag}: {missing} never launched: {counts}, {k12}, {k34}")
         if any(k not in needs_k12[tag] for k in k12):
             fail(f"path {tag}: a K1/K2 other than {needs_k12[tag]} ran: {k12}")
+        if any(k not in needs_k34.get(tag, ()) for k in k34):
+            fail(f"path {tag}: a size-class K3/K4 other than {needs_k34.get(tag)} ran: {k34}")
         if order is None and any(counts.get(k) for k in expv):
             fail(f"path {tag}: the Padé method launched K3/K4: {counts}")
         no_plain_calls(f"path {tag}")
@@ -1282,18 +1326,20 @@ def main() -> None:
     for name, regs, frame, smem in ptxas:
         print(f"[ptxas] {name}: {regs} registers; {frame}; {smem} bytes smem")
     # the grouped and column K1 and K2, the size-class K1 and K2 up to the
-    # class (16,8,8), and the K3 and K4 kernels at their exact shapes keep
-    # every array in registers or shared memory (the generic K3/K4, <8,8,·>,
-    # and the size-class K1/K2 at (24,24,8) may use local memory: printed)
+    # class (16,8,8), and every K3 and K4 kernel, exact and size-class, keep
+    # every array in registers or shared memory (the size-class K1/K2 at
+    # (24,24,8) may use local memory: printed)
     n_classes = len(riccati_kernel.SIZE_CLASSES)
+    n_expv = len(expv_kernel.SIZE_CLASSES)
     for kname, count, wide in (
             ("factor_solve_grouped", len(riccati_kernel.GROUPED_SHAPES), None),
             ("resolve_grouped", len(riccati_kernel.RESOLVE_GROUPED_SHAPES), None),
             ("resolve_columns", len(riccati_kernel.RESOLVE_COLUMN_SHAPES), None),
             ("factor_solve_classed", n_classes - 1, "<24,24,8>"),
             ("resolve_classed", n_classes - 1, "<24,24,8>"),
-            ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES), "<8,8,"),
-            ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES), "<8,8,")):
+            ("residual_grid_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES), None),
+            ("window_jac_kernel", 2 * len(expv_kernel.SUPPORTED_SHAPES), None),
+            ("residual_classed", 2 * n_expv, None), ("window_jac_classed", n_expv, None)):
         found = [(name, frame) for name, _, frame, _ in ptxas
                  if name.startswith(kname + "<") and not name.startswith(kname + (wide or "."))]
         if info.get("log") and (len(found) != count or any(
@@ -1505,7 +1551,7 @@ def main() -> None:
         B, N=N, feasible_start=True, taylor_order=order, device=dev,
         dtype=torch.float64), torch.float32)
 
-    def check_k3(key, what, prob, zmat=None):
+    def check_k3(key, what, prob, zmat=None, prof="window_jac_kernel"):
         """K3 on the integrator's own arguments: views of the knot matrix
         (``zmat``, default the trajectory's), −J written into the knot's
         width d. Every K3 row holds each column c of J (a state, a drive,
@@ -1526,7 +1572,7 @@ def main() -> None:
                    f"{est:.4f} ms at the card's instruction rate)",
               lambda: expv_kernel.window_jac_zk(o3, *ja),
               lambda: expv_kernel.window_jac_zk_plain(o3, *ja), 2e-6, "col", ja[:5],
-              horner_ops(P3 * T3, K3, xd3, nd3, o3, True, free), prof="window_jac_kernel")
+              horner_ops(P3 * T3, K3, xd3, nd3, o3, True, free), prof=prof)
 
     # K3 at path 1's shape (a compact chunk of 256 lanes) and at B lanes
     check_k3("window_jac", "<4,2> free dt", prob256)
@@ -1886,57 +1932,51 @@ def main() -> None:
           list(fac[:5]) + st[3:], riccati_ops(256, N, 24, 24, 8, factor=False),
           prof="resolve_classed", reps=5)
     del s0, st, fac
-    # the generic K3/K4 at (8,2) on 7c's knot matrix and trial grid
+    # the size-class K3/K4 at (8,2) on 7c's knot matrix and trial grid
+    c7c = "<{},{}>".format(*expv_kernel.size_class(8, 2))
     prob7c = scaled_batch(B7, N7, SUB7["7c"][0], taylor_order=SUB7["7c"][1], dev=dev)
-    check_k3("window_jac_7c", "<8,8> generic at (8,2), free dt", prob7c)
+    check_k3("window_jac_7c", f"size-class {c7c} at (8,2), free dt", prob7c,
+             prof="window_jac_classed")
     lay7 = prob7c.trajectory.layout
-    n_slots7 = IPMOptions().max_ls + 2
-    Z7 = prob7c.trajectory.to_zvec()
-    dZ7 = torch.as_tensor(1e-3 * np.random.default_rng(70).standard_normal(Z7.shape),
-                          dtype=torch.float32, device=dev)
-    al7 = torch.as_tensor(0.5 ** np.arange(n_slots7), dtype=torch.float32, device=dev)
-    Zt7 = (Z7[:, None] + al7[None, :, None] * dZ7[:, None]).reshape(
-        Z7.shape[0], n_slots7, lay7.N, lay7.dim)
+    Zt7 = trial_grid_7c(prob7c, dev)
     t7 = prob7c.integrators[0]._trial_views(lay7, Zt7)
-    ops7 = horner_ops(Zt7.shape[0] * n_slots7, lay7.N - 1, 8, 2, SUB7["7c"][1], False)
-    check("residual_l1_7c", f"K4 residual <8,8> generic at (8,2) (L1 form) on Zt "
+    ops7 = horner_ops(Zt7.shape[0] * Zt7.shape[1], lay7.N - 1, 8, 2, SUB7["7c"][1], False)
+    check("residual_l1_7c", f"K4 residual size-class {c7c} at (8,2) (L1 form) on Zt "
                             f"{tuple(Zt7.shape)}",
           lambda: expv_kernel.residual_l1(SUB7["7c"][1], *t7),
           lambda: expv_kernel.residual_l1_plain(SUB7["7c"][1], *t7), 2e-6, True, t7, ops7,
-          prof="residual_grid_kernel")
-    check("residual_7c", f"K4 residual <8,8> generic at (8,2) (vector form) on Zt "
+          prof="residual_classed")
+    check("residual_7c", f"K4 residual size-class {c7c} at (8,2) (vector form) on Zt "
                          f"{tuple(Zt7.shape)}",
           lambda: expv_kernel.residual_action(SUB7["7c"][1], *t7),
           lambda: expv_kernel.residual_action_plain(SUB7["7c"][1], *t7), 2e-6, False, t7, ops7,
-          prof="residual_grid_kernel")
-    del prob7c, Z7, dZ7, Zt7, t7
-    # ... and at (3,1) and (8,8) on seeded data: 2048 lanes x 50 windows,
-    # generators of unit scale (the bound is absolute), Taylor order 12
-    for xd7, nd7 in ((3, 1), (8, 8)):
-        rng7 = np.random.default_rng(10 * xd7 + nd7)
-        Gd7, Gv7, u7, dt7, x7, xn7 = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
-            0.5 * rng7.normal(size=(2048, xd7, xd7)), 0.5 * rng7.normal(size=(2048, nd7, xd7, xd7)),
-            0.3 * rng7.normal(size=(2048, 50, nd7)), 0.1 + 0.05 * rng7.random((2048, 50)),
-            rng7.normal(size=(2048, 50, xd7)), rng7.normal(size=(2048, 50, xd7))))
+          prof="residual_classed")
+    del prob7c, Zt7, t7
+    # ... and at (3,1), (6,2) and (8,8) on seeded data: 2048 lanes x 50
+    # windows, generators of unit scale (the bound is absolute), Taylor
+    # order 12
+    for xd7, nd7 in SEEDED_EXPV:
+        cls7 = "<{},{}>".format(*expv_kernel.size_class(xd7, nd7))
+        Gd7, Gv7, u7, dt7, x7, xn7 = seeded_expv(xd7, nd7, dev)
         ins3 = (Gd7, Gv7, u7, dt7, x7)
         # per column, as check_k3 holds every K3 row
-        check(f"window_jac_{xd7}_{nd7}", f"K3 window_jac <8,8> generic at ({xd7},{nd7}) B=2048 x 50 "
-                                     f"windows, free dt",
+        check(f"window_jac_{xd7}_{nd7}", f"K3 window_jac size-class {cls7} at ({xd7},{nd7}) "
+                                     f"B=2048 x 50 windows, free dt",
               lambda: expv_kernel.window_jac(12, True, *ins3),
               lambda: expv_kernel.window_jac_plain(12, True, *ins3), 2e-6, "col", ins3,
-              horner_ops(2048, 50, xd7, nd7, 12, True, True), prof="window_jac_kernel")
+              horner_ops(2048, 50, xd7, nd7, 12, True, True), prof="window_jac_classed")
         ins4 = (Gd7, Gv7, u7[:, None], dt7[:, None], x7[:, None], xn7[:, None])
         ops4g = horner_ops(2048, 50, xd7, nd7, 12, False)
-        check(f"residual_{xd7}_{nd7}", f"K4 residual <8,8> generic at ({xd7},{nd7}) (vector form) "
-                                   f"B=2048 x 50",
+        check(f"residual_{xd7}_{nd7}", f"K4 residual size-class {cls7} at ({xd7},{nd7}) "
+                                   f"(vector form) B=2048 x 50",
               lambda: expv_kernel.residual_action(12, *ins4),
               lambda: expv_kernel.residual_action_plain(12, *ins4), 2e-6, False, ins4, ops4g,
-              prof="residual_grid_kernel")
-        check(f"residual_l1_{xd7}_{nd7}", f"K4 residual <8,8> generic at ({xd7},{nd7}) (L1 form) "
-                                      f"B=2048 x 50",
+              prof="residual_classed")
+        check(f"residual_l1_{xd7}_{nd7}", f"K4 residual size-class {cls7} at ({xd7},{nd7}) "
+                                      f"(L1 form) B=2048 x 50",
               lambda: expv_kernel.residual_l1(12, *ins4),
               lambda: expv_kernel.residual_l1_plain(12, *ins4), 2e-6, True, ins4, ops4g,
-              prof="residual_grid_kernel")
+              prof="residual_classed")
         del Gd7, Gv7, u7, dt7, x7, xn7, ins3, ins4
     # beyond the caps (9 drives) K3 and K4 take the plain version on the
     # card, counted, and compute it bitwise
@@ -2455,11 +2495,11 @@ def main() -> None:
                           ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))
     # path 7's rows: the grouped K1/K2 at (10,3,·) on 7a and 7c (the same
-    # shape) and at (18,3,·) on 7b, the generic K3/K4 on 7c, the size-class
+    # shape) and at (18,3,·) on 7b, the size-class K3/K4 on 7c, the size-class
     # K1/K2 at (6,3,·) on 7e (launches by CUDA kernel); the size-class
     # kernels on 7a's and 7b's captured calls (no path runs them there);
-    # the seeded rows (the size-class corner, the generic K3/K4 at (3,1)
-    # and (8,8)) at shapes no path runs
+    # the seeded rows (the size-class corner, the size-class K3/K4 at
+    # (3,1), (6,2) and (8,8)) at shapes no path runs
     def classed_launches(k):
         return {k: sum(v for name, v in instances7["7e"].items()
                        if name.startswith(k + "<"))}
@@ -2493,7 +2533,7 @@ def main() -> None:
         "factor_solve_classed_82", "factor_solve_classed_small", "resolve_classed_81",
         "resolve_classed_small") if name in results]
     rows7 += [(f"{k}_{xd}_{nd}", f"{k}_generic", {}, f"{k}_{xd}_{nd}")
-              for xd, nd in ((3, 1), (8, 8)) for k in ("window_jac", "residual", "residual_l1")]
+              for xd, nd in SEEDED_EXPV for k in ("window_jac", "residual", "residual_l1")]
     for name, key, counts, res_key in rows7:
         route, src, replaces = KERNELS[key]
         r = results[res_key]

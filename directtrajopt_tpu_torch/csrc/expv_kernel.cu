@@ -3,7 +3,10 @@
 // Replaces the two Pallas kernels of directtrajopt_tpu/ops/expv_kernel.py:
 //   * _kernel      (window Jacobian, wrapper _window_jac_pallas)  -> window_jac_kernel
 //   * _res_kernel  (residual chain, wrapper _res_pallas)          -> residual_grid_kernel
-// each instantiated at two exact shapes and once generic for any other.
+// each instantiated at two exact shapes; every other shape within the
+// Pallas kernels' caps, x_dim ≤ 8 and n_drives ≤ 8, takes the size-class
+// kernels of expv_classed.cu (window_jac_classed, residual_classed), which
+// the C entries here dispatch to.
 //
 // Per window k of lane l, with G = Gd + Σ_m u_m·Gv_m and A = Δt·G, the order-m
 // Taylor action E·x is the Horner chain  y ← x + A·y / j  (j = m..1). The
@@ -11,15 +14,9 @@
 // same chain (the E columns, ẏ_u = (Δt·Gv_m·y + A·ẏ_u)/j, ẏ_t = (G·y + A·ẏ_t)/j),
 // tangents first so they see the previous y, as jax.jacfwd orders them.
 // The small matrices live in registers; their sizes are template constants,
-// instantiated for the two shapes the port's paths give: x_dim=4 with 2
-// drives, the bilinear benchmark, and x_dim=2 with 1 drive, the
-// state-constrained family. The generic instantiation, at the maximum sizes
-// XD = ND = kDimMax = 8, covers the rest of the Pallas kernels' range,
-// x_dim ≤ 8 and n_drives ≤ 8: every loop bounded by 8 and cut at the
-// call's sizes, which it takes at run time (the exact instantiations cut
-// at their template constants, so their guards fold away and their code is
-// as before). A generic K3 block holds as many windows as its output tile
-// lets into kJacSmem, at most kJacThreads / GS.
+// instantiated for the two shapes the port's first paths give: x_dim=4
+// with 2 drives, the bilinear benchmark, and x_dim=2 with 1 drive, the
+// state-constrained family.
 //
 // window_jac_kernel (K3): the knot matrix read in place, as K4 reads it (the
 // same (P, T, K) views, without x_next), and −J written straight into the
@@ -70,58 +67,11 @@
 
 #include <climits>
 
-#include <cuda_runtime.h>
+#include "expv_common.cuh"
 
 namespace {
 
-// A (P, T, K, ·) view of the knot matrix: its element strides between
-// problems, trial slots and windows, then the last axis's (1, unused). The
-// entry checks that every element's offset fits 32 bits.
-struct View {
-  const float* p;
-  int s[4];
-};
-
-// The generators Gd (P, xd, xd) and Gv (P, nd, xd, xd) with their element
-// strides, read where they lie (the port keeps them problems-minor).
-struct Gens {
-  const float* gd;
-  const float* gv;
-  int d[3], v[4];
-};
-
-// Division by a divisor fixed for the launch, as a multiply-high and a
-// shift (Granlund and Montgomery's round-up method, as CUTLASS's FastDivmod
-// does it), exact for every dividend below 2³¹.
-struct Divisor {
-  unsigned d, mul, shr;
-  explicit Divisor(unsigned den) : d(den), mul(0), shr(0) {
-    if (den > 1) {
-      unsigned lg = 0;
-      while ((1ull << lg) < den) ++lg;  // ⌈log₂ den⌉
-      mul = (unsigned)(((1ull << (31 + lg)) + den - 1) / den);
-      shr = lg - 1;
-    }
-  }
-  __device__ __forceinline__ unsigned div(unsigned n) const {
-    return d > 1 ? __umulhi(n, mul) >> shr : n;
-  }
-};
-
-// The generic kernels' bound on x_dim and n_drives: the Pallas kernels' caps.
-constexpr int kDimMax = 8;
-
-// x_dim and n_drives of a call. The exact instantiations take theirs from
-// the template; the generic one, at the maximum sizes, from here.
-struct Dims {
-  int xd, nd;
-};
-
-template <int XD, int ND>
-constexpr bool kGeneric = XD == kDimMax && ND == kDimMax;
-
-constexpr int kResBlock = 256;               // threads per block
-constexpr size_t kResSmem = 48 * 1024;       // the L1 form's partials (no opt-in)
+using namespace expv;
 
 // Instances per block of the L1 form: whole instances, as many as fill
 // kResBlock threads with one window each.
@@ -132,8 +82,7 @@ inline int res_instances(int K) { return K < 1 ? kResBlock : (K >= kResBlock ? 1
 template <int XD, int ND>
 __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigned k, int order,
                                                  const Gens& g, const View& u, const View& dt,
-                                                 const View& x, const View& xn, float* r,
-                                                 int xd, int nd) {
+                                                 const View& x, const View& xn, float* r) {
   const float* gd = g.gd + q * g.d[0];
   const float* gv = g.gv + q * g.v[0];
   const float h = dt.p[q * dt.s[0] + t * dt.s[1] + k * dt.s[2]];
@@ -143,22 +92,18 @@ __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigne
   float um[ND];
 #pragma unroll
   for (int m = 0; m < ND; ++m) {
-    if (m >= nd) break;
     um[m] = up[m];
   }
   float A[XD][XD], xs[XD], y[XD];
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
     xs[i] = xp[i];
     y[i] = xs[i];
 #pragma unroll
     for (int j = 0; j < XD; ++j) {
-      if (j >= xd) break;
       float s = 0.0f;
 #pragma unroll
       for (int m = 0; m < ND; ++m) {
-        if (m >= nd) break;
         s += um[m] * __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]);
       }
       A[i][j] = h * (__ldg(gd + i * g.d[1] + j * g.d[2]) + s);
@@ -169,25 +114,21 @@ __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigne
     float yn[XD];
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
       float s = 0.0f;
 #pragma unroll
       for (int j = 0; j < XD; ++j) {
-        if (j >= xd) break;
         s += A[i][j] * y[j];
       }
       yn[i] = xs[i] + s / fk;
     }
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
       y[i] = yn[i];
     }
   }
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
     const float ri = xnp[i] - y[i];
     if (r) r[i] = ri;
     acc += fabsf(ri);
@@ -203,15 +144,13 @@ __device__ __forceinline__ float window_residual(unsigned q, unsigned t, unsigne
 template <int XD, int ND, bool L1>
 __global__ void __launch_bounds__(kResBlock) residual_grid_kernel(
     Divisor T, Divisor K, unsigned n, unsigned ipb, int order, Gens g, View u, View dt, View x,
-    View xn, Dims dims, float* __restrict__ out) {
-  constexpr bool GEN = kGeneric<XD, ND>;
-  const int xd = GEN ? dims.xd : XD, nd = GEN ? dims.nd : ND;
+    View xn, float* __restrict__ out) {
   if (!L1) {
     const unsigned w = blockIdx.x * blockDim.x + threadIdx.x;
     if (w >= n) return;
     const unsigned inst = K.div(w), q = T.div(inst);
     window_residual<XD, ND>(q, inst - q * T.d, w - inst * K.d, order, g, u, dt, x, xn,
-                            out + (size_t)w * xd, xd, nd);
+                            out + (size_t)w * XD);
     return;
   }
   extern __shared__ float part[];
@@ -220,7 +159,7 @@ __global__ void __launch_bounds__(kResBlock) residual_grid_kernel(
   for (unsigned w = threadIdx.x; w < n_here * K.d; w += blockDim.x) {
     const unsigned j = K.div(w), q = T.div(i0 + j);
     part[w] = window_residual<XD, ND>(q, i0 + j - q * T.d, w - j * K.d, order, g, u, dt, x, xn,
-                                      nullptr, xd, nd);
+                                      nullptr);
   }
   __syncthreads();
   if (threadIdx.x < n_here) {
@@ -231,25 +170,16 @@ __global__ void __launch_bounds__(kResBlock) residual_grid_kernel(
   }
 }
 
-// Where K3 puts −J's columns in a row of its d-wide output: the state's
-// x_dim columns from x, the drives' from u, ∂/∂Δt at t (−1: a fixed Δt, no
-// such column). Every other column holds +0.
-struct JacCols {
-  int d, x, u, t;
-};
-
 // K3's blocks: kJacThreads threads; two threads a window below kJacSplitBelow
 // windows, one above (see the note at the top).
 constexpr int kJacThreads = 64;
 constexpr unsigned kJacSplitBelow = 65536;
-constexpr size_t kJacSmem = 48 * 1024;       // the output tile (no opt-in)
 
 // G = Gd + Σ_m u_m·Gv_m and A = Δt·G of window k of instance (q, t); returns Δt.
 template <int XD, int ND>
 __device__ __forceinline__ float window_generator(unsigned q, unsigned t, unsigned k,
                                                   const Gens& g, const View& u, const View& dt,
-                                                  float (&G)[XD][XD], float (&A)[XD][XD],
-                                                  int xd, int nd) {
+                                                  float (&G)[XD][XD], float (&A)[XD][XD]) {
   const float* gd = g.gd + q * g.d[0];
   const float* gv = g.gv + q * g.v[0];
   const float h = dt.p[q * dt.s[0] + t * dt.s[1] + k * dt.s[2]];
@@ -257,19 +187,15 @@ __device__ __forceinline__ float window_generator(unsigned q, unsigned t, unsign
   float um[ND];
 #pragma unroll
   for (int m = 0; m < ND; ++m) {
-    if (m >= nd) break;
     um[m] = up[m];
   }
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
 #pragma unroll
     for (int j = 0; j < XD; ++j) {
-      if (j >= xd) break;
       float s = 0.0f;
 #pragma unroll
       for (int m = 0; m < ND; ++m) {
-        if (m >= nd) break;
         s += um[m] * __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]);
       }
       G[i][j] = __ldg(gd + i * g.d[1] + j * g.d[2]) + s;
@@ -282,15 +208,12 @@ __device__ __forceinline__ float window_generator(unsigned q, unsigned t, unsign
 // E, the Taylor polynomial of A: E ← I + A·E/k, each column a chain of its
 // own; −E goes to the XD columns of o from its first (row stride d).
 template <int XD>
-__device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float* o, int d,
-                                      int xd) {
+__device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float* o, int d) {
   float E[XD][XD];
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
 #pragma unroll
     for (int c = 0; c < XD; ++c) {
-      if (c >= xd) break;
       E[i][c] = (i == c) ? 1.0f : 0.0f;
     }
   }
@@ -299,14 +222,11 @@ __device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float
     float En[XD][XD];
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
 #pragma unroll
       for (int c = 0; c < XD; ++c) {
-        if (c >= xd) break;
         float s = 0.0f;
 #pragma unroll
         for (int j = 0; j < XD; ++j) {
-          if (j >= xd) break;
           s += A[i][j] * E[j][c];
         }
         En[i][c] = ((i == c) ? 1.0f : 0.0f) + s / fk;
@@ -314,20 +234,16 @@ __device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float
     }
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
 #pragma unroll
       for (int c = 0; c < XD; ++c) {
-        if (c >= xd) break;
         E[i][c] = En[i][c];
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
 #pragma unroll
     for (int c = 0; c < XD; ++c) {
-      if (c >= xd) break;
       o[i * d + c] = -E[i][c];
     }
   }
@@ -340,23 +256,19 @@ __device__ __forceinline__ void jac_e(int order, const float (&A)[XD][XD], float
 template <int XD, int ND>
 __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv, const Gens& g,
                                              const float (&G)[XD][XD], const float (&A)[XD][XD],
-                                             const float* xp, float* o, const JacCols& c, int xd,
-                                             int nd) {
+                                             const float* xp, float* o, const JacCols& c) {
   const bool free_time = c.t >= 0;
   float xs[XD], y[XD], ydt[XD], ydu[ND][XD];
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
     xs[i] = xp[i];
     y[i] = xs[i];
     ydt[i] = 0.0f;
   }
 #pragma unroll
   for (int m = 0; m < ND; ++m) {
-    if (m >= nd) break;
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
       ydu[m][i] = 0.0f;
     }
   }
@@ -364,15 +276,12 @@ __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv
     const float fk = (float)k;
 #pragma unroll
     for (int m = 0; m < ND; ++m) {
-      if (m >= nd) break;
       float nxt[XD];
 #pragma unroll
       for (int i = 0; i < XD; ++i) {
-        if (i >= xd) break;
         float gy = 0.0f, ay = 0.0f;
 #pragma unroll
         for (int j = 0; j < XD; ++j) {
-          if (j >= xd) break;
           gy += __ldg(gv + m * g.v[1] + i * g.v[2] + j * g.v[3]) * y[j];
           ay += A[i][j] * ydu[m][j];
         }
@@ -380,7 +289,6 @@ __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv
       }
 #pragma unroll
       for (int i = 0; i < XD; ++i) {
-        if (i >= xd) break;
         ydu[m][i] = nxt[i];
       }
     }
@@ -388,11 +296,9 @@ __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv
       float nxt[XD];
 #pragma unroll
       for (int i = 0; i < XD; ++i) {
-        if (i >= xd) break;
         float gy = 0.0f, ay = 0.0f;
 #pragma unroll
         for (int j = 0; j < XD; ++j) {
-          if (j >= xd) break;
           gy += G[i][j] * y[j];
           ay += A[i][j] * ydt[j];
         }
@@ -400,34 +306,28 @@ __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv
       }
 #pragma unroll
       for (int i = 0; i < XD; ++i) {
-        if (i >= xd) break;
         ydt[i] = nxt[i];
       }
     }
     float yn[XD];
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
       float s = 0.0f;
 #pragma unroll
       for (int j = 0; j < XD; ++j) {
-        if (j >= xd) break;
         s += A[i][j] * y[j];
       }
       yn[i] = xs[i] + s / fk;
     }
 #pragma unroll
     for (int i = 0; i < XD; ++i) {
-      if (i >= xd) break;
       y[i] = yn[i];
     }
   }
 #pragma unroll
   for (int i = 0; i < XD; ++i) {
-    if (i >= xd) break;
 #pragma unroll
     for (int m = 0; m < ND; ++m) {
-      if (m >= nd) break;
       o[i * c.d + c.u + m] = -ydu[m][i];
     }
     if (free_time) o[i * c.d + c.t] = -ydt[i];
@@ -440,18 +340,16 @@ __device__ __forceinline__ void jac_tangents(int order, float h, const float* gv
 // (no divergence within a warp); with GS = 1 a thread runs both. Each
 // window's XD × d rows are assembled in shared memory (+0 where J has no
 // column), and the block stores its windows' rows, one contiguous span of
-// out (n, XD, d). The generic kernel's block holds blockDim.x / GS windows.
+// out (n, XD, d).
 template <int XD, int ND, int GS>
 __global__ void __launch_bounds__(kJacThreads) window_jac_kernel(
     Divisor T, Divisor K, unsigned n, int order, Gens g, View u, View dt, View x, JacCols c,
-    Dims dims, float* __restrict__ out) {
-  constexpr bool GEN = kGeneric<XD, ND>;
-  const int xd = GEN ? dims.xd : XD, nd = GEN ? dims.nd : ND;
-  const unsigned W = GEN ? blockDim.x / GS : kJacThreads / GS;  // windows per block
+    float* __restrict__ out) {
+  constexpr unsigned W = kJacThreads / GS;  // windows per block
   extern __shared__ float tile[];
   const unsigned w0 = blockIdx.x * W;
   const unsigned n_here = n - w0 < W ? n - w0 : W;
-  const unsigned span = xd * c.d;  // output floats per window
+  const unsigned span = XD * c.d;  // output floats per window
   for (unsigned i = threadIdx.x; i < n_here * span; i += blockDim.x) tile[i] = 0.0f;
   __syncthreads();
   const unsigned role = threadIdx.x / W, lw = threadIdx.x % W;
@@ -459,52 +357,47 @@ __global__ void __launch_bounds__(kJacThreads) window_jac_kernel(
     const unsigned w = w0 + lw, inst = K.div(w), q = T.div(inst);
     const unsigned t = inst - q * T.d, k = w - inst * K.d;
     float G[XD][XD], A[XD][XD];
-    const float h = window_generator<XD, ND>(q, t, k, g, u, dt, G, A, xd, nd);
+    const float h = window_generator<XD, ND>(q, t, k, g, u, dt, G, A);
     float* o = tile + lw * span;
-    if (GS == 1 || role == 0) jac_e<XD>(order, A, o + c.x, c.d, xd);
+    if (GS == 1 || role == 0) jac_e<XD>(order, A, o + c.x, c.d);
     if (GS == 1 || role == 1)
       jac_tangents<XD, ND>(order, h, g.gv + q * g.v[0], g, G, A,
-                           x.p + (q * x.s[0] + t * x.s[1] + k * x.s[2]), o, c, xd, nd);
+                           x.p + (q * x.s[0] + t * x.s[1] + k * x.s[2]), o, c);
   }
   __syncthreads();
   float* dst = out + (size_t)w0 * span;
   for (unsigned i = threadIdx.x; i < n_here * span; i += blockDim.x) dst[i] = tile[i];
 }
 
-// The generic kernel's windows per block W fill at most kJacSmem with their
-// output tile (W · x_dim · d floats), up to kJacThreads / GS.
+// A block's windows, kJacThreads / GS, fill at most kJacSmem with their
+// output tile (W · XD · d floats).
 template <int XD, int ND>
 int launch_jac(int P, int T, int K, int order, const Gens& g, const View& u, const View& dt,
-               const View& x, const JacCols& c, const Dims& dims, float* out, cudaStream_t s) {
+               const View& x, const JacCols& c, float* out, cudaStream_t s) {
   const unsigned n = (unsigned)P * (unsigned)T * (unsigned)K;
   if (n == 0) return 0;
   const bool split = n < kJacSplitBelow;
-  const unsigned GS = split ? 2 : 1;
-  constexpr bool GEN = kGeneric<XD, ND>;
-  const size_t per_window = sizeof(float) * dims.xd * c.d;
-  unsigned W = kJacThreads / GS;
-  if (GEN && W * per_window > kJacSmem) W = (unsigned)(kJacSmem / per_window);
-  const size_t smem = W * per_window;
-  if (W == 0 || smem > kJacSmem) return (int)cudaErrorInvalidValue;
-  const unsigned threads = GEN ? W * GS : kJacThreads;
+  const unsigned W = kJacThreads / (split ? 2 : 1);
+  const size_t smem = sizeof(float) * W * XD * c.d;
+  if (smem > kJacSmem) return (int)cudaErrorInvalidValue;
   if (split)
-    window_jac_kernel<XD, ND, 2><<<(n + W - 1) / W, threads, smem, s>>>(
-        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, dims, out);
+    window_jac_kernel<XD, ND, 2><<<(n + W - 1) / W, kJacThreads, smem, s>>>(
+        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, out);
   else
-    window_jac_kernel<XD, ND, 1><<<(n + W - 1) / W, threads, smem, s>>>(
-        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, dims, out);
+    window_jac_kernel<XD, ND, 1><<<(n + W - 1) / W, kJacThreads, smem, s>>>(
+        Divisor(T), Divisor(K), n, order, g, u, dt, x, c, out);
   return (int)cudaGetLastError();
 }
 
 template <int XD, int ND, bool L1>
 int launch_res(int P, int T, int K, int order, const Gens& g, const View& u, const View& dt,
-               const View& x, const View& xn, const Dims& dims, float* out, cudaStream_t s) {
+               const View& x, const View& xn, float* out, cudaStream_t s) {
   const unsigned n_inst = (unsigned)P * (unsigned)T;
   if (!L1) {
     const unsigned n = n_inst * (unsigned)K;
     if (n == 0) return 0;
     residual_grid_kernel<XD, ND, false><<<(n + kResBlock - 1) / kResBlock, kResBlock, 0, s>>>(
-        Divisor(T), Divisor(K), n, 0, order, g, u, dt, x, xn, dims, out);
+        Divisor(T), Divisor(K), n, 0, order, g, u, dt, x, xn, out);
     return (int)cudaGetLastError();
   }
   const int ipb = res_instances(K);
@@ -513,7 +406,7 @@ int launch_res(int P, int T, int K, int order, const Gens& g, const View& u, con
   const int used = K < 1 ? kResBlock : ipb * K;
   const int threads = used >= kResBlock ? kResBlock : (used + 31) / 32 * 32;
   residual_grid_kernel<XD, ND, true><<<(n_inst + ipb - 1) / ipb, threads, smem, s>>>(
-      Divisor(T), Divisor(K), n_inst, ipb, order, g, u, dt, x, xn, dims, out);
+      Divisor(T), Divisor(K), n_inst, ipb, order, g, u, dt, x, xn, out);
   return (int)cudaGetLastError();
 }
 
@@ -533,7 +426,7 @@ bool narrow(int n, const long long* size, const long long* st, int* out) {
 // Half-open column ranges [a, a + na) and [b, b + nb) share no column.
 bool apart(int a, int na, int b, int nb) { return na == 0 || nb == 0 || a + na <= b || b + nb <= a; }
 
-// The generic kernel's range: the Pallas kernels' caps.
+// The kernels' range: the Pallas kernels' caps.
 bool in_range(int xd, int nd) { return xd >= 1 && xd <= kDimMax && nd >= 0 && nd <= kDimMax; }
 
 }  // namespace
@@ -545,10 +438,14 @@ bool in_range(int xd, int nd) { return xd >= 1 && xd <= kDimMax && nd >= 0 && nd
 // columns (Δt −1 for a fixed Δt). Writes −J as (P, T, K, xd, d),
 // contiguous. Returns cudaErrorInvalidValue, launching nothing, where P·T·K
 // or a view's element offset exceeds 2³¹ − 1, where J's columns fall outside
-// [0, d) or overlap, or where a block's output tile (up to kJacThreads
-// windows × xd × d floats) exceeds kJacSmem, or where (xd, nd) is outside
-// 1 ≤ xd ≤ 8, 0 ≤ nd ≤ 8. Exact kernels at (xd, nd) = (4, 2) and (2, 1),
-// as dto_residual; the generic kernel at the others.
+// [0, d) or overlap, or where (xd, nd) is outside 1 ≤ xd ≤ 8, 0 ≤ nd ≤ 8,
+// or where a block's output tile exceeds kJacSmem: at the exact shapes a
+// block's kJacThreads / GS windows × xd × d floats; at the others a warp's
+// windows, 32 / G × xd × d floats with G the size class's threads a window
+// (d ≤ 384 at x_dim 8; the size-class kernel takes fewer windows a block
+// where a whole block's tile would not fit). Exact kernels at (xd, nd) =
+// (4, 2) and (2, 1), as dto_residual; the size-class kernels
+// (expv_classed.cu) at the others.
 extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, const void* Gd,
                               const void* Gv, const void* u, const void* dt, const void* x,
                               const long long* st, void* out, void* stream) {
@@ -573,10 +470,9 @@ extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, co
     return (int)cudaErrorInvalidValue;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  const Dims dims{xd, nd};
-  if (xd == 4 && nd == 2) return launch_jac<4, 2>(P, T, K, order, g, vu, vd, vx, c, dims, o, s);
-  if (xd == 2 && nd == 1) return launch_jac<2, 1>(P, T, K, order, g, vu, vd, vx, c, dims, o, s);
-  return launch_jac<kDimMax, kDimMax>(P, T, K, order, g, vu, vd, vx, c, dims, o, s);
+  if (xd == 4 && nd == 2) return launch_jac<4, 2>(P, T, K, order, g, vu, vd, vx, c, o, s);
+  if (xd == 2 && nd == 1) return launch_jac<2, 1>(P, T, K, order, g, vu, vd, vx, c, o, s);
+  return launch_jac_classed(P, T, K, order, g, vu, vd, vx, c, Dims{xd, nd}, o, s);
 }
 
 // K4 on the trial grid: P problems × T trial slots × K windows. Gd (P, xd, xd)
@@ -591,7 +487,7 @@ extern "C" int dto_window_jac(int P, int T, int K, int xd, int nd, int order, co
 // outside 1 ≤ xd ≤ 8, 0 ≤ nd ≤ 8. Exact kernels at (4, 2), the bilinear
 // benchmark's 4-D state with 2 drives, and (2, 1), the state-constrained
 // family's 2-D state with one drive (ops/expv_kernel.py, SUPPORTED_SHAPES);
-// the generic kernel at the others.
+// the size-class kernels (expv_classed.cu) at the others.
 extern "C" int dto_residual(int P, int T, int K, int xd, int nd, int order, int l1,
                             const void* Gd, const void* Gv, const void* u, const void* dt,
                             const void* x, const void* xn, const long long* st, void* out,
@@ -611,13 +507,11 @@ extern "C" int dto_residual(int P, int T, int K, int xd, int nd, int order, int 
     return (int)cudaErrorInvalidValue;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  const Dims dims{xd, nd};
   if (xd == 4 && nd == 2)
-    return l1 ? launch_res<4, 2, true>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s)
-              : launch_res<4, 2, false>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s);
+    return l1 ? launch_res<4, 2, true>(P, T, K, order, g, vu, vd, vx, vn, o, s)
+              : launch_res<4, 2, false>(P, T, K, order, g, vu, vd, vx, vn, o, s);
   if (xd == 2 && nd == 1)
-    return l1 ? launch_res<2, 1, true>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s)
-              : launch_res<2, 1, false>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s);
-  return l1 ? launch_res<kDimMax, kDimMax, true>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s)
-            : launch_res<kDimMax, kDimMax, false>(P, T, K, order, g, vu, vd, vx, vn, dims, o, s);
+    return l1 ? launch_res<2, 1, true>(P, T, K, order, g, vu, vd, vx, vn, o, s)
+              : launch_res<2, 1, false>(P, T, K, order, g, vu, vd, vx, vn, o, s);
+  return launch_res_classed(l1 != 0, P, T, K, order, g, vu, vd, vx, vn, Dims{xd, nd}, o, s);
 }

@@ -14,8 +14,8 @@ on correctly rounded division and square root (nvcc's defaults
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
 show that its main path went through the kernels; :data:`INSTANCES` counts
-the K1/K2 launches a second time, by CUDA kernel, and so overlaps
-:data:`LAUNCHES` (see there). :func:`route` decides, as
+the K1/K2 launches and the size-class K3/K4 launches a second time, by CUDA
+kernel, and so overlaps :data:`LAUNCHES` (see there). :func:`route` decides, as
 the JAX package's ``pallas_eligible`` and ``window_jac_eligible`` do without
 their VMEM terms, whether a call takes the kernel or its plain PyTorch
 version; :data:`PLAIN_CALLS` counts the float32 calls on the card that the
@@ -46,19 +46,21 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 # launches by kernel: K1 and K2 (grouped, column or size-class; by CUDA
-# kernel in INSTANCES); K3 and K4 at their exact shapes and their generic
-# instantiations
+# kernel in INSTANCES); K3 and K4 at their exact shapes, and under
+# ``*_generic`` at every other shape (the size-class kernels; by class in
+# INSTANCES)
 LAUNCHES = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
             "residual_l1": 0, "window_jac_generic": 0, "residual_generic": 0,
             "residual_l1_generic": 0}
 # float32 calls on the card that the shape caps sent to the plain version, by wrapper
 PLAIN_CALLS = {"factor_solve": 0, "resolve": 0, "window_jac": 0, "residual": 0,
                "residual_l1": 0}
-# K1/K2 launches by CUDA kernel, as -Xptxas -v names it, with their
-# template arguments (``factor_solve_grouped<10,3,3>``,
-# ``resolve_columns<4,1>``, ``factor_solve_classed<8,4,8>``); counted beside
+# K1/K2 and size-class K3/K4 launches by CUDA kernel, as -Xptxas -v names
+# it, with their template arguments (``factor_solve_grouped<10,3,3>``,
+# ``resolve_columns<4,1>``, ``factor_solve_classed<8,4,8>``,
+# ``window_jac_classed<8,2>``, ``residual_classed<8,2,1>``); counted beside
 # LAUNCHES, by the same launches: LAUNCHES's ``factor_solve`` / ``resolve``
-# are the sums of their instances' counts.
+# and ``*_generic`` are the sums of their instances' counts.
 INSTANCES: dict = {}
 
 # The Pallas kernels' shape caps (directtrajopt_tpu/ops/riccati_kernel.py

@@ -35,9 +35,13 @@ f64 to XLA; a CUDA float32 tensor launches the kernel
 and n_drives ≤ 8, and takes the plain version beyond them (counted in
 ``_build.PLAIN_CALLS``). Within the caps, a shape in
 :data:`SUPPORTED_SHAPES` runs its exact instantiation and any other the
-generic one, counted under ``window_jac_generic``, ``residual_generic`` and
-``residual_l1_generic``. The plain versions are ports of
-``_window_jac_xla`` and ``_res_xla`` and take the same arguments as the
+size-class kernels (``csrc/expv_classed.cu``: a group of threads a window,
+registers sized by the first class of :data:`SIZE_CLASSES` that holds the
+shape, :func:`size_class`), counted under ``window_jac_generic``,
+``residual_generic`` and ``residual_l1_generic`` and, by class, in
+``_build.INSTANCES`` (``window_jac_classed<8,2>``,
+``residual_classed<8,2,1>`` for the L1 form). The plain versions are ports
+of ``_window_jac_xla`` and ``_res_xla`` and take the same arguments as the
 wrappers.
 """
 
@@ -53,14 +57,21 @@ __all__ = [
     "window_jac", "window_jac_plain", "window_jac_zk", "window_jac_zk_plain",
     "residual_action", "residual_action_plain",
     "residual_l1", "residual_l1_plain",
-    "SUPPORTED_SHAPES",
+    "SUPPORTED_SHAPES", "SIZE_CLASSES", "design", "size_class",
 ]
 
 # (x_dim, n_drives) pairs with an exact instantiation in csrc/expv_kernel.cu:
 # the bilinear benchmark's 4-D state with 2 drives, and the
-# state-constrained family's 2-D state with 1 drive; the generic kernels
+# state-constrained family's 2-D state with 1 drive; the size-class kernels
 # take the rest of the caps
 SUPPORTED_SHAPES = {(4, 2), (2, 1)}
+# (x_dim, n_drives) classes of the size-class kernels (csrc/expv_classed.cu),
+# in the order the C entries try them: a shape takes the first that holds
+# it, its kernel a group of pow2(XC) threads a window with registers for XC
+# states and NDC drives. (6, 2) holds a qutrit's state as a real vector,
+# (8, 2) the scaling family's state_dim 8 (path 7c), without eight drives'
+# tangents.
+SIZE_CLASSES = ((2, 2), (4, 2), (6, 2), (8, 2), (4, 8), (8, 8))
 # the residual kernel's 19 element strides go in one array (one argument for
 # all of them, which halves the cost of the ctypes call); the window
 # Jacobian's 16 strides go with its column map (d, o_x, o_u, o_t)
@@ -131,9 +142,37 @@ def _unit_last(*ts) -> bool:
     return all(t.shape[-1] <= 1 or t.stride(-1) == 1 for t in ts)
 
 
+def design(xd: int, nd: int) -> str:
+    """The kernel a float32 call on the card within the caps takes:
+    "exact" (its own instantiation) or "classed" (a size-class kernel)."""
+    return "exact" if (xd, nd) in SUPPORTED_SHAPES else "classed"
+
+
+def size_class(xd: int, nd: int) -> tuple:
+    """The (XC, NDC) class of :data:`SIZE_CLASSES` whose kernels a call at
+    (x_dim, n_drives) without an exact instantiation takes: the first that
+    holds it, as the C entries choose. ValueError beyond the caps."""
+    if not (1 <= xd <= _build.EXPV_CAPS["xd"] and 0 <= nd <= _build.EXPV_CAPS["nd"]):
+        raise ValueError(f"(x_dim, n_drives) = {(xd, nd)} has no size class")
+    return next(c for c in SIZE_CLASSES if xd <= c[0] and nd <= c[1])
+
+
 def _launch_key(key: str, xd: int, nd: int) -> str:
-    """The launch-count key of the exact (``key``) or generic instantiation."""
-    return key if (xd, nd) in SUPPORTED_SHAPES else f"{key}_generic"
+    """The launch-count key of the exact (``key``) or size-class
+    (``{key}_generic``) kernel."""
+    return key if design(xd, nd) == "exact" else f"{key}_generic"
+
+
+def _count(key: str, xd: int, nd: int) -> None:
+    """Count a launch of wrapper ``key``'s kernel under its launch key and,
+    for a size-class kernel, under its name in ``_build.INSTANCES``."""
+    if design(xd, nd) == "exact":
+        _build.LAUNCHES[key] += 1
+        return
+    xc, ndc = size_class(xd, nd)
+    kernel = (f"window_jac_classed<{xc},{ndc}>" if key == "window_jac" else
+              f"residual_classed<{xc},{ndc},{int(key == 'residual_l1')}>")
+    _build.count_launch(_launch_key(key, xd, nd), kernel)
 
 
 def window_jac_zk_plain(order, Gd, Gv, u, dt, x, cols, d):
@@ -206,7 +245,7 @@ def window_jac_zk(order: int, Gd, Gv, u, dt, x, cols, d):
         # error 1 (invalid value): P·T·K or a view's offsets beyond 2^31 − 1,
         # columns outside the knot or overlapping, or d too wide for the tile
         _build.check_rc(rc, f"window_jac on {P} x {T} x {K}, d={d}")
-        _build.LAUNCHES[_launch_key("window_jac", xd, nd)] += 1
+        _count("window_jac", xd, nd)
     return out
 
 
@@ -240,7 +279,7 @@ def _res_launch(order, l1, Gd, Gv, u, dt, x, xn):
         # error 1 (invalid value): P·T·K or a view's offsets beyond 2^31 − 1, or
         # the L1 form's partials beyond the kernel's shared memory
         _build.check_rc(rc, f"{'residual_l1' if l1 else 'residual_action'} on {P} x {T} x {K}")
-        _build.LAUNCHES[_launch_key("residual_l1" if l1 else "residual", xd, nd)] += 1
+        _count("residual_l1" if l1 else "residual", xd, nd)
     return out
 
 

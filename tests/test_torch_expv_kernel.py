@@ -125,6 +125,101 @@ def test_state_constrained_shape_f32_matches_pallas_interpret(B):
                                np.abs(ref_r).sum(axis=(-2, -1)), rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("xd,nd", [(3, 1), (6, 2), (8, 2)])
+def test_size_class_shapes_f32_match_jax(xd, nd):
+    """The plain K3/K4 at shapes of the size-class kernels, float32, Taylor
+    order 6, free and fixed Δt, 4 lanes × 5 windows: K4 (both forms)
+    against the Pallas kernel in interpret mode to 2e-6 (the L1 form
+    relative to max(Σ|r|, 1)), K3 against it at (3,1) and against its
+    float32 XLA version (``_window_jac_xla``, which the JAX package's tests
+    hold the Pallas kernel to) at x_dim 6 and 8, where the Pallas
+    interpreter takes 15 s to 2 minutes to trace K3 on the CPU."""
+    args = _inputs(xd + 10 * nd, 4, 5, xd, nd, np.float32, with_xn=True)
+    args[0] *= 0.5
+    args[1] *= 0.5
+    jargs = list(map(jnp.asarray, args))
+    for free in (True, False):
+        if xd < 6:
+            ref = _window_jac_pallas(6, free, *jargs[:5], interpret=True)
+        else:
+            ref = jax.vmap(lambda *a, f=free: _window_jac_xla(6, f, *a))(*jargs[:5])
+        out = tek.window_jac(6, free, *_t(args[:5]))
+        assert out.shape == (4, 5, xd, xd + nd + free)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6, rtol=0)
+    ref_r = np.asarray(_res_pallas(6, *jargs, interpret=True))
+    np.testing.assert_allclose(tek.residual_action(6, *_one_slot(args))[:, 0].numpy(), ref_r,
+                               atol=2e-6, rtol=0)
+    np.testing.assert_allclose(tek.residual_l1(6, *_one_slot(args))[:, 0].numpy(),
+                               np.abs(ref_r).sum(axis=(-2, -1)), rtol=2e-6, atol=2e-6)
+
+
+def test_size_class_choice_matches_the_kernel_source():
+    """``size_class`` is the C entries' choice: ``expv_classed.cu`` tries
+    the classes of ``SIZE_CLASSES`` in order, each launching its own
+    instantiation, and a shape takes the first that holds it; every shape
+    within the caps has one, none beyond them. The exact shapes take
+    their own kernels (``design``); the size-class kernels skip terms by
+    selects, with no ``break`` in the source."""
+    from directtrajopt_tpu_torch.ops import _build
+
+    src = (Path(tek.__file__).parent.parent / "csrc" / "expv_classed.cu").read_text()
+    for launcher in ("launch_jac_c", "launch_res_l1"):
+        found = re.findall(rf"if \(xd <= (\d+) && nd <= (\d+)\)\s*return {launcher}<(\d+), (\d+)>",
+                           src)
+        assert all(f[:2] == f[2:] for f in found)
+        assert tuple(tuple(map(int, f[:2])) for f in found) == tek.SIZE_CLASSES
+    assert "break;" not in src and src.count("__global__") == 2
+    caps = _build.EXPV_CAPS
+    for xd in range(1, caps["xd"] + 1):
+        for nd in range(caps["nd"] + 1):
+            want = next(c for c in tek.SIZE_CLASSES if xd <= c[0] and nd <= c[1])
+            assert tek.size_class(xd, nd) == want
+            assert tek.design(xd, nd) == ("exact" if (xd, nd) in tek.SUPPORTED_SHAPES
+                                          else "classed")
+    assert tek.size_class(8, 2) == (8, 2) and tek.size_class(6, 2) == (6, 2)
+    assert tek.size_class(7, 1) == (8, 2) and tek.size_class(5, 0) == (6, 2)
+    assert tek.size_class(3, 1) == (4, 2) and tek.size_class(8, 8) == (8, 8)
+    for bad in ((9, 2), (0, 1), (4, 9)):
+        with pytest.raises(ValueError):
+            tek.size_class(*bad)
+
+
+def test_size_class_launches_are_counted_by_kernel(monkeypatch):
+    """On the card a size-class launch counts under the wrapper's
+    ``*_generic`` key and, in ``_build.INSTANCES``, under its CUDA kernel's
+    name; an exact launch only under its own key. (A stand-in library
+    answers the C entries here, where nothing can launch.)"""
+    from directtrajopt_tpu_torch.ops import _build
+
+    class Lib:
+        @staticmethod
+        def dto_window_jac(*a):
+            return 0
+
+        @staticmethod
+        def dto_residual(*a):
+            return 0
+
+    monkeypatch.setattr(_build, "route", lambda *a: "kernel")
+    monkeypatch.setattr(_build, "library", lambda: Lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    _build.reset_launches()
+    try:
+        for xd, nd in ((8, 2), (3, 1), (4, 2)):
+            Gd, Gv, u, dt, x, xn = _one_slot(_inputs(0, 2, 3, xd, nd, np.float32, with_xn=True))
+            tek.window_jac_zk(6, Gd, Gv, u, dt, x, (0, xd, xd + nd), xd + nd + 1)
+            tek.residual_action(6, Gd, Gv, u, dt, x, xn)
+            tek.residual_l1(6, Gd, Gv, u, dt, x, xn)
+        launches, instances = dict(_build.LAUNCHES), dict(_build.INSTANCES)
+    finally:
+        _build.reset_launches()
+    assert launches == dict(factor_solve=0, resolve=0, window_jac=1, residual=1, residual_l1=1,
+                            window_jac_generic=2, residual_generic=2, residual_l1_generic=2)
+    assert instances == {"window_jac_classed<8,2>": 1, "residual_classed<8,2,0>": 1,
+                         "residual_classed<8,2,1>": 1, "window_jac_classed<4,2>": 1,
+                         "residual_classed<4,2,0>": 1, "residual_classed<4,2,1>": 1}
+
+
 def test_kernel_wrapper_rejects_uninstantiated_shapes_only_on_cuda():
     """On the CPU every shape takes the plain version; the exact kernel
     instantiations are the benchmark's (x_dim=4, 2 drives) and the

@@ -206,9 +206,10 @@ def test_generic_expv_plain_matches_jax(xd, nd):
 
 def test_new_instantiations_are_in_the_kernel_sources():
     """The size-class K1/K2 reach the caps, (24, 24, 8) being their widest
-    class, chosen for the shapes past the smaller classes; the generic
-    K3/K4 are the exact templates at the maximum sizes (8, 8), dispatched
-    for any other in-range pair."""
+    class, chosen for the shapes past the smaller classes; the size-class
+    K3/K4 reach them too, (8, 8) being their widest class, and both C
+    entries dispatch every in-range pair without an exact instance to
+    them."""
     src = Path(trk.__file__).parent.parent / "csrc"
     for kind, name in (("factor_solve", "factor"), ("resolve", "resolve")):
         ric = (src / f"riccati_classed_{name}.cu").read_text()
@@ -217,10 +218,14 @@ def test_new_instantiations_are_in_the_kernel_sources():
     assert trk.SIZE_CLASSES[-1] == (24, 24, 8)
     assert _build.RICCATI_CAPS == {"ns": 24, "nv": 24, "R": 40}
     exv = (src / "expv_kernel.cu").read_text()
-    assert "constexpr int kDimMax = 8;" in exv and _build.EXPV_CAPS == {"xd": 8, "nd": 8}
-    assert re.search(r"return launch_jac<kDimMax, kDimMax>\(", exv)
-    assert re.search(r"launch_res<kDimMax, kDimMax, true>\(", exv)
-    assert re.search(r"launch_res<kDimMax, kDimMax, false>\(", exv)
+    common = (src / "expv_common.cuh").read_text()
+    classed = (src / "expv_classed.cu").read_text()
+    assert "constexpr int kDimMax = 8;" in common and _build.EXPV_CAPS == {"xd": 8, "nd": 8}
+    assert re.search(r"return launch_jac_classed\(P, T, K, order, .*Dims\{xd, nd\}", exv)
+    assert re.search(r"return launch_res_classed\(l1 != 0, .*Dims\{xd, nd\}", exv)
+    assert re.search(r"if \(xd <= 8 && nd <= 8\) return launch_jac_c<8, 8>\(", classed)
+    assert re.search(r"if \(xd <= 8 && nd <= 8\)\s*return launch_res_l1<8, 8>\(", classed)
+    assert tek.SIZE_CLASSES[-1] == (8, 8) and tek.size_class(5, 3) == (8, 8)
 
 
 def test_path7e_f64_solve_matches_jax():

@@ -11,11 +11,18 @@ kernel call alone and then for the integrator's entry
 (``residuals_stacked`` / ``residuals_l1_stacked``), which includes making
 the kernel's arguments (copies in older versions of the port, views now). Then K2 at
 (8,3,2) for 256 lanes and at (2,1,2) on path 2's first captured call, and
-with ``--path1`` path 1 end to end at B=8192. DIR defaults to this
+with ``--path1`` path 1 end to end at B=8192. Last, K4 at shapes of the
+size-class kernels (the generic instantiation in older trees), both
+forms: path 7c's trial grid (128 lanes of the scaling family at state_dim
+8, Taylor order 12, max_ls + 2 slots) and the seeded 2048-lane calls of
+``chip_smoke.py`` at (3,1), (6,2) and (8,8); each row with its time bound
+from this checkout's ``chip_smoke.py`` and the SHA-256 digest of its
+output. DIR defaults to this
 checkout; give the parent's tree unpacked into a directory ``.gitignore``
 lists, and run parent and change in turns.
 """
 import argparse
+import hashlib
 import importlib.util
 import sys
 import time
@@ -104,3 +111,33 @@ if a.path1:
     print(f"path 1: seek {times['seek']:.2f} s polish {times['polish']:.2f} s total "
           f"{time.perf_counter() - t0:.2f} s; polish converged {int(res2.converged.sum())}",
           flush=True)
+
+
+
+def sha(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:20]
+
+
+def k4_rows(label, args, n_ops):
+    bound, by = cs.time_bound(cs.nbytes(args), n_ops)
+    print(f"{label}: time bound {bound:.4f} ms ({by})", flush=True)
+    for form, fn in (("L1", ek.residual_l1), ("vector", ek.residual_action)):
+        row(f"{label} {form}", lambda: fn(12, *args), ("residual_",))
+        print(f"{label} {form} output: sha256 {sha(fn(12, *args))}", flush=True)
+
+
+prob = cs.scaled_batch(128, 51, 8, taylor_order=12, dev=dev)
+lay = prob.trajectory.layout
+Zt = cs.trial_grid_7c(prob, dev)
+v = prob.integrators[0]._trial_views(lay, Zt)
+k4_rows(f"K4 (8,2) path 7c {tuple(Zt.shape)}", v,
+        cs.horner_ops(Zt.shape[0] * Zt.shape[1], lay.N - 1, 8, 2, 12, False))
+del prob, Zt, v
+for xd, nd in cs.SEEDED_EXPV:
+    Gd, Gv, u, dt, x, xn = cs.seeded_expv(xd, nd, dev)
+    L, K = dt.shape
+    k4_rows(f"K4 ({xd},{nd}) seeded B={L} x {K}",
+            (Gd, Gv, u[:, None], dt[:, None], x[:, None], xn[:, None]),
+            cs.horner_ops(L, K, xd, nd, 12, False))
+    del Gd, Gv, u, dt, x, xn
+    torch.cuda.empty_cache()
