@@ -33,6 +33,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils.profiling import span
+
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "INSTANCES", "reset_launches", "count_launch", "route",
            "library", "build_info", "stream_ptr"]
 
@@ -159,6 +161,13 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
+    with span("build.library"):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
+    """Hash the sources, then load the library the hash names, or build it."""
+    global _LIB
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs + _headers():

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..module import tree_where
+from ..utils.profiling import span
 from . import assembly
 from .canonical import CanonicalNLP
 
@@ -64,12 +65,16 @@ def _reg_retry(factor, delta_last, opt, active=None):
         return go if active is None else go & active
 
     go = cond(carry)
-    while bool(go.any()):
+    with span("host.sync"):
+        more = bool(go.any())
+    while more:
         delta = carry[0]
         new_delta = torch.where(delta == 0.0, first_bump, delta * opt.delta_w_factor)
         new = (new_delta,) + tuple(factor(new_delta))
         carry = tree_where(go, new, carry)
         go = cond(carry)
+        with span("host.sync"):
+            more = bool(go.any())
     return carry
 
 

@@ -32,6 +32,7 @@ from ..constraints import L1SlackConstraint
 from ..integrators.time_dependent import TimeDependentBilinearIntegrator, td_integration_error
 from ..module import tree_map, tree_take
 from ..problem import DirectTrajOptProblem
+from ..utils.profiling import span
 from .callbacks import IPMCallbacks
 from .canonical import make_nlp
 from .ipm import IPMResult, WarmStart, ipm_solve
@@ -163,23 +164,25 @@ def _make_ops(nlp, backend: str):
 def _solve_impl(problem: DirectTrajOptProblem, options: IPMOptions, backend: str,
                 callbacks: IPMCallbacks | None, warm: WarmStart | None) -> SolveResult:
     options.check_supported(backend)
-    lowered = _lower_order1_td(problem) if backend in ("auto", "riccati") else problem
-    nlp = make_nlp(lowered)
-    ops = _make_ops(nlp, backend)
+    with span("solve.structure"):
+        lowered = _lower_order1_td(problem) if backend in ("auto", "riccati") else problem
+        nlp = make_nlp(lowered)
+        ops = _make_ops(nlp, backend)
     if options.hessian_regularization == "auto":
         # resolved to "inertia", as in the JAX package (see its rationale)
         options = options.replace(hessian_regularization="inertia")
     res = ipm_solve(nlp, problem.trajectory.to_zvec(), options, ops=ops, callbacks=callbacks,
                     warm=warm)
-    # written back into the ORIGINAL problem: the lowering's closure stays out
-    new_prob = problem.replace(trajectory=problem.trajectory.from_zvec(res.Z))
-    td_err = None
-    layout = problem.trajectory.layout
-    for integ in problem.integrators:
-        if isinstance(integ, TimeDependentBilinearIntegrator):
-            zmat = res.Z[:, : layout.N * layout.dim].reshape(-1, layout.N, layout.dim)
-            e = td_integration_error(integ, layout, zmat).amax(-1)
-            td_err = e if td_err is None else torch.maximum(td_err, e)
+    with span("solve.result"):
+        # written back into the ORIGINAL problem: the lowering's closure stays out
+        new_prob = problem.replace(trajectory=problem.trajectory.from_zvec(res.Z))
+        td_err = None
+        layout = problem.trajectory.layout
+        for integ in problem.integrators:
+            if isinstance(integ, TimeDependentBilinearIntegrator):
+                zmat = res.Z[:, : layout.N * layout.dim].reshape(-1, layout.N, layout.dim)
+                e = td_integration_error(integ, layout, zmat).amax(-1)
+                td_err = e if td_err is None else torch.maximum(td_err, e)
     return SolveResult(
         problem=new_prob, iterations=res.iterations, converged=res.converged,
         status=res.status, kkt_error=res.kkt_error, objective=res.objective, ipm=res,
@@ -197,7 +200,8 @@ def _warn_td_accuracy(res: SolveResult) -> None:
     solution exceeds ``TD_ACCURACY_ATOL`` on any lane (one device read)."""
     if res.td_error is None:
         return
-    e = float(res.td_error.max())
+    with span("host.sync"):
+        e = float(res.td_error.max())
     if e > TD_ACCURACY_ATOL:
         warnings.warn(
             f"time-dependent integrator error estimate at the SOLUTION is {e:.2e} > "
@@ -216,8 +220,9 @@ def solve(problem: DirectTrajOptProblem, options: IPMOptions | None = None, *,
     solve (the primal warm start is the trajectory itself). ``backend``:
     "auto" (Riccati when the problem is an explicit OCP, dense otherwise),
     "riccati" or "dense"."""
-    res = _solve_impl(problem, _merge_options(options, kwargs), backend, callbacks, warm)
-    _warn_td_accuracy(res)
+    with span("solve.batch"):
+        res = _solve_impl(problem, _merge_options(options, kwargs), backend, callbacks, warm)
+        _warn_td_accuracy(res)
     return res
 
 
@@ -230,7 +235,8 @@ def solve_batch(problems: DirectTrajOptProblem, options: IPMOptions | None = Non
     with a warning, as in the JAX package, whose batch solver cannot run it."""
     options = _merge_options(options, kwargs)
     options, callbacks = _drop_host_stop(options, callbacks, "solve_batch")
-    return _solve_impl(problems, options, backend, callbacks, warm)
+    with span("solve.batch"):
+        return _solve_impl(problems, options, backend, callbacks, warm)
 
 
 def solve_batch_scheduled(
@@ -264,24 +270,27 @@ def solve_batch_scheduled(
     warm = kwargs.pop("warm", None)
     options = _merge_options(options, kwargs)
     options, callbacks = _drop_host_stop(options, callbacks, "solve_batch_scheduled")
-    res = _solve_impl(problems, options.replace(max_iter=phase1_iter), backend, callbacks, warm)
-    bad = torch.nonzero(~res.converged.cpu())[:, 0]
-    if len(bad) == 0:
-        return res
-    opts2 = options.replace(max_iter=phase2_iter)
-    if mu_init_phase2 is not None:
-        opts2 = opts2.replace(mu_init=mu_init_phase2)
-    ch = min(chunk, res.converged.shape[0])
-    pad = (-len(bad)) % ch
-    idx_all = torch.cat([bad, bad[:1].expand(pad)]).to(res.converged.device)
-    out = res
-    for c0 in range(0, len(idx_all), ch):
-        idx = idx_all[c0:c0 + ch]
-        n = min(ch, len(bad) - c0)  # the chunk's lanes before the padding
-        r = _solve_impl(tree_take(res.problem, idx), opts2, backend, callbacks, None)
-        r = r._replace(iterations=r.iterations + res.iterations[idx])
-        out = tree_map(lambda f, p: f.index_copy(0, idx[:n], p[:n]), out, r)
-    return out
+    with span("solve.batch"):
+        res = _solve_impl(problems, options.replace(max_iter=phase1_iter), backend, callbacks,
+                          warm)
+        with span("host.sync"):
+            bad = torch.nonzero(~res.converged.cpu())[:, 0]
+        if len(bad) == 0:
+            return res
+        opts2 = options.replace(max_iter=phase2_iter)
+        if mu_init_phase2 is not None:
+            opts2 = opts2.replace(mu_init=mu_init_phase2)
+        ch = min(chunk, res.converged.shape[0])
+        pad = (-len(bad)) % ch
+        idx_all = torch.cat([bad, bad[:1].expand(pad)]).to(res.converged.device)
+        out = res
+        for c0 in range(0, len(idx_all), ch):
+            idx = idx_all[c0:c0 + ch]
+            n = min(ch, len(bad) - c0)  # the chunk's lanes before the padding
+            r = _solve_impl(tree_take(res.problem, idx), opts2, backend, callbacks, None)
+            r = r._replace(iterations=r.iterations + res.iterations[idx])
+            out = tree_map(lambda f, p: f.index_copy(0, idx[:n], p[:n]), out, r)
+        return out
 
 
 def _scatter(full, part, idx: torch.Tensor, upd: torch.Tensor):
@@ -322,42 +331,46 @@ def solve_batch_compact(
     options, _ = _drop_host_stop(options, None, "solve_batch_compact")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    B = problems.B
-    dev = problems.trajectory.data[problems.trajectory.names[0]].device
-    ch = min(chunk, B)
-    pad = (-B) % ch
-    n_chunks = (B + pad) // ch
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    cur, out = problems, None
-    for pi, (p_iter, p_mu) in enumerate(phases):
-        opts_p = options.replace(max_iter=int(p_iter))
-        if p_mu is not None:
-            opts_p = opts_p.replace(mu_init=p_mu)
-        carry_phase = carry_duals and pi > 0
-        w_phase = warm if pi == 0 else None
-        # stable sort: unconverged lanes (0) first, original order kept
-        order = torch.argsort(conv.to(torch.int8), stable=True)
-        if pad:
-            order = torch.cat([order, order[-1:].expand(pad)])
-        for idx in order.reshape(n_chunks, ch):
-            todo = ~conv[idx]
-            if not bool(todo.any()):
-                continue
-            if carry_phase:
-                wi = tree_take(out.ipm.state.best_kkt_warm, idx)
-            elif w_phase is not None:
-                wi = tree_take(w_phase, idx)
-            else:
-                wi = None
-            r = _solve_impl(tree_take(cur, idx), opts_p, backend, None, wi)
-            if out is None:
-                out = tree_map(lambda x: x.new_zeros((B,) + x.shape[1:]), r)
-            out = _scatter(out, r, idx, todo)
-            cur = _scatter(cur, r.problem, idx, todo)
-            iters = iters.index_copy(0, idx, torch.where(todo, iters[idx] + r.iterations, iters[idx]))
-            conv = conv.index_copy(0, idx, conv[idx] | (todo & r.converged))
-    return out._replace(problem=cur, iterations=iters, converged=conv)
+    with span("solve.compact"):
+        B = problems.B
+        dev = problems.trajectory.data[problems.trajectory.names[0]].device
+        ch = min(chunk, B)
+        pad = (-B) % ch
+        n_chunks = (B + pad) // ch
+        conv = torch.zeros((B,), dtype=torch.bool, device=dev)
+        iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+        cur, out = problems, None
+        for pi, (p_iter, p_mu) in enumerate(phases):
+            opts_p = options.replace(max_iter=int(p_iter))
+            if p_mu is not None:
+                opts_p = opts_p.replace(mu_init=p_mu)
+            carry_phase = carry_duals and pi > 0
+            w_phase = warm if pi == 0 else None
+            # stable sort: unconverged lanes (0) first, original order kept
+            order = torch.argsort(conv.to(torch.int8), stable=True)
+            if pad:
+                order = torch.cat([order, order[-1:].expand(pad)])
+            for idx in order.reshape(n_chunks, ch):
+                todo = ~conv[idx]
+                with span("host.sync"):
+                    skip = not bool(todo.any())
+                if skip:
+                    continue
+                if carry_phase:
+                    wi = tree_take(out.ipm.state.best_kkt_warm, idx)
+                elif w_phase is not None:
+                    wi = tree_take(w_phase, idx)
+                else:
+                    wi = None
+                r = _solve_impl(tree_take(cur, idx), opts_p, backend, None, wi)
+                if out is None:
+                    out = tree_map(lambda x: x.new_zeros((B,) + x.shape[1:]), r)
+                out = _scatter(out, r, idx, todo)
+                cur = _scatter(cur, r.problem, idx, todo)
+                iters = iters.index_copy(
+                    0, idx, torch.where(todo, iters[idx] + r.iterations, iters[idx]))
+                conv = conv.index_copy(0, idx, conv[idx] | (todo & r.converged))
+        return out._replace(problem=cur, iterations=iters, converged=conv)
 
 
 def cast_problem(problem: DirectTrajOptProblem, dtype: torch.dtype) -> DirectTrajOptProblem:
