@@ -23,6 +23,13 @@ objective the solver reported and the objective at its answer
 (``obj_gap``), and the gap between the objective at its answer and the
 problem's optimum (``opt_gap``, :func:`optimum`). It imports nothing of the
 program.
+
+What the harness reads of it: :func:`layout` from the configuration and
+the traffic, :func:`certificate` of a block of lanes, given the answer
+(``Z``, ``zL``, ``zU``, ``objective``) and the drawn problem (the
+generators ``Gd``, ``Gv``) as two dicts of lane-first tensors, with
+``NUMBERS``, the names of its per-lane numbers; for the faults of
+``readings.py``, :func:`feasible`, :func:`objective` and :func:`controls`.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Layout", "layout", "pins", "bounds", "step_matrix", "residuals", "objective",
-           "optimum", "gradient", "jacobian", "feasible", "certificate"]
+__all__ = ["NUMBERS", "Layout", "layout", "pins", "bounds", "step_matrix", "residuals",
+           "objective", "optimum", "gradient", "jacobian", "feasible", "controls",
+           "certificate"]
 
 F64 = torch.float64
+NUMBERS = ("feas", "stat", "comp", "obj_gap", "opt_gap")
 
 
 class Layout:
@@ -61,8 +70,14 @@ class Layout:
         return slice(self.col(name, k), self.col(name, k) + w)
 
 
-def layout(cfg: dict, state_dim: int) -> Layout:
-    return Layout(cfg["N"], state_dim, cfg["n_drives"], cfg["chain"])
+def layout(cfg: dict, traffic: dict) -> Layout:
+    """The layout of a cell's answers: the state's size is the
+    configuration's, or the traffic's where the configuration leaves it
+    open (the scaling family's sweep)."""
+    n = cfg.get("state_dim") or traffic.get("state_dim")
+    if not n:
+        raise ValueError("neither the configuration nor the traffic gives state_dim")
+    return Layout(cfg["N"], int(n), cfg["n_drives"], cfg["chain"])
 
 
 def pins(cfg: dict, lay: Layout):
@@ -205,11 +220,12 @@ def jacobian(cfg: dict, lay: Layout, Z, Gd, Gv) -> torch.Tensor:
     return J
 
 
-def feasible(cfg: dict, lay: Layout, Z, Gd, Gv) -> torch.Tensor:
+def feasible(cfg: dict, lay: Layout, Z, problem: dict) -> torch.Tensor:
     """The point of the problem nearest Z's controls that meets every
     constraint (float64): Δt clipped to its bounds, u pinned and clipped,
     each lower member of the chain its upper member's difference quotient
     (the last knot's kept) and x rolled out from x_init by Φ."""
+    Gd, Gv = problem["Gd"], problem["Gv"]
     Z = Z.to(F64).clone()
     B, N = Z.shape[0], lay.N
     Zm = Z.view(B, N, lay.d)
@@ -231,12 +247,23 @@ def feasible(cfg: dict, lay: Layout, Z, Gd, Gv) -> torch.Tensor:
     return Z
 
 
-def certificate(cfg: dict, lay: Layout, Z, zL, zU, obj, Gd, Gv) -> dict:
-    """The five numbers of every lane (float64, (B,) each) for an answer Z
-    (B, D) with bound multipliers zL, zU (B, D) and reported objective obj
-    (B,), on generators Gd (B, n, n) and Gv (B, m, n, n)."""
+def controls(cfg: dict, lay: Layout):
+    """The columns of Z that hold every knot's u, knot by knot, and their
+    bound."""
+    u = lay.chain[0]
+    cols = [lay.col(u, k, i) for k in range(lay.N) for i in range(lay.m)]
+    return np.array(cols), cfg["u_bound"]
+
+
+def certificate(cfg: dict, lay: Layout, answer: dict, problem: dict) -> dict:
+    """The five numbers of every lane (float64, (B,) each) for an answer
+    ``Z`` (B, D) with bound multipliers ``zL``, ``zU`` (B, D) and reported
+    ``objective`` (B,), on generators ``Gd`` (B, n, n) and ``Gv`` (B, m, n,
+    n)."""
+    Gd, Gv = problem["Gd"], problem["Gv"]
     dev = Gd.device
-    Z, zL, zU, obj = (t.to(device=dev, dtype=F64) for t in (Z, zL, zU, obj))
+    Z, zL, zU, obj = (answer[k].to(device=dev, dtype=F64)
+                      for k in ("Z", "zL", "zU", "objective"))
     Gd, Gv = Gd.to(F64), Gv.to(F64)
     pin_idx, pin_val = pins(cfg, lay)
     lb_np, ub_np = bounds(cfg, lay)

@@ -1,8 +1,8 @@
 """The comparison that decides ``correct``.
 
 A run's answers are read lane by lane by the configuration's plain
-reference (``certificate``: ``feas``, ``stat``, ``comp``, ``obj_gap``,
-``opt_gap``, each the worst over the lanes the program flagged converged),
+reference (``certificate``, whose per-lane numbers its ``NUMBERS`` names;
+each is taken as the worst over the lanes the program flagged converged),
 beside the share of its lanes that the program did not certify. Where no
 lane was flagged, every certificate number reads infinite. The numbers that
 ``limits/<workload>.json`` lists are compared, each with its limit; the run
@@ -15,14 +15,12 @@ import math
 
 import torch
 
-CERT_NUMBERS = ("feas", "stat", "comp", "obj_gap", "opt_gap")
 
-
-def numbers(lanes: int, flagged: int, certs: list) -> dict:
+def numbers(lanes: int, flagged: int, certs: list, names) -> dict:
     """The run's numbers from its lane counts and the per-lane certificates
-    (dicts of (n,) tensors) of its flagged lanes."""
+    (dicts of (n,) tensors, keyed by ``names``) of its flagged lanes."""
     out = {"uncertified_share": (lanes - flagged) / lanes if lanes else math.inf}
-    for key in CERT_NUMBERS:
+    for key in names:
         vals = [c[key] for c in certs if c[key].numel()]
         out[key] = float(torch.cat(vals).max()) if vals else math.inf
     return out

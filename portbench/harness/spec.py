@@ -8,13 +8,47 @@ is added by adding files:
   source); its ``family`` names ``systems/<family>.py`` (the system under
   test) and its ``reference`` names ``configs/<reference>.py`` (the plain
   reference beside it);
-- ``traffic/<traffic>.json``: the traffic mix, read by ``harness/traffic.py``;
+- ``traffic/<traffic>.json``: the traffic mix, read by the family's draw;
 - ``limits/<workload>.json``: each number that decides ``correct``, its
   limit and the readings the limit was set from;
 - ``metrics/<metric>.py``: a per-layer metric's reader (``read(trace)``,
   returning a number or None), with ``metrics/<metric>.json`` beside it
   where the reader takes data (kernel-name patterns, the functions whose
   calls it counts).
+
+The harness names no problem's data. A family (``systems/<family>.py``)
+gives:
+
+- ``setup(device)``: what the program builds or loads once;
+- ``draw(cfg, traffic, seed, call, device)``: one call's problems, drawn on
+  the device from ``harness/traffic.py``'s ``call_generator(seed, call)``:
+  a dict that ``build`` takes, whose ``problem`` holds the lane-first
+  tensors that define each lane's problem, for the reference to read;
+- ``build(cfg, drawn, device)``: the program's batch of problems;
+- ``solve(cfg, traffic, problem, spans, max_iter=None)``: every stage of
+  the configuration; returns the answer, a dict of lane-first tensors with
+  the flag ``converged`` (``max_iter`` caps every phase, for the warm-up);
+- ``counters()``: the program's launch counters, copied;
+- ``guess(cfg, drawn)``: the drawn initial guess as an answer's ``Z``.
+
+Its reference (``configs/<reference>.py``, plain PyTorch that imports
+nothing of the program) gives:
+
+- ``layout(cfg, traffic)``: what ``certificate`` needs of the answers'
+  shape;
+- ``certificate(cfg, layout, answer, problem)``: the per-lane numbers
+  (float64, (lanes,) each) of a block of flagged lanes, from every key of
+  their answer and of their drawn problem, each a dict;
+- ``NUMBERS``: the names of those numbers, which ``limits/`` may compare;
+- ``BLOCK`` (optional): the lanes it reads at once, where 1024
+  (``run.REFERENCE_BLOCK``) would not fit the card;
+- for ``readings.py``'s faults: ``feasible(cfg, layout, Z, problem)``, the
+  feasible point nearest Z's controls; ``objective(cfg, layout, Z)``;
+  ``controls(cfg, layout)``, the columns of Z that hold the controls and
+  their bound.
+
+A new family is those two files, a configuration, a traffic mix and a
+cell's limits; no file of the harness changes.
 """
 
 from __future__ import annotations

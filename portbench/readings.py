@@ -16,12 +16,14 @@ Jacobians and Riccati sweeps run in full-float32 kernels and TF32 moves only
 search directions that Newton's method corrects.
 
 The faults that the control cannot show, read on the same calls:
-``start_feasible``, a solve that returns its starting guess, made feasible
-by the reference (the chain and the state rolled out from its controls),
-with every lane flagged and the objective reported at it: no feasibility
-number can see it; ``perturbed``, every answer's controls moved by up to
-``PERTURB`` of their bound (uniform, drawn from the seed), the chain and
-the state rolled out again and the objective reported at the new point;
+``start_feasible``, a solve that returns its starting guess (the family's
+``guess``), made feasible by the reference (its ``feasible``, which rolls
+the state out from the guess's controls), with every lane flagged and the
+objective reported at it: no feasibility number can see it;
+``perturbed``, every answer's controls (the columns and the bound that the
+reference's ``controls`` gives) moved by up to ``PERTURB`` of their bound
+(uniform, drawn from the seed), made feasible again and the objective
+reported at the new point;
 ``loose_tol``, the program with every stage's convergence tolerances
 (``tol``, ``acceptable_tol``) ``LOOSEN`` times the stated ones, the step a
 later change might take for speed; ``skip_polish``, where the
@@ -73,15 +75,10 @@ def round_tf32(x):
 
 def tf32_answers(calls: list) -> list:
     """The calls with every float32 number of each answer (Z, the bound
-    multipliers, the objective) rounded to TF32: the answer of a solve held
-    one precision below the configuration's."""
-    out = []
-    for c in calls:
-        a = dict(c["answer"])
-        for k in ("Z", "zL", "zU", "objective"):
-            a[k] = round_tf32(a[k])
-        out.append(dict(c, answer=a))
-    return out
+    multipliers, the objective, whatever else the family returns) rounded
+    to TF32: the answer of a solve held one precision below the
+    configuration's."""
+    return [dict(c, answer={k: round_tf32(v) for k, v in c["answer"].items()}) for c in calls]
 
 
 def start_feasible(prog, calls: list, seed: int) -> list:
@@ -91,13 +88,11 @@ def start_feasible(prog, calls: list, seed: int) -> list:
 
     cfg = prog.cfg
     ref = spec.reference(cfg)
-    lay = ref.layout(cfg, traffic.state_dim(cfg, prog.traffic))
+    lay = ref.layout(cfg, prog.traffic)
     out = []
     for i, c in enumerate(calls):
-        drawn = traffic.draw_call(cfg, prog.traffic, seed, i, prog.device)
-        d = drawn["data"]
-        Z0 = torch.cat([d["x"], *(d[n] for n in cfg["chain"]), d["dt"]], dim=-1)
-        Z = ref.feasible(cfg, lay, Z0.reshape(Z0.shape[0], -1), drawn["Gd"], drawn["Gv"])
+        drawn = prog.drv.draw(cfg, prog.traffic, seed, i, prog.device)
+        Z = ref.feasible(cfg, lay, prog.drv.guess(cfg, drawn), drawn["problem"])
         a = dict(c["answer"], Z=Z.cpu(), zL=torch.zeros_like(Z).cpu(),
                  zU=torch.zeros_like(Z).cpu(), objective=ref.objective(cfg, lay, Z).cpu(),
                  converged=torch.ones_like(c["answer"]["converged"]))
@@ -105,29 +100,28 @@ def start_feasible(prog, calls: list, seed: int) -> list:
     return out
 
 
-PERTURB = 0.05  # share of the control bound by which ``perturbed`` moves u
+PERTURB = 0.05  # share of the control bound by which ``perturbed`` moves the controls
 
 
 def perturbed(prog, calls: list, seed: int) -> list:
-    """The calls with every answer's controls moved and the rest of it
-    rolled out again: a feasible answer that is not the optimum."""
+    """The calls with every answer's controls moved and the answer made
+    feasible again by the reference: a feasible answer that is not the
+    optimum."""
     import torch
 
     cfg = prog.cfg
     ref = spec.reference(cfg)
-    lay = ref.layout(cfg, traffic.state_dim(cfg, prog.traffic))
-    u = lay.chain[0]
+    lay = ref.layout(cfg, prog.traffic)
+    cols, bound = ref.controls(cfg, lay)
     out = []
     for i, c in enumerate(calls):
         a = c["answer"]
         g = traffic.call_generator(seed, -2 - i, prog.device)  # a stream no call draws
         Z = a["Z"].to(prog.device, torch.float64).clone()
-        Zm = Z.view(Z.shape[0], lay.N, lay.d)
-        cols = slice(lay.offsets[u], lay.offsets[u] + lay.m)
-        step = 2 * torch.rand(Zm[:, :, cols].shape, generator=g, dtype=torch.float64,
+        step = 2 * torch.rand((Z.shape[0], len(cols)), generator=g, dtype=torch.float64,
                               device=prog.device) - 1
-        Zm[:, :, cols] += PERTURB * cfg["u_bound"] * step
-        Z = ref.feasible(cfg, lay, Z, a["Gd"].to(prog.device), a["Gv"].to(prog.device))
+        Z[:, cols] += PERTURB * bound * step
+        Z = ref.feasible(cfg, lay, Z, {k: v.to(prog.device) for k, v in c["problem"].items()})
         out.append(dict(c, answer=dict(a, Z=Z.cpu(), objective=ref.objective(cfg, lay, Z).cpu())))
     return out
 

@@ -3,13 +3,17 @@
     python3 portbench/run.py --workload NAME --seed N --seconds S --trace 0|1
 
 from the root of a checkout. The cell ``NAME`` of ``BENCHMARK.json`` names
-a configuration and a traffic mix; their files, the per-layer metrics'
-readers and the cell's limits are found by name (``harness/spec.py``).
+a configuration and a traffic mix; their files, the configuration's family
+and reference, the per-layer metrics' readers and the cell's limits are
+found by name (``harness/spec.py``, which states what a family and a
+reference give). This file names no problem's data: the family draws each
+call's problems and solves them, and the reference reads each lane's
+answer and problem whole.
 
 A run builds (or loads) the port's kernels and warms every shape of the
 cell with one short call, then:
 
-- ``--trace 0``: calls ``solve_batch_compact`` back to back, each call on
+- ``--trace 0``: calls the family's solve back to back, each call on
   fresh problems drawn from the seed and the call's index, for ``S``
   seconds; the call running when they end runs to its end and counts.
   Prints the end-to-end metrics: certified lanes a second over the time from
@@ -20,12 +24,13 @@ cell with one short call, then:
   into the kernel layer recorded; prints the per-layer metrics and the
   breakdown of device time and idle gaps.
 
-Both then free the program's state and judge every lane the calls returned
-with the configuration's plain float64 reference; the last line of standard
-output is one JSON object, whose last key ``compared`` gives each number
-that decided ``correct`` beside its limit (also the last lines of standard
-error). Exits 2 without a CUDA device or with fewer than the cell asks for,
-and 3 if a module of the JAX stack was loaded.
+Both then free the program's state and judge every lane the calls flagged
+with the configuration's plain float64 reference, in blocks of lanes; the
+last line of standard output is one JSON object, whose last key
+``compared`` gives each number that decided ``correct`` beside its limit
+(also the last lines of standard error). Exits 2 without a CUDA device or
+with fewer than the cell asks for, and 3 if a module of the JAX stack was
+loaded.
 """
 
 from __future__ import annotations
@@ -47,10 +52,10 @@ for _p in (str(ROOT), str(HERE)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-from harness import guard, judge, spec, trace, traffic  # noqa: E402
+from harness import guard, judge, spec, trace  # noqa: E402
 
 GIB = float(1 << 30)
-REFERENCE_BLOCK = 1024  # lanes the reference reads at once
+REFERENCE_BLOCK = 1024  # lanes the reference reads at once, where it states no BLOCK
 
 
 def parse(argv=None):
@@ -69,11 +74,11 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _host_answer(ans: dict, drawn: dict) -> dict:
-    """What the reference needs of a call, on the host."""
-    out = {k: v.detach().cpu() for k, v in ans.items()}
-    out.update(Gd=drawn["Gd"].cpu(), Gv=drawn["Gv"].cpu())
-    return out
+def _host_answer(ans: dict, drawn: dict):
+    """What the reference reads of a call, on the host: every tensor the
+    family's solve returned, and the drawn problem's."""
+    return ({k: v.detach().cpu() for k, v in ans.items()},
+            {k: v.detach().cpu() for k, v in drawn["problem"].items()})
 
 
 class Program:
@@ -86,7 +91,7 @@ class Program:
         self.drv.setup(device)
         t0 = time.perf_counter()
         # every shape of the cell, at every phase, one pass each
-        drawn = traffic.draw_call(self.cfg, self.traffic, seed, -1, device)
+        drawn = self.drv.draw(self.cfg, self.traffic, seed, -1, device)
         self.drv.solve(self.cfg, self.traffic, self.drv.build(self.cfg, drawn, device), {},
                        max_iter=1)
         _sync(device)
@@ -94,16 +99,17 @@ class Program:
 
     def call(self, index: int, seed: int | None = None) -> dict:
         """One call on fresh problems (drawn from the run's seed, or
-        ``seed``): its spans and its answer on the host."""
-        drawn = traffic.draw_call(self.cfg, self.traffic, self.seed if seed is None else seed,
-                                  index, self.device)
+        ``seed``): its spans, and its answer and problem on the host."""
+        drawn = self.drv.draw(self.cfg, self.traffic, self.seed if seed is None else seed,
+                              index, self.device)
         spans: dict = {}
         t0 = time.perf_counter()
         ans = self.drv.solve(self.cfg, self.traffic,
                              self.drv.build(self.cfg, drawn, self.device), spans)
         wall = time.perf_counter() - t0
+        answer, problem = _host_answer(ans, drawn)
         return dict(spans=spans, wall_s=wall, passes=sum(s["passes"] for s in spans.values()),
-                    answer=_host_answer(ans, drawn))
+                    answer=answer, problem=problem)
 
 
 def window(prog: Program, seconds: float):
@@ -158,25 +164,28 @@ def traced(prog: Program, metrics: list):
 
 def judge_calls(cell, calls: list, device):
     """Every flagged lane of every call through the plain reference, in
-    blocks; returns the counts and the compared numbers."""
+    blocks of the reference's ``BLOCK`` lanes (``REFERENCE_BLOCK`` where it
+    states none), each block's answer and problem handed over whole;
+    returns the counts and the compared numbers."""
     import torch
 
     ref = spec.reference(cell.config)
-    lay = ref.layout(cell.config, traffic.state_dim(cell.config, cell.traffic))
+    lay = ref.layout(cell.config, cell.traffic)
+    block = int(getattr(ref, "BLOCK", REFERENCE_BLOCK))
     lanes = flagged = 0
     certs = []
     with torch.no_grad():
         for c in calls:
-            a = c["answer"]
-            lanes += a["converged"].numel()
-            idx = torch.nonzero(a["converged"])[:, 0]
+            conv = c["answer"]["converged"]
+            lanes += conv.numel()
+            idx = torch.nonzero(conv)[:, 0]
             flagged += idx.numel()
-            for b0 in range(0, idx.numel(), REFERENCE_BLOCK):
-                i = idx[b0:b0 + REFERENCE_BLOCK]
-                certs.append(ref.certificate(
-                    cell.config, lay, *(a[k][i].to(device) for k in ("Z", "zL", "zU", "objective")),
-                    a["Gd"][i].to(device), a["Gv"][i].to(device)))
-    return lanes, flagged, judge.numbers(lanes, flagged, certs)
+            for b0 in range(0, idx.numel(), block):
+                i = idx[b0:b0 + block]
+                answer = {k: v[i].to(device) for k, v in c["answer"].items()}
+                problem = {k: v[i].to(device) for k, v in c["problem"].items()}
+                certs.append(ref.certificate(cell.config, lay, answer, problem))
+    return lanes, flagged, judge.numbers(lanes, flagged, certs, ref.NUMBERS)
 
 
 def _num(v):

@@ -20,10 +20,11 @@ def test_every_cell_resolves(workload):
     cell = spec.cell(BENCH, workload)
     assert cell.config["family"] and cell.traffic["lanes"] >= cell.traffic["chunk"] >= 1
     drv, ref = spec.system(cell.config), spec.reference(cell.config)
-    for fn in ("setup", "build", "solve", "counters"):
+    for fn in ("setup", "draw", "build", "solve", "counters", "guess"):
         assert callable(getattr(drv, fn))
-    for fn in ("layout", "certificate"):
+    for fn in ("layout", "certificate", "feasible", "objective", "controls"):
         assert callable(getattr(ref, fn))
+    assert ref.NUMBERS and int(getattr(ref, "BLOCK", bench.REFERENCE_BLOCK)) >= 1
     assert cell.limits["numbers"], "a cell is judged by at least one number"
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from directtrajopt_tpu_torch.solvers.canonical import make_nlp
-from harness import spec, traffic
+from harness import spec
 from portbench_helpers import small_cell
 
 WORKLOADS = ["bilinear_n51.rollout8192", "scaled_n51.d4x8192", "scaled_n51.d8x2048"]
@@ -17,10 +17,11 @@ WORKLOADS = ["bilinear_n51.rollout8192", "scaled_n51.d4x8192", "scaled_n51.d8x20
 def _setup(workload, N=6, lanes=3, seed=7):
     cell = small_cell(workload, N=N, lanes=lanes)
     cfg = dict(cell.config, dtype="float64")
-    drawn = traffic.draw_call(cfg, cell.traffic, seed, 0, torch.device("cpu"))
-    prob = spec.system(cfg).build(cfg, drawn, torch.device("cpu"))
+    drv = spec.system(cfg)
+    drawn = drv.draw(cfg, cell.traffic, seed, 0, torch.device("cpu"))
+    prob = drv.build(cfg, drawn, torch.device("cpu"))
     ref = spec.reference(cfg)
-    lay = ref.layout(cfg, traffic.state_dim(cfg, cell.traffic))
+    lay = ref.layout(cfg, cell.traffic)
     return cfg, drawn, prob, ref, lay
 
 
@@ -33,7 +34,7 @@ def test_reference_poses_the_programs_problem(workload):
     Z[:, lay.offsets["dt"]::lay.d] = 0.05 + 0.2 * torch.rand((3, lay.N), generator=g,
                                                               dtype=torch.float64)
     c_prog = nlp.c_eq(Z)
-    c_ref = ref.residuals(cfg, lay, Z, drawn["Gd"], drawn["Gv"])
+    c_ref = ref.residuals(cfg, lay, Z, drawn["problem"]["Gd"], drawn["problem"]["Gv"])
     assert c_prog.shape == c_ref.shape
     torch.testing.assert_close(c_ref, c_prog, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(ref.objective(cfg, lay, Z), nlp.objective(Z), rtol=1e-12,
@@ -54,11 +55,11 @@ def test_reference_jacobian_and_gradient(workload):
     Z = 0.3 * torch.randn((2, lay.D), generator=g, dtype=torch.float64)
     Z[:, lay.offsets["dt"]::lay.d] = 0.1 + 0.1 * torch.rand((2, lay.N), generator=g,
                                                              dtype=torch.float64)
-    J = ref.jacobian(cfg, lay, Z, drawn["Gd"], drawn["Gv"])
+    Gd, Gv = drawn["problem"]["Gd"], drawn["problem"]["Gv"]
+    J = ref.jacobian(cfg, lay, Z, Gd, Gv)
     for b in range(2):
         Ja = torch.autograd.functional.jacobian(
-            lambda z: ref.residuals(cfg, lay, z[None], drawn["Gd"][b:b + 1],
-                                    drawn["Gv"][b:b + 1])[0], Z[b])
+            lambda z: ref.residuals(cfg, lay, z[None], Gd[b:b + 1], Gv[b:b + 1])[0], Z[b])
         torch.testing.assert_close(J[b], Ja, rtol=1e-10, atol=1e-12)
         ga = torch.autograd.functional.jacobian(
             lambda z: ref.objective(cfg, lay, z[None])[0], Z[b])
@@ -74,19 +75,18 @@ def test_certificate_of_a_solve(workload):
     cell = small_cell(workload, N=11, lanes=4)
     prog = bench.Program(cell, 5, torch.device("cpu"))
     call = prog.call(0)
-    a = call["answer"]
+    a, p = call["answer"], call["problem"]
     assert bool(a["converged"].all())
     ref = spec.reference(cell.config)
-    lay = ref.layout(cell.config, traffic.state_dim(cell.config, cell.traffic))
-    c = ref.certificate(cell.config, lay, a["Z"], a["zL"], a["zU"], a["objective"], a["Gd"],
-                        a["Gv"])
+    lay = ref.layout(cell.config, cell.traffic)
+    c = ref.certificate(cell.config, lay, a, p)
     assert float(c["feas"].max()) < 1e-3 and float(c["stat"].max()) < 1e-3
     assert float(c["comp"].max()) < 1e-3 and float(c["obj_gap"].max()) < 1e-6
     Z = a["Z"].clone()
     Z[1, lay.col("x", 5)] += 0.05
     obj = a["objective"].clone()
     obj[2] += 0.05
-    bad = ref.certificate(cell.config, lay, Z, a["zL"], a["zU"], obj, a["Gd"], a["Gv"])
+    bad = ref.certificate(cell.config, lay, dict(a, Z=Z, objective=obj), p)
     assert float(bad["feas"][1]) > 0.04 and float(bad["obj_gap"][2]) > 0.04
     assert float(bad["feas"][0]) == float(c["feas"][0])
 
@@ -96,19 +96,18 @@ def test_feasible_point_and_the_optimum(workload):
     """The reference's feasible point meets every constraint; with the
     chain at 0 it is the optimum, where every number reads 0."""
     cfg, drawn, prob, ref, lay = _setup(workload, N=6, lanes=3)
-    d = drawn["data"]
-    Z0 = torch.cat([d["x"], *(d[n] for n in cfg["chain"]), d["dt"]], dim=-1).reshape(3, -1)
-    Z = ref.feasible(cfg, lay, Z0, drawn["Gd"], drawn["Gv"])
+    Z0 = spec.system(cfg).guess(cfg, drawn)
+    Z = ref.feasible(cfg, lay, Z0, drawn["problem"])
     zero = torch.zeros_like(Z)
-    c = ref.certificate(cfg, lay, Z, zero, zero, ref.objective(cfg, lay, Z), drawn["Gd"],
-                        drawn["Gv"])
+    c = ref.certificate(cfg, lay, dict(Z=Z, zL=zero, zU=zero, objective=ref.objective(cfg, lay, Z)),
+                        drawn["problem"])
     assert float(c["feas"].max()) < 1e-12 and float(c["opt_gap"].min()) > 1e-4
     Zm = Z0.clone().view(3, lay.N, lay.d)
     for name in cfg["chain"]:
         Zm[..., lay.cols(name, 0)] = 0.0
-    Z = ref.feasible(cfg, lay, Zm.view(3, -1), drawn["Gd"], drawn["Gv"])
-    c = ref.certificate(cfg, lay, Z, zero, zero, ref.objective(cfg, lay, Z), drawn["Gd"],
-                        drawn["Gv"])
+    Z = ref.feasible(cfg, lay, Zm.view(3, -1), drawn["problem"])
+    c = ref.certificate(cfg, lay, dict(Z=Z, zL=zero, zU=zero, objective=ref.objective(cfg, lay, Z)),
+                        drawn["problem"])
     assert ref.optimum(cfg) == 0.0
     for k in ("feas", "stat", "opt_gap"):
         assert float(c[k].max()) < 1e-12, k

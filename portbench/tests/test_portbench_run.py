@@ -41,11 +41,12 @@ def test_cpu_trace_run_reads_the_host_side_metrics():
 def test_runs_are_the_same_for_the_same_seed():
     w = "scaled_n51.d8x2048"
     cell = small_cell(w, N=6, lanes=3)
-    a = bench.Program(cell, 2**33 + 5, torch.device("cpu")).call(0)["answer"]
-    b = bench.Program(cell, 2**33 + 5, torch.device("cpu")).call(0)["answer"]
-    c = bench.Program(cell, 2**33 + 6, torch.device("cpu")).call(0)["answer"]
-    assert torch.equal(a["Z"], b["Z"]) and torch.equal(a["Gd"], b["Gd"])
-    assert not torch.equal(a["Gd"], c["Gd"])
+    a = bench.Program(cell, 2**33 + 5, torch.device("cpu")).call(0)
+    b = bench.Program(cell, 2**33 + 5, torch.device("cpu")).call(0)
+    c = bench.Program(cell, 2**33 + 6, torch.device("cpu")).call(0)
+    assert torch.equal(a["answer"]["Z"], b["answer"]["Z"])
+    assert all(torch.equal(v, b["problem"][k]) for k, v in a["problem"].items())
+    assert not torch.equal(a["problem"]["Gd"], c["problem"]["Gd"])
 
 
 def test_without_a_card_no_result(monkeypatch, capsys):
